@@ -12,11 +12,24 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. the segment-sum kernel against its plain version at the memory
      write's shapes, with out-of-range ids and a one-cell worst case
   4. the memory-read kernel against its plain version at the read's shapes
+  4a. the NMS kernel against the plain fixpoint: proposal NMS (1024
+     candidates, class-agnostic, t = 0.9, and t = 0 with the ml_nms
+     bypass) and the multiclass NMS (2048 candidates of 20 classes,
+     t = 0.5), with tied scores, duplicated boxes and a suppression chain
+     deeper than 64; keep sets must be equal
+  4b. the ROIAlign kernel against the plain tap form (v1, f32) and the
+     plain separable form (v4, bf16) at the box pooler's (R = 256, 7 x 7)
+     and the mask pooler's (R = 100, 14 x 14) shapes over p3-p5
+  4c. the mask-paste kernel against its plain version at 100 masks into
+     480 x 640, flips at the 0.5 threshold counted and bounded
   5. the main path: the default config (480x640, ResNet-50, 8192 x 512
      memory, 300 detections, write top-100, bf16) with seeded weights,
      one chunk of frames through `make_episode_runner` with the memory
-     carried; kernel launch counts are zeroed just before that run and
-     read just after it
+     carried; the warm-up chunk runs under the sync debug mode "warn" and
+     lists any synchronising call, the counted chunk under "error" (the
+     frame must not synchronise with the host); kernel launch counts are
+     zeroed just before the counted run and read just after it, and each
+     kernel must have launched its expected count per frame
   6. the card against the plain CPU path on a small config
   7. each kernel's device time beside its plain version, the PyTorch
      library call where one exists, and its bound
@@ -27,11 +40,13 @@ the repository beside it, it exits non-zero before printing a result.
 """
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +57,12 @@ T_FRAMES = 4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# launches of each kernel in one frame of the main path: proposal, final
+# and write NMS; three cascade stages and the mask pooler
+LAUNCHES_PER_FRAME = {"segment_sum": 1, "memory_read": 1, "nms": 3,
+                      "roi_align": 4, "mask_paste": 1}
+STRIDES = (8, 16, 32)
+LEVEL_SHAPES = ((60, 80), (30, 40), (15, 20))     # p3-p5 at 480x640
 
 
 def smi(query: str) -> str:
@@ -75,6 +96,34 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def event_ms(fn, reps: int = 20) -> float:
+    """Time of one fn() call from CUDA events around `reps` eager calls,
+    host waits included: for a plain version that synchronises with the
+    host and so cannot be captured in a graph."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_counters():
+    """Kernel name -> the wrapper whose `launches` counts its launches."""
+    from embodied_object_detection_tpu_torch.ops import (
+        mask_paste, memory_ops, nms, roi_align, segment_sum)
+    return {"segment_sum": segment_sum.segment_sum,
+            "memory_read": memory_ops.memory_read,
+            "nms": nms.nms_keep,
+            "roi_align": roi_align.roi_align_cuda,
+            "mask_paste": mask_paste.paste_masks}
 
 
 def bound_ms(bytes_moved: float, flops: float):
@@ -170,12 +219,218 @@ def check_memory_read(rng):
     return err
 
 
+NMS_CASES = (
+    # (name, candidates, classes, threshold, ml_nms bypass, chain shift);
+    # a 100-px box shifted by `shift` overlaps its chain neighbour above
+    # the threshold and the one after that below it
+    ("proposal NMS, t = 0.9", 1024, 1, 0.9, True, 4.0),
+    ("proposal NMS, t = 0 (ml_nms bypass)", 1024, 1, 0.0, True, 4.0),
+    ("multiclass NMS, 20 classes, t = 0.5", 2048, 20, 0.5, False, 25.0),
+)
+CHAIN = 150
+
+
+def nms_inputs(rng, n, classes, shift):
+    """Score-sorted candidates like the frame's (random boxes over the
+    image; a third of the scores rounded to sixteenths, so many tie
+    exactly; a tenth of the boxes duplicated; 5 % invalid), led by a
+    suppression chain of CHAIN boxes of class 0 with descending scores,
+    sorted as `_nms_core` sorts them."""
+    from embodied_object_detection_tpu_torch.ops import nms
+    xy = rng.uniform(-20, 600, (n, 2)) * np.array([1.0, 0.75])
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 200, (n, 2))], 1)
+    scores = rng.rand(n)
+    scores[::3] = np.round(scores[::3] * 16) / 16
+    dup = rng.choice(n - 1, n // 10, replace=False)
+    boxes[dup] = boxes[dup + 1]
+    cls = rng.randint(0, classes, n)
+    valid = rng.rand(n) > 0.05
+    c = np.arange(CHAIN)
+    boxes[:CHAIN] = np.stack([10 + c * shift, np.full(CHAIN, 100.0),
+                              110 + c * shift, np.full(CHAIN, 180.0)], 1)
+    scores[:CHAIN] = 2.0 - c / CHAIN
+    cls[:CHAIN], valid[:CHAIN] = 0, True
+    b = torch.from_numpy(boxes.astype(np.float32)).cuda()
+    sc = torch.from_numpy(scores.astype(np.float32)).cuda()
+    cl = torch.from_numpy(cls.astype(np.int32)).cuda()
+    v = torch.from_numpy(valid).cuda()
+    _, order = nms.sort_desc(torch.where(v, sc, sc.new_full((), nms.NEG_INF)))
+    return b[order].contiguous(), cl[order].contiguous(), v[order].contiguous()
+
+
+def check_nms(rng):
+    from embodied_object_detection_tpu_torch.ops import nms
+    for name, n, classes, t, ml, shift in NMS_CASES:
+        b, c, v = nms_inputs(rng, n, classes, shift)
+        disabled = ml and not t > 0
+        got = nms.nms_keep(b, c, v, t, disabled)
+        want = nms.nms_keep_plain(b, c, v, t, disabled)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        if differ:
+            raise AssertionError(f"nms {name}: {differ} keep flags differ "
+                                 "from the plain fixpoint")
+        chain = got[:CHAIN].cpu().numpy()
+        expect = v[:CHAIN].cpu().numpy() if disabled \
+            else np.arange(CHAIN) % 2 == 0
+        if not (chain == expect).all():
+            raise AssertionError(f"nms {name}: the {CHAIN}-deep chain is not "
+                                 "resolved greedily")
+        print(f"  {name}: N = {n}, {int(v.sum())} valid, {int(got.sum())} "
+              f"kept, keep set equal to the plain fixpoint, the "
+              f"{CHAIN}-deep chain greedy")
+    phase("4a", "nms keep sets equal the plain fixpoint in every case "
+                "(ties, duplicated boxes, chain deeper than 64)")
+    return 0.0
+
+
+def roi_inputs(rng, r, dtype):
+    """p3-p5 [H, W, 256] levels of `dtype` and [r, 4] boxes whose sides
+    span all three levels' assignment and cross the image border."""
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              .cuda().to(dtype) for h, w in LEVEL_SHAPES]
+    side = np.exp(rng.uniform(np.log(16), np.log(900), r))
+    aspect = np.exp(rng.uniform(-0.7, 0.7, r))
+    bw, bh = side * np.sqrt(aspect), side / np.sqrt(aspect)
+    cx, cy = rng.uniform(-40, 680, r), rng.uniform(-40, 520, r)
+    boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
+    return levels, torch.from_numpy(boxes.astype(np.float32)).cuda()
+
+
+def roi_levels(boxes):
+    from embodied_object_detection_tpu_torch.ops import roi_align
+    return (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
+
+
+def check_roi_align(rng):
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    worst = 0.0
+    for r, size in ((256, 7), (100, 14)):
+        levels, boxes = roi_inputs(rng, r, torch.float32)
+        lvl = roi_levels(boxes)
+        hits = torch.bincount(lvl.long(), minlength=3).tolist()
+        b = boxes.cpu().numpy()
+        outside = int(((b[:, 0] < 0) | (b[:, 1] < 0) | (b[:, 2] > 640) |
+                       (b[:, 3] > 480)).sum())
+        if min(hits) == 0 or outside == 0:
+            raise AssertionError(f"roi_align inputs reach levels {hits} and "
+                                 f"cross the border {outside} times")
+        # the tap form is held on the CPU: there `/ output_size` is a true
+        # division, as in the kernel and the JAX package, while PyTorch's
+        # CUDA division by a Python scalar multiplies by its reciprocal,
+        # which moves bin_w, and so the sample coordinates, by an ulp
+        cpu = ([f.cpu() for f in levels], boxes.cpu(), lvl.cpu())
+        got = ra.roi_align_cuda(levels, boxes, lvl, STRIDES, size, 2).cpu()
+        want = ra._roi_align_taps(cpu[0], cpu[1], STRIDES, size, 2, cpu[2])
+        err32 = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst = max(worst, err32)
+
+        levels16 = [f.to(torch.bfloat16) for f in levels]
+        got16 = ra.roi_align_cuda(levels16, boxes, lvl, STRIDES, size, 2)
+        v1 = ra._roi_align_taps([f.cpu() for f in levels16], cpu[1],
+                                STRIDES, size, 2, cpu[2])
+        v4 = ra._roi_align_matmul(levels16, boxes, STRIDES, size, 2, lvl)
+        torch.cuda.synchronize()
+        fmax = max(float(f.float().abs().max()) for f in levels16)
+        err_v1 = (got16.float().cpu() - v1).abs()
+        if not bool((err_v1 <= 2.0 ** -8 * v1.abs() + 1e-6).all()):
+            raise AssertionError(f"roi_align bf16 differs from v1 by "
+                                 f"{float(err_v1.max())}")
+        err_v4 = float((got16.float() - v4.float()).abs().max())
+        tol_v4 = 2.0 ** -7 * fmax
+        if not err_v4 <= tol_v4:
+            raise AssertionError(f"roi_align bf16 differs from v4 by "
+                                 f"{err_v4} > {tol_v4}")
+        print(f"  R = {r}, {size}x{size}: rois per level {hits}, {outside} "
+              f"cross the border; f32 vs v1 (CPU) max err {err32:.3e} "
+              f"(tolerance rtol/atol 1e-5); bf16 vs v1 (CPU) max err "
+              f"{float(err_v1.max()):.3e} (one bf16 output rounding, "
+              f"<= 2^-8 |v1|); bf16 vs v4 max err {err_v4:.3e} = "
+              f"{err_v4 / fmax:.2e} max|f| (tolerance 2^-7 max|f| = "
+              f"{tol_v4:.3e})")
+    phase("4b", "roi_align agrees with the plain tap form (on the CPU, "
+                "f32, rtol/atol 1e-5) and with the plain v4 (bf16, 2^-7 "
+                "max|features|: v4 rounds its weights, its intermediate and "
+                "its output to bf16, the kernel its output, each at most "
+                "2^-9 of the pooled magnitude)")
+    return worst
+
+
+def paste_inputs(rng, n=100, m=28):
+    probs = rng.rand(n, m, m).astype(np.float32)
+    x0 = rng.uniform(-60, 600, n)
+    y0 = rng.uniform(-60, 440, n)
+    boxes = np.stack([x0, y0, x0 + rng.uniform(4, 400, n),
+                      y0 + rng.uniform(4, 300, n)], 1).astype(np.float32)
+    return torch.from_numpy(probs).cuda(), torch.from_numpy(boxes).cuda()
+
+
+def check_mask_paste(rng):
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    masks, boxes = paste_inputs(rng)
+    worst = 0.0
+    for pixel_major, x_stride in ((True, 1), (False, 8)):
+        kw = dict(x_stride=x_stride, pixel_major=pixel_major)
+        vals = mp.paste_masks(masks, boxes, 480, 640, -1.0, **kw)
+        want_vals = mp.paste_masks_plain(masks, boxes, 480, 640, -1.0, **kw)
+        got = mp.paste_masks(masks, boxes, 480, 640, 0.5, **kw)
+        want = mp.paste_masks_plain(masks, boxes, 480, 640, 0.5, **kw)
+        torch.cuda.synchronize()
+        err = float((vals - want_vals).abs().max())
+        torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
+        flipped = got != want
+        flips = int(flipped.sum())
+        near = bool(((want_vals[flipped] - 0.5).abs() < 1e-5).all())
+        if flips > max(1, got.numel() // 10000) or not near:
+            raise AssertionError(f"mask paste: {flips} flips (near 0.5: "
+                                 f"{near})")
+        worst = max(worst, err)
+        print(f"  pixel_major={pixel_major}, x_stride={x_stride}: values max "
+              f"err {err:.3e} (atol 1e-6); {flips} of {got.numel()} pixels "
+              f"flipped at 0.5, all within 1e-5 of it")
+    phase("4c", "mask_paste agrees with its plain version (at most one flip "
+                "in 10^4 pixels, and only where |plain - 0.5| < 1e-5)")
+    return worst
+
+
+def sync_sites(fn) -> collections.Counter:
+    """Run fn() under the sync debug mode "warn" and count the call stacks
+    (the innermost frames of this repository, and the frame that called
+    into torch) of every synchronising CUDA call it makes."""
+    import traceback
+    sites = collections.Counter()
+
+    inside = []     # only count what fn() does, not the mode switches
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside or "synchroniz" not in str(message):
+            return
+        frames = traceback.extract_stack()[:-2]
+        ours = [f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in frames
+                if str(REPO) in f.filename][-4:]
+        sites[" <- ".join(reversed(ours)) +
+              f" -> {Path(filename).name}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside.append(True)
+            fn()
+        finally:
+            inside.clear()
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
 def run_main_path(profile_dir):
     from embodied_object_detection_tpu_torch.config import DetectorConfig
     from embodied_object_detection_tpu_torch.models.detector import (
         build_detector, frame_inputs, make_episode_runner)
     from embodied_object_detection_tpu_torch.ops import memory_ops
-    from embodied_object_detection_tpu_torch.ops import segment_sum as ss
     from embodied_object_detection_tpu_torch.structures import MemoryState
 
     cfg = DetectorConfig()
@@ -197,20 +452,30 @@ def run_main_path(profile_dir):
     init = MemoryState.zeros(cells, dim, "cuda")
     run = make_episode_runner(model, cfg)
 
+    counters = kernel_counters()
     t0 = time.perf_counter()
-    run(frames, zs, init)
-    torch.cuda.synchronize()
+    syncs = sync_sites(lambda: run(frames, zs, init))
     print(f"  warm-up chunk: {time.perf_counter() - t0:.2f} s")
+    print(f"  synchronising calls in the warm-up chunk (sync debug mode "
+          f"'warn'): {sum(syncs.values())}")
+    for site, n in syncs.items():
+        print(f"    {n} x {site}")
+    if syncs:
+        raise AssertionError("the frame synchronises with the host")
 
-    ss.segment_sum.launches = 0
-    memory_ops.memory_read.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    out = run(frames, zs, init)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(frames, zs, init)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
-    launches = {"segment_sum": ss.segment_sum.launches,
-                "memory_read": memory_ops.memory_read.launches}
-    print(f"  launches in the main-path run: {launches}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"  launches in the main-path run (sync debug mode 'error', no "
+          f"error): {launches}")
 
     chunk_s = [counted_s]
     for _ in range(3):
@@ -252,10 +517,11 @@ def run_main_path(profile_dir):
                                         frames.proj_indices[1])
     if not float(ego1.abs().max()) > 0:
         raise AssertionError("frame 1 read an all-zero memory")
-    for name, n in launches.items():
-        if n != T_FRAMES:
-            raise AssertionError(f"{name} launched {n} times in "
-                                 f"{T_FRAMES} frames, expected one a frame")
+    for name, expected in LAUNCHES_PER_FRAME.items():
+        if launches[name] != expected * T_FRAMES:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {T_FRAMES} "
+                f"frames, expected {expected} a frame")
     print(f"  memory after the chunk: {int((out.memory.obs_count > 0).sum())}"
           f" cells observed, max |feature| "
           f"{float(out.memory.features.abs().max()):.3f}; frame 1 read "
@@ -263,9 +529,9 @@ def run_main_path(profile_dir):
 
     if profile_dir:
         profile_chunk(run, frames, zs, init, Path(profile_dir))
-    phase(5, f"main path ran {T_FRAMES} frames at 480x640: "
-             f"{min(per_frame):.2f} ms/frame (best chunk), every kernel "
-             "launched once a frame, frame 0 wrote, frame 1 read it")
+    phase(5, f"main path ran {T_FRAMES} frames at 480x640 with no host "
+             f"sync: {min(per_frame):.2f} ms/frame (best chunk), launches a "
+             f"frame {LAUNCHES_PER_FRAME}, frame 0 wrote, frame 1 read it")
     return launches, per_frame
 
 
@@ -308,8 +574,8 @@ def profile_chunk(run, frames, zs, init, out_dir):
 
 def check_against_cpu():
     from embodied_object_detection_tpu_torch.config import DetectorConfig
-    from embodied_object_detection_tpu_torch.models.detector import (
-        build_detector, frame_inputs, make_episode_runner)
+    from embodied_object_detection_tpu_torch.models import detector
+    from embodied_object_detection_tpu_torch.ops import mask_paste
     from embodied_object_detection_tpu_torch.structures import MemoryState
 
     cfg = DetectorConfig()
@@ -329,13 +595,29 @@ def check_against_cpu():
     zs = rng.randn(512, 6).astype(np.float32)
     zs[:, -1] = 0.0
     zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
+    # record every paste on both devices, to count threshold flips
+    pasted = {"cpu": [], "cuda": []}
+    paste = detector.paste_masks
+
+    def recording(dev):
+        def spy(masks, boxes, *args, **kwargs):
+            out = paste(masks, boxes, *args, **kwargs)
+            pasted[dev].append((masks, boxes, out))
+            return out
+        return spy
+
     outs = {}
-    for dev in ("cpu", "cuda"):
-        model = build_detector(cfg, seed=3, device=dev)
-        frames = frame_inputs(images, projs, np.array([True, False]), 64, dev)
-        outs[dev] = make_episode_runner(model, cfg)(
-            frames, torch.from_numpy(zs).to(dev),
-            MemoryState.zeros(64, 512, dev))
+    try:
+        for dev in ("cpu", "cuda"):
+            detector.paste_masks = recording(dev)
+            model = detector.build_detector(cfg, seed=3, device=dev)
+            frames = detector.frame_inputs(images, projs,
+                                           np.array([True, False]), 64, dev)
+            outs[dev] = detector.make_episode_runner(model, cfg)(
+                frames, torch.from_numpy(zs).to(dev),
+                MemoryState.zeros(64, 512, dev))
+    finally:
+        detector.paste_masks = paste
     cpu, card = outs["cpu"], outs["cuda"]
     if not torch.equal(cpu.any_detection, card.any_detection.cpu()):
         raise AssertionError("the card and the CPU disagree on writes")
@@ -347,12 +629,37 @@ def check_against_cpu():
         s_g = card.detections.scores[t].cpu()[v_g].sort(
             descending=True).values
         torch.testing.assert_close(s_g, s_c, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(card.memory.features.cpu(), cpu.memory.features,
-                               rtol=1e-3, atol=1e-3)
+    flips = 0
+    for (m_c, b_c, out_c), (_, _, out_g) in zip(pasted["cpu"],
+                                                 pasted["cuda"]):
+        flipped = out_g.cpu() != out_c
+        n = int(flipped.sum())
+        if n:
+            vals = mask_paste.paste_masks_plain(m_c, b_c, h, w, -1.0,
+                                                pixel_major=True)
+            near = bool(((vals[flipped] - 0.5).abs() < 1e-5).all())
+            if n > max(1, out_c.numel() // 10000) or not near:
+                raise AssertionError(f"{n} pasted pixels differ between the "
+                                     f"card and the CPU (near 0.5: {near})")
+        flips += n
+    if len(pasted["cuda"]) != 2 or len(pasted["cpu"]) != 2:
+        raise AssertionError("expected one paste a frame on each device")
+    if flips == 0:
+        torch.testing.assert_close(card.memory.features.cpu(),
+                                   cpu.memory.features, rtol=1e-3, atol=1e-3)
+        memory = "memory rtol/atol 1e-3"
+    else:
+        # a flipped pixel moves a selected pixel's feature to another cell
+        # and shifts the every-8th selection after it: the memories are not
+        # comparable at 1e-3, and the phase says so
+        memory = (f"memory NOT compared: {flips} pasted pixels flipped at "
+                  "0.5 (within the flip bound, all within 1e-5 of 0.5)")
+        print(f"  {memory}")
     if not torch.equal(card.memory.obs_count.cpu(), cpu.memory.obs_count):
         raise AssertionError("observation counts differ")
     phase(6, "small config (64x96, f32): the card matches the plain CPU path "
-             "over 2 frames (scores rtol 1e-4, memory rtol/atol 1e-3, "
+             f"over 2 frames (scores rtol 1e-4, {flips} pasted pixels "
+             f"flipped, {memory}, "
              f"{int(cpu.detections.valid.sum())} detections)")
 
 
@@ -375,7 +682,8 @@ def time_kernels(rng, launches, errs):
     seg = {"name": "segment_sum", "route": "cuda",
            "source": "embodied_object_detection_tpu_torch/csrc/segment_sum.cu",
            "replaces": "embodied_object_detection_tpu/ops/pallas_scatter.py:60",
-           "launches": launches["segment_sum"], "max_abs_err": errs[0],
+           "launches": launches["segment_sum"],
+           "max_abs_err": errs["segment_sum"],
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms}
 
@@ -393,17 +701,128 @@ def time_kernels(rng, launches, errs):
     read = {"name": "memory_read", "route": "cuda",
             "source": "embodied_object_detection_tpu_torch/csrc/memory_read.cu",
             "replaces": "embodied_object_detection_tpu/ops/memory_ops.py:43",
-            "launches": launches["memory_read"], "max_abs_err": errs[1],
+            "launches": launches["memory_read"],
+            "max_abs_err": errs["memory_read"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
-    for k in (seg, read):
+    kernels = [seg, read] + time_nms(rng, launches, errs) + \
+        time_roi_align(rng, launches, errs) + \
+        time_mask_paste(rng, launches, errs)
+    for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.1f} us kernel, "
               f"{k['plain_ms'] * 1e3:.1f} us plain, bound "
               f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}), library "
               f"{'-' if k['library_ms'] is None else '%.1f us' % (k['library_ms'] * 1e3)}")
     phase(7, "kernel device times from CUDA graphs of 20 calls x 10 "
-             "replays, inputs L2-warm")
-    return [seg, read]
+             "replays, inputs L2-warm (the plain NMS, which checks its "
+             "fixpoint on the host, from CUDA events around 20 eager calls)")
+    return kernels
+
+
+def time_nms(rng, launches, errs):
+    """Every NMS shape of the frame; the JSON entry is the multiclass one
+    (2048 candidates, 20 classes), two of the three calls a frame."""
+    from embodied_object_detection_tpu_torch.ops import nms
+    entry = None
+    for name, n, classes, t, ml, shift in NMS_CASES:
+        b, c, v = nms_inputs(rng, n, classes, shift)
+        disabled = ml and not t > 0
+        ms = graph_ms(lambda: nms.nms_keep(b, c, v, t, disabled))
+        plain_ms = event_ms(lambda: nms.nms_keep_plain(b, c, v, t, disabled))
+        # IoU operations of the pairs that need one (i < j, both valid,
+        # one class); the sweep is serial and bound by its latency
+        per_class = torch.bincount(c[v].long(), minlength=classes).tolist()
+        pairs = 0 if disabled else sum(k * (k - 1) // 2 for k in per_class)
+        b_ms, b_by = bound_ms(n * (16 + 4 + 1) + n, 13 * pairs)
+        print(f"  nms, {name}: {ms * 1e3:.1f} us kernel, {plain_ms * 1e3:.1f}"
+              f" us plain, bound {b_ms * 1e3:.3f} us ({b_by}: {pairs} IoUs); "
+              f"the sweep is serial, bound by latency, not by bytes")
+        if classes > 1:
+            entry = {"name": "nms", "route": "cuda",
+                     "source": "embodied_object_detection_tpu_torch/csrc/nms.cu",
+                     "replaces": "embodied_object_detection_tpu/ops/nms.py:51",
+                     "launches": launches["nms"], "max_abs_err": errs["nms"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+    return [entry]
+
+
+def time_roi_align(rng, launches, errs):
+    """Both pooler shapes in bf16; the JSON entry is the box pooler's
+    (R = 256, 7 x 7), three of the four calls a frame."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    entry = None
+    for r, size in ((256, 7), (100, 14)):
+        levels, boxes = roi_inputs(rng, r, torch.bfloat16)
+        lvl = roi_levels(boxes)
+        ms = graph_ms(lambda: ra.roi_align_cuda(levels, boxes, lvl, STRIDES,
+                                                size, 2))
+        plain_ms = graph_ms(lambda: ra._roi_align_taps(levels, boxes, STRIDES,
+                                                       size, 2, lvl))
+        v4_ms = graph_ms(lambda: ra._roi_align_matmul(levels, boxes, STRIDES,
+                                                      size, 2, lvl))
+        c = levels[0].shape[-1]
+        out_elems = r * size * size * c
+        b_ms, b_by = bound_ms(
+            sum(f.numel() * 2 for f in levels) + r * 20 + out_elems * 2,
+            out_elems * (4 * 8 + 1))
+        print(f"  roi_align, R = {r}, {size}x{size}, bf16: {ms * 1e3:.1f} us "
+              f"kernel, {plain_ms * 1e3:.1f} us plain v1, "
+              f"{v4_ms * 1e3:.1f} us plain v4, bound {b_ms * 1e3:.2f} us "
+              f"({b_by})")
+        if entry is None:
+            entry = {"name": "roi_align", "route": "cuda",
+                     "source": "embodied_object_detection_tpu_torch/csrc/roi_align.cu",
+                     "replaces": "embodied_object_detection_tpu/ops/roi_align.py:229",
+                     "launches": launches["roi_align"],
+                     "max_abs_err": errs["roi_align"], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+    return [entry]
+
+
+def time_mask_paste(rng, launches, errs):
+    """The write's paste (100 masks into 480 x 640, pixel-major bool);
+    the yardstick is one F.grid_sample (align_corners=False, zero
+    padding) and the compare, on a sampling grid built beforehand."""
+    import torch.nn.functional as F
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    masks, boxes = paste_inputs(rng)
+    n, m, _ = masks.shape
+    h, w = 480, 640
+    ms = graph_ms(lambda: mp.paste_masks(masks, boxes, h, w, 0.5,
+                                         pixel_major=True))
+    plain_ms = graph_ms(lambda: mp.paste_masks_plain(masks, boxes, h, w, 0.5,
+                                                     pixel_major=True))
+    xs = torch.arange(w, device="cuda", dtype=torch.float32) + 0.5
+    ys = torch.arange(h, device="cuda", dtype=torch.float32) + 0.5
+    bw = (boxes[:, 2] - boxes[:, 0]).clamp(min=1e-4)[:, None]
+    bh = (boxes[:, 3] - boxes[:, 1]).clamp(min=1e-4)[:, None]
+    gx = (xs[None] - boxes[:, 0, None]) / bw * 2.0 - 1.0
+    gy = (ys[None] - boxes[:, 1, None]) / bh * 2.0 - 1.0
+    grid = torch.stack([gx[:, None, :].expand(n, h, w),
+                        gy[:, :, None].expand(n, h, w)], -1).contiguous()
+
+    def library():
+        return F.grid_sample(masks[:, None], grid, mode="bilinear",
+                             padding_mode="zeros",
+                             align_corners=False)[:, 0] >= 0.5
+
+    lib_ms = graph_ms(library)
+    lib_flips = int((library().permute(1, 2, 0) !=
+                     mp.paste_masks_plain(masks, boxes, h, w, 0.5,
+                                          pixel_major=True)).sum())
+    b_ms, b_by = bound_ms(n * m * m * 4 + n * 16 + h * w * n,
+                          h * w * n * 10)
+    print(f"  mask_paste: the grid_sample yardstick disagrees with the plain "
+          f"version on {lib_flips} of {h * w * n} pixels")
+    return [{"name": "mask_paste", "route": "cuda",
+             "source": "embodied_object_detection_tpu_torch/csrc/mask_paste.cu",
+             "replaces": "embodied_object_detection_tpu/ops/mask_paste.py:38",
+             "launches": launches["mask_paste"],
+             "max_abs_err": errs["mask_paste"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib_ms}]
 
 
 def main() -> int:
@@ -425,7 +844,11 @@ def main() -> int:
              f"{torch.cuda.device_count()} card(s)")
     build_kernels()
     rng = np.random.RandomState(123)
-    errs = (check_segment_sum(rng), check_memory_read(rng))
+    errs = {"segment_sum": check_segment_sum(rng),
+            "memory_read": check_memory_read(rng),
+            "nms": check_nms(rng),
+            "roi_align": check_roi_align(rng),
+            "mask_paste": check_mask_paste(rng)}
     launches, _ = run_main_path(args.profile)
     check_against_cpu()
     kernels = time_kernels(rng, launches, errs)

@@ -7,9 +7,10 @@ flags so that an edited source is never served from a stale library.
 Nothing here runs at import time: `load` builds on first use, and
 `build` compiles several sources at once with one nvcc process each.
 
-The entry point of every library takes device pointers and the CUDA
-stream as `void*`, launches on that stream, and returns
-`cudaGetLastError()`; the Python wrapper raises when it is not 0.
+The entry point of every library takes device pointers (and, for the
+ROIAlign's per-level arguments, pointers to small host arrays), ints,
+floats and the CUDA stream as `void*`, launches on that stream, and
+returns `cudaGetLastError()`; the Python wrapper raises when it is not 0.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # source name -> (C symbol, argtypes); every pointer and the stream is void*
 ENTRY_POINTS = {
     # (w, idx, out, rows, lanes, num_cells, stream)
@@ -41,6 +43,18 @@ ENTRY_POINTS = {
     # (features, obs_count, proj, out, dim, height, width, pool, stream)
     "memory_read": ("memory_read_launch",
                     (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # (boxes, classes, valid, mask scratch, keep, n, threshold, disabled,
+    #  stream)
+    "nms": ("nms_launch", (_P, _P, _P, _P, _P, _I, _F, _I, _P)),
+    # (host arrays: level pointers, heights, widths, strides; num_levels,
+    #  boxes, level_ids, out, num_rois, channels, out_size, sampling_ratio,
+    #  is_bf16, stream)
+    "roi_align": ("roi_align_launch",
+                  (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # (masks, boxes, out, n, m, height, width, x_stride, threshold,
+    #  pixel_major, stream)
+    "mask_paste": ("mask_paste_launch",
+                   (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
 }
 
 

@@ -164,10 +164,9 @@ class EmbodiedDetector(nn.Module):
         # unique kept rows, up to k in ascending row order
         r = boxes.shape[0]
         row_kept = torch.zeros((r + 1,), dtype=torch.bool,
-                               device=boxes.device)
-        row_kept[torch.where(rows >= 0, rows, torch.full_like(rows, r))
-                 .long()] = True
-        row_kept = row_kept[:r]
+                               device=boxes.device).scatter_(
+            0, torch.where(rows >= 0, rows, torch.full_like(rows, r)).long(),
+            True)[:r]
         key = row_kept.float() * (2.0 - torch.arange(
             r, device=boxes.device) / r)
         pad = max(0, k - r)

@@ -1,13 +1,18 @@
-"""Padded greedy NMS on the device.
+"""Padded greedy NMS on the device (kernel 3 of the port).
 
-The greedy keep set is computed as the fixpoint of
+The greedy keep set over score-sorted candidates is
 
     keep[j] = valid[j] and no kept i with score_i > score_j and IoU(i,j) > t
 
-over a static [N, N] suppression mask, iterated until it stops changing
-(counterpart of the JAX package's `ops/nms.py`). Orders follow the JAX
-package's tie rules: `jnp.argsort` is stable and `lax.top_k` puts the
-lower index first, so every sort here is `torch.sort(..., stable=True)`.
+within a class (counterpart of the JAX package's `ops/nms.py`). On a CUDA
+tensor `nms_keep` launches `csrc/nms.cu`: a 64-bit-word IoU bitmask and a
+one-block sweep that decides the keep set on the device, with no host
+sync. On a CPU tensor it takes the plain version, the JAX package's
+fixpoint iterated over the static [N, N] suppression mask until it stops
+changing (one host check per iteration). Both give the unique greedy
+solution. Orders follow the JAX package's tie rules: `jnp.argsort` is
+stable and `lax.top_k` puts the lower index first, so every sort here is
+`torch.sort(..., stable=True)`.
 """
 
 from __future__ import annotations
@@ -16,9 +21,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..kernels import build
 from ..structures import Detections, pairwise_iou
 
 NEG_INF = -1e10
+WORD = 64
+MAX_CANDIDATES = WORD * 6144    # the sweep's removed set: <= 48 KB of shared
 
 
 def sort_desc(x: torch.Tensor, k: Optional[int] = None
@@ -61,25 +69,81 @@ def _greedy_keep(iou_mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return active
 
 
+def nms_keep_plain(boxes_s: torch.Tensor, classes_s: torch.Tensor,
+                   valid_s: torch.Tensor, iou_threshold: float,
+                   disabled: bool = False) -> torch.Tensor:
+    """The plain PyTorch version: the dense [N, N] suppression mask (IoU >
+    t, same class, upper triangle, both valid) and the greedy fixpoint."""
+    n = boxes_s.shape[0]
+    iou = pairwise_iou(boxes_s, boxes_s)
+    same_class = classes_s[:, None] == classes_s[None, :]
+    upper = torch.ones((n, n), dtype=torch.bool,
+                       device=boxes_s.device).triu(diagonal=1)
+    iou_mask = (iou > iou_threshold) & same_class & upper & \
+        valid_s[:, None] & valid_s[None, :]
+    if disabled:
+        iou_mask = torch.zeros_like(iou_mask)
+    return _greedy_keep(iou_mask, valid_s)
+
+
+def nms_keep(boxes_s: torch.Tensor, classes_s: torch.Tensor,
+             valid_s: torch.Tensor, iou_threshold: float,
+             disabled: bool = False) -> torch.Tensor:
+    """Greedy keep set [N] bool of score-sorted boxes [N, 4] f32, classes
+    [N] int32 and valid [N] bool; `disabled` suppresses nothing. The
+    bitmask kernel on the card (`csrc/nms.cu`), the plain version on a
+    CPU tensor."""
+    if not build.on_card(boxes_s):
+        return nms_keep_plain(boxes_s, classes_s, valid_s, iou_threshold,
+                              disabled)
+    n = boxes_s.shape[0]
+    if boxes_s.dtype != torch.float32 or boxes_s.shape != (n, 4) or \
+            not boxes_s.is_contiguous():
+        raise ValueError(f"nms_keep: boxes must be contiguous float32 "
+                         f"[N, 4], got {boxes_s.dtype} "
+                         f"{tuple(boxes_s.shape)}")
+    if classes_s.dtype != torch.int32 or classes_s.shape != (n,) or \
+            not classes_s.is_contiguous():
+        raise ValueError(f"nms_keep: classes must be contiguous int32 [{n}], "
+                         f"got {classes_s.dtype} {tuple(classes_s.shape)}")
+    if valid_s.dtype != torch.bool or valid_s.shape != (n,) or \
+            not valid_s.is_contiguous():
+        raise ValueError(f"nms_keep: valid must be contiguous bool [{n}], "
+                         f"got {valid_s.dtype} {tuple(valid_s.shape)}")
+    if classes_s.device != boxes_s.device or \
+            valid_s.device != boxes_s.device:
+        raise ValueError("nms_keep: inputs lie on different devices")
+    if n > MAX_CANDIDATES:
+        raise ValueError(f"nms_keep: {n} candidates; the kernel takes at "
+                         f"most {MAX_CANDIDATES}")
+    launch = build.load("nms")
+    keep = torch.empty((n,), dtype=torch.bool, device=boxes_s.device)
+    if n == 0:
+        return keep
+    mask = torch.empty((n, -(-n // WORD)), dtype=torch.int64,
+                       device=boxes_s.device)
+    build.check_launch(
+        launch(boxes_s.data_ptr(), classes_s.data_ptr(), valid_s.data_ptr(),
+               mask.data_ptr(), keep.data_ptr(), n, float(iou_threshold),
+               int(bool(disabled)), build.stream_handle()), "nms")
+    nms_keep.launches += 1
+    return keep
+
+
+nms_keep.launches = 0
+
+
 def _nms_core(boxes, scores, valid, classes, iou_threshold,
               ml_nms_semantics=False):
     """Sort by score, run greedy NMS. Returns (order, keep, sorted boxes,
     scores, classes)."""
-    n = boxes.shape[0]
     scores = torch.where(valid, scores, scores.new_full((), NEG_INF))
     _, order = sort_desc(scores)
     boxes_s, scores_s = boxes[order], scores[order]
     valid_s, classes_s = valid[order], classes[order]
-    iou = pairwise_iou(boxes_s, boxes_s)
-    same_class = classes_s[:, None] == classes_s[None, :]
-    upper = torch.ones((n, n), dtype=torch.bool,
-                       device=boxes.device).triu(diagonal=1)
-    iou_mask = (iou > iou_threshold) & same_class & upper & \
-        valid_s[:, None] & valid_s[None, :]
-    if ml_nms_semantics and not iou_threshold > 0:
-        # ml_nms treats a threshold <= 0 as "NMS disabled"
-        iou_mask = torch.zeros_like(iou_mask)
-    keep = _greedy_keep(iou_mask, valid_s)
+    # ml_nms treats a threshold <= 0 as "NMS disabled"
+    disabled = ml_nms_semantics and not iou_threshold > 0
+    keep = nms_keep(boxes_s, classes_s, valid_s, iou_threshold, disabled)
     return order, keep, boxes_s, scores_s, classes_s
 
 
@@ -127,8 +191,8 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
     flat_classes = torch.arange(c, dtype=torch.int32,
                                 device=device).repeat(r)
     flat_rows = torch.arange(r, dtype=torch.int32,
-                             device=device).repeat_interleave(c)
-    flat_boxes = boxes.repeat_interleave(c, dim=0)
+                             device=device)[:, None].expand(r, c).reshape(-1)
+    flat_boxes = boxes[:, None, :].expand(r, c, 4).reshape(-1, 4)
     if candidate_cap and candidate_cap < flat_boxes.shape[0]:
         key = torch.where(flat_valid, flat_scores,
                           flat_scores.new_full((), NEG_INF))

@@ -1,9 +1,19 @@
-"""Multilevel ROIAlignV2 (aligned=True) over an FPN pyramid, plain PyTorch.
+"""Multilevel ROIAlignV2 (aligned=True) over an FPN pyramid (kernel 4 of
+the port).
 
 Counterpart of the JAX package's `ops/roi_align.py`: detectron2 level
 assignment, a fixed `sampling_ratio`, and the CUDA ROIAlign clamp rules (a
 sample strictly outside [-1, size] contributes 0; inside, coords clamp to
 [0, size-1], so the border bands read the border pixel at full weight).
+
+On a CUDA tensor `multilevel_roi_align` assigns the levels in PyTorch
+(`assign_levels`, bit-equal to the JAX package's) and launches
+`csrc/roi_align.cu`, which computes the tap form (`impl="v1"`) for every
+`impl`: the v1 math, accumulated in f32 and written in the features'
+type. The JAX default `impl="v4"` is that math re-associated, with bf16
+weights and a bf16 intermediate in a bf16 config (ARCHITECTURE.md
+divergence 3b), so on the card `impl` has no effect. On a CPU tensor
+`impl` picks the plain form:
 
   impl="v4"  separable hat-weight matmuls (the JAX default): per level,
              pooled = Ry @ level @ Rx^T with the s x s window mean folded
@@ -15,10 +25,15 @@ sample strictly outside [-1, size] contributes 0; inside, coords clamp to
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Sequence, Tuple
 
 import torch
+
+from ..kernels import build
+
+IMPLS = ("v1", "v4")
 
 
 def assign_levels(boxes: torch.Tensor, min_level: int, max_level: int,
@@ -105,13 +120,20 @@ def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
                     lvl_of_roi):
     device = boxes.device
     c = features[0].shape[-1]
-    hs = torch.tensor([f.shape[0] for f in features], device=device)
-    ws = torch.tensor([f.shape[1] for f in features], device=device)
-    bases = torch.cumsum(hs * ws, dim=0) - hs * ws
     flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
     lvl = lvl_of_roi.long()
-    roi_stride = torch.tensor(strides, dtype=torch.float32,
-                              device=device)[lvl]
+    # per-ROI level shape, flat offset and stride, selected from Python
+    # ints (no host-to-device copy of a list)
+    roi_h, roi_w, roi_base = (torch.zeros_like(lvl) for _ in range(3))
+    roi_stride = torch.zeros_like(boxes[:, 0])
+    base = 0
+    for li, f in enumerate(features):
+        on = lvl == li
+        roi_h = torch.where(on, f.shape[0], roi_h)
+        roi_w = torch.where(on, f.shape[1], roi_w)
+        roi_base = torch.where(on, base, roi_base)
+        roi_stride = torch.where(on, float(strides[li]), roi_stride)
+        base += f.shape[0] * f.shape[1]
     r = boxes.shape[0]
     x1 = boxes[:, 0] / roi_stride
     y1 = boxes[:, 1] / roi_stride
@@ -126,11 +148,66 @@ def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
     syy = sy[:, :, None].expand(r, p, p) - 0.5
     lattice = (r, p, p)
     vals = _bilinear_flat(flat, sxx, syy,
-                          hs[lvl][:, None, None].expand(lattice),
-                          ws[lvl][:, None, None].expand(lattice),
-                          bases[lvl][:, None, None].expand(lattice))
+                          roi_h[:, None, None].expand(lattice),
+                          roi_w[:, None, None].expand(lattice),
+                          roi_base[:, None, None].expand(lattice))
     vals = vals.reshape(r, output_size, s, output_size, s, c)
     return vals.mean(dim=(2, 4))
+
+
+def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                   lvl_of_roi: torch.Tensor, strides: Tuple[int, ...],
+                   output_size: int, sampling_ratio: int) -> torch.Tensor:
+    """The tap form on the card (`csrc/roi_align.cu`): features per-level
+    [H_l, W_l, C] bf16 or f32, boxes [R, 4] f32, lvl_of_roi [R] int32 in
+    [0, levels) -> [R, S, S, C] in the features' type."""
+    dtype = features[0].dtype
+    c = features[0].shape[-1]
+    r = boxes.shape[0]
+    if dtype not in (torch.bfloat16, torch.float32) or c % 2 or \
+            len(features) > 4:
+        raise ValueError(f"roi_align: up to 4 levels of bf16 or f32 with an "
+                         f"even channel count, got {len(features)} levels "
+                         f"of {dtype} with C={c}")
+    for f in features:
+        if f.dtype != dtype or f.dim() != 3 or f.shape[-1] != c or \
+                not f.is_contiguous() or f.device != boxes.device:
+            raise ValueError(f"roi_align: every level must be a contiguous "
+                             f"[H, W, {c}] {dtype} tensor on {boxes.device}, "
+                             f"got {f.dtype} {tuple(f.shape)} on {f.device}")
+    if boxes.dtype != torch.float32 or boxes.shape != (r, 4) or \
+            not boxes.is_contiguous():
+        raise ValueError(f"roi_align: boxes must be contiguous float32 "
+                         f"[R, 4], got {boxes.dtype} {tuple(boxes.shape)}")
+    if lvl_of_roi.dtype != torch.int32 or lvl_of_roi.shape != (r,) or \
+            not lvl_of_roi.is_contiguous() or \
+            lvl_of_roi.device != boxes.device:
+        raise ValueError(f"roi_align: level ids must be contiguous int32 "
+                         f"[{r}] on {boxes.device}, got {lvl_of_roi.dtype} "
+                         f"{tuple(lvl_of_roi.shape)}")
+    if output_size * sampling_ratio ** 2 > 256:
+        raise ValueError(f"roi_align: output_size * sampling_ratio^2 must be "
+                         f"<= 256, got {output_size} and {sampling_ratio}")
+    launch = build.load("roi_align")
+    out = torch.empty((r, output_size, output_size, c), dtype=dtype,
+                      device=boxes.device)
+    if r == 0:
+        return out
+    nl = len(features)
+    ptrs = (ctypes.c_void_p * nl)(*[f.data_ptr() for f in features])
+    heights = (ctypes.c_int * nl)(*[f.shape[0] for f in features])
+    widths = (ctypes.c_int * nl)(*[f.shape[1] for f in features])
+    strides_c = (ctypes.c_int * nl)(*strides)
+    build.check_launch(
+        launch(ptrs, heights, widths, strides_c, nl, boxes.data_ptr(),
+               lvl_of_roi.data_ptr(), out.data_ptr(), r, c, output_size,
+               sampling_ratio, int(dtype == torch.bfloat16),
+               build.stream_handle()), "roi_align")
+    roi_align_cuda.launches += 1
+    return out
+
+
+roi_align_cuda.launches = 0
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor],
@@ -147,12 +224,17 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
         raise ValueError(
             f"multilevel_roi_align needs contiguous power-of-two strides "
             f"(e.g. (8, 16, 32)); got {strides}")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown ROIAlign impl {impl!r} (the port has v1, "
+                         "v4)")
     lvl_of_roi = assign_levels(boxes, lvls[0], lvls[-1], canonical_box_size,
                                canonical_level) - lvls[0]
+    if build.on_card(boxes):
+        return roi_align_cuda([f.contiguous() for f in features],
+                              boxes.contiguous(), lvl_of_roi,
+                              tuple(strides), output_size, sampling_ratio)
     if impl == "v4":
         return _roi_align_matmul(features, boxes, strides, output_size,
                                  sampling_ratio, lvl_of_roi)
-    if impl == "v1":
-        return _roi_align_taps(features, boxes, strides, output_size,
-                               sampling_ratio, lvl_of_roi)
-    raise ValueError(f"unknown ROIAlign impl {impl!r} (the port has v1, v4)")
+    return _roi_align_taps(features, boxes, strides, output_size,
+                           sampling_ratio, lvl_of_roi)

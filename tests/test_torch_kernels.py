@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from embodied_object_detection_tpu_torch.ops import memory_ops, segment_sum
+from embodied_object_detection_tpu_torch.ops import (
+    mask_paste, memory_ops, nms, roi_align, segment_sum)
 
 pytestmark = pytest.mark.cuda
 
@@ -63,3 +64,94 @@ def test_memory_read_kernel_vs_plain():
     # the same bf16 rounding per tap; the 16-term f32 mean may sum in
     # another order
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,classes,thresh,ml,shift", [
+    (1024, 1, 0.9, True, 4.0),      # proposal NMS
+    (1024, 1, 0.0, True, 4.0),      # proposal NMS, ml_nms bypass
+    (2048, 20, 0.5, False, 25.0),   # final and write multiclass NMS
+])
+def test_nms_kernel_vs_plain(n, classes, thresh, ml, shift):
+    _need_card()
+    rng = np.random.RandomState(18)
+    xy = rng.uniform(-20, 600, (n, 2)) * np.array([1.0, 0.75])
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 200, (n, 2))], 1)
+    scores = rng.rand(n)
+    scores[::3] = np.round(scores[::3] * 16) / 16          # exact ties
+    dup = rng.choice(n - 1, n // 10, replace=False)
+    boxes[dup] = boxes[dup + 1]                            # duplicated boxes
+    cls = rng.randint(0, classes, n)
+    valid = rng.rand(n) > 0.05
+    chain = np.arange(150)            # a suppression chain deeper than 64
+    boxes[:150] = np.stack([10 + chain * shift, np.full(150, 100.0),
+                            110 + chain * shift, np.full(150, 180.0)], 1)
+    scores[:150], cls[:150], valid[:150] = 2.0 - chain / 150, 0, True
+    order = np.argsort(-np.where(valid, scores, -1e10), kind="stable")
+    b = torch.from_numpy(boxes[order].astype(np.float32)).cuda()
+    c = torch.from_numpy(cls[order].astype(np.int32)).cuda()
+    v = torch.from_numpy(valid[order]).cuda()
+    disabled = ml and not thresh > 0
+    got = nms.nms_keep(b, c, v, thresh, disabled)
+    want = nms.nms_keep_plain(b, c, v, thresh, disabled)
+    torch.cuda.synchronize()
+    # the unique greedy solution: equal, not close
+    assert torch.equal(got, want)
+    if not disabled:
+        assert torch.equal(got[:150].cpu(), torch.arange(150) % 2 == 0)
+
+
+@pytest.mark.parametrize("r,size", [(256, 7), (100, 14)])
+def test_roi_align_kernel_vs_plain(r, size):
+    _need_card()
+    rng = np.random.RandomState(19)
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              for h, w in ((60, 80), (30, 40), (15, 20))]
+    side = np.exp(rng.uniform(np.log(16), np.log(900), r))
+    cx, cy = rng.uniform(-40, 680, r), rng.uniform(-40, 520, r)
+    boxes = torch.from_numpy(np.stack(
+        [cx - side / 2, cy - side / 2, cx + side / 2, cy + side / 2],
+        1).astype(np.float32))
+    lvl = (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
+    assert set(lvl.tolist()) == {0, 1, 2}
+    strides = (8, 16, 32)
+    dev = [f.cuda() for f in levels]
+    got = roi_align.roi_align_cuda(dev, boxes.cuda(), lvl.cuda(), strides,
+                                   size, 2).cpu()
+    # held on the CPU, where `/ output_size` is a true division as in the
+    # kernel; the tap sums may be taken in another order
+    want = roi_align._roi_align_taps(levels, boxes, strides, size, 2, lvl)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # bf16 against the separable form: v4 rounds its weights, its
+    # intermediate and its output to bf16, the kernel its output
+    dev16 = [f.to(torch.bfloat16) for f in dev]
+    got16 = roi_align.roi_align_cuda(dev16, boxes.cuda(), lvl.cuda(),
+                                     strides, size, 2)
+    v4 = roi_align._roi_align_matmul(dev16, boxes.cuda(), strides, size, 2,
+                                     lvl.cuda())
+    fmax = max(float(f.float().abs().max()) for f in dev16)
+    assert float((got16.float() - v4.float()).abs().max()) <= 2 ** -7 * fmax
+
+
+@pytest.mark.parametrize("pixel_major,x_stride", [(True, 1), (False, 8)])
+def test_mask_paste_kernel_vs_plain(pixel_major, x_stride):
+    _need_card()
+    rng = np.random.RandomState(20)
+    n = 100
+    masks = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).cuda()
+    x0, y0 = rng.uniform(-60, 600, n), rng.uniform(-60, 440, n)
+    boxes = torch.from_numpy(np.stack(
+        [x0, y0, x0 + rng.uniform(4, 400, n), y0 + rng.uniform(4, 300, n)],
+        1).astype(np.float32)).cuda()
+    kw = dict(x_stride=x_stride, pixel_major=pixel_major)
+    vals = mask_paste.paste_masks(masks, boxes, 480, 640, -1.0, **kw)
+    want_vals = mask_paste.paste_masks_plain(masks, boxes, 480, 640, -1.0,
+                                             **kw)
+    torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
+    got = mask_paste.paste_masks(masks, boxes, 480, 640, 0.5, **kw)
+    want = mask_paste.paste_masks_plain(masks, boxes, 480, 640, 0.5, **kw)
+    torch.cuda.synchronize()
+    # the four taps may sum in another order: a value within f32 rounding
+    # of 0.5 may flip, at most one in 10^4 pixels
+    flipped = got != want
+    assert int(flipped.sum()) <= max(1, got.numel() // 10000)
+    assert bool(((want_vals[flipped] - 0.5).abs() < 1e-5).all())
