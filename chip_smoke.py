@@ -4,7 +4,8 @@
 Run from the repository root:
 
     python3 chip_smoke.py                  # needs one card
-    python3 chip_smoke.py --profile DIR    # also profile one chunk into DIR
+    python3 chip_smoke.py --profile DIR    # also profile one eval chunk and
+                                           # one training step into DIR
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions
@@ -22,7 +23,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      and the mask pooler's (R = 100, 14 x 14) shapes over p3-p5
   4c. the mask-paste kernel against its plain version at 100 masks into
      480 x 640, flips at the 0.5 threshold counted and bounded
-  5. the main path: the default config (480x640, ResNet-50, 8192 x 512
+  4d. the write-selection kernel against its plain version on real
+     pasted masks (480 x 640 x 100) with an empty and a full image row:
+     equal in every element
+  4e. the batched memory-read kernel (B = 4) against four single reads:
+     equal in every element
+  4f. the ROIAlign backward kernel (R = 512, 7 x 7 x 256) against torch
+     autograd of the plain tap form on the CPU in f32 (within
+     contributions x 2^-24 x sum|contribution| per element) and on the
+     card in bf16 (within (contributions + 1) x 2^-8 x sum|contribution|)
+  5. the eval path: the default config (480x640, ResNet-50, 8192 x 512
      memory, 300 detections, write top-100, bf16) with seeded weights,
      one chunk of frames through `make_episode_runner` with the memory
      carried; the warm-up chunk runs under the sync debug mode "warn" and
@@ -33,6 +43,14 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. the card against the plain CPU path on a small config
   7. each kernel's device time beside its plain version, the PyTorch
      library call where one exists, and its bound
+  8. the training path: the default config with seeded weights, 3 AdamW
+     steps at B = 4 frames (2 chunks x 2 frames) of synthetic batches
+     through `engine.train.train`; every loss finite, ms per step, peak
+     device memory, each kernel's launches a step (counts zeroed just
+     before the run, read just after), then one more step under the sync
+     debug mode "warn" listing any synchronising call
+  9. one training step at the 64x96 f32 miniature on the card against
+     the same step on the CPU: losses, gradients and updated parameters
 
 It then prints one JSON line of kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a card, or without the rest of
@@ -57,10 +75,17 @@ T_FRAMES = 4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# launches of each kernel in one frame of the main path: proposal, final
+# launches of each kernel in one frame of the eval path: proposal, final
 # and write NMS; three cascade stages and the mask pooler
 LAUNCHES_PER_FRAME = {"segment_sum": 1, "memory_read": 1, "nms": 3,
-                      "roi_align": 4, "mask_paste": 1}
+                      "roi_align": 4, "mask_paste": 1, "write_select": 1}
+TRAIN_FRAMES = 4        # B: ims_per_batch 2 x 2 frames a chunk
+TRAIN_STEPS = 3
+# launches of each kernel in one training step: one batched read, then per
+# frame the proposal NMS and three cascade stages' pooling and its backward
+LAUNCHES_PER_STEP = {"memory_read_batched": 1, "nms": TRAIN_FRAMES,
+                     "roi_align": 3 * TRAIN_FRAMES,
+                     "roi_align_backward": 3 * TRAIN_FRAMES}
 STRIDES = (8, 16, 32)
 LEVEL_SHAPES = ((60, 80), (30, 40), (15, 20))     # p3-p5 at 480x640
 
@@ -123,7 +148,19 @@ def kernel_counters():
             "memory_read": memory_ops.memory_read,
             "nms": nms.nms_keep,
             "roi_align": roi_align.roi_align_cuda,
-            "mask_paste": mask_paste.paste_masks}
+            "roi_align_backward": roi_align.roi_align_backward_cuda,
+            "mask_paste": mask_paste.paste_masks,
+            "memory_read_batched": memory_ops.memory_read_batched,
+            "write_select": memory_ops.write_select}
+
+
+def zero_counters():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def bound_ms(bytes_moved: float, flops: float):
@@ -225,6 +262,7 @@ NMS_CASES = (
     # the threshold and the one after that below it
     ("proposal NMS, t = 0.9", 1024, 1, 0.9, True, 4.0),
     ("proposal NMS, t = 0 (ml_nms bypass)", 1024, 1, 0.0, True, 4.0),
+    ("training proposal NMS, t = 0.9", 2000, 1, 0.9, True, 4.0),
     ("multiclass NMS, 20 classes, t = 0.5", 2048, 20, 0.5, False, 25.0),
 )
 CHAIN = 150
@@ -280,7 +318,8 @@ def check_nms(rng):
               f"kept, keep set equal to the plain fixpoint, the "
               f"{CHAIN}-deep chain greedy")
     phase("4a", "nms keep sets equal the plain fixpoint in every case "
-                "(ties, duplicated boxes, chain deeper than 64)")
+                "(ties, duplicated boxes, chain deeper than 64; 2000 "
+                "candidates at training)")
     return 0.0
 
 
@@ -394,6 +433,139 @@ def check_mask_paste(rng):
     return worst
 
 
+def select_inputs(rng):
+    """The write selection's inputs as the eval frame gives them: 100
+    masks pasted into 480 x 640 (pixel-major, by the paste kernel), with
+    one image row no mask covers and one every mask covers; a fifth of
+    the detections invalid; random cell ids."""
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    probs, boxes = paste_inputs(rng)
+    masks = mp.paste_masks(probs, boxes, 480, 640, 0.5, pixel_major=True)
+    masks[100] = False
+    masks[101] = True
+    valid = torch.from_numpy(rng.rand(100) > 0.2).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (480, 640)).astype(np.int32)).cuda()
+    return masks.contiguous(), valid, proj
+
+
+def check_write_select(rng):
+    from embodied_object_detection_tpu_torch.ops import memory_ops
+    masks, valid, proj = select_inputs(rng)
+    seg, aug = memory_ops.write_select(masks, valid, proj, 8)
+    seg_p, aug_p = memory_ops.write_select_plain(masks, valid, proj, 8)
+    torch.cuda.synchronize()
+    if not (torch.equal(seg, seg_p) and torch.equal(aug, aug_p)):
+        raise AssertionError(
+            f"write_select differs from its plain version: "
+            f"{int((seg != seg_p).sum())} ids, "
+            f"{int((aug != aug_p).sum())} weights")
+    filled = int((seg >= 0).sum())
+    print(f"  {filled} of {seg.numel()} slots filled; row 100 empty, row "
+          f"101 full; ids and [{aug.shape[0]}, {aug.shape[1]}] rows equal "
+          f"to the plain version")
+    phase("4d", "write_select equals its plain version in every element")
+    return 0.0
+
+
+def check_memory_read_batched(rng, b=TRAIN_FRAMES):
+    from embodied_object_detection_tpu_torch.ops import memory_ops
+    feats = torch.from_numpy(
+        (rng.randn(b, 8192, 512) * 4).astype(np.float32)).cuda()
+    obs = torch.from_numpy(rng.choice([0.0, 1.0, 2.0, 5.0], (b, 8192))
+                           .astype(np.float32)).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (b, 480, 640)).astype(np.int32)).cuda()
+    got = memory_ops.memory_read_batched(feats, obs, proj)
+    singles = torch.stack([memory_ops.memory_read(feats[i], obs[i], proj[i])
+                           for i in range(b)])
+    plain = memory_ops.memory_read_batched_plain(feats, obs, proj)
+    torch.cuda.synchronize()
+    if not torch.equal(got, singles):
+        raise AssertionError(f"memory_read_batched differs from {b} single "
+                             f"reads in {int((got != singles).sum())} values")
+    err = float((got - plain).abs().max())
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+    phase("4e", f"memory_read_batched (B = {b}) equals {b} memory_read "
+                f"calls in every element; max err against its plain "
+                f"version {err:.3e} (rtol/atol 1e-6)")
+    return err
+
+
+def roi_contributions(levels, boxes, lvl, grad, size):
+    """(count [P], abs_sum [P, C]) over the flattened levels: the nonzero
+    tap contributions landing on each position and the sum of their
+    magnitudes, from the plain tap form on the CPU."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    boxes, lvl = boxes.cpu(), lvl.cpu()
+    rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes,
+                                  STRIDES, size, 2, lvl)
+    total = sum(f.shape[0] * f.shape[1] for f in levels)
+    count = torch.zeros(total).index_add_(0, rows.reshape(-1),
+                                          (wgt.reshape(-1) != 0).float())
+    leaves = [f.detach().float().cpu().requires_grad_(True) for f in levels]
+    out = ra._roi_align_taps(leaves, boxes, STRIDES, size, 2, lvl)
+    abs_sum = torch.autograd.grad(out, leaves, grad.abs().float().cpu())
+    return count, torch.cat([a.reshape(-1, a.shape[-1]) for a in abs_sum])
+
+
+def flat_levels(grads):
+    return torch.cat([g.float().cpu().reshape(-1, g.shape[-1])
+                      for g in grads])
+
+
+def check_roi_align_backward(rng, r=512):
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    levels, boxes = roi_inputs(rng, r, torch.float32)
+    lvl = roi_levels(boxes)
+    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32)
+                            ).cuda()
+    shapes = [f.shape[:2] for f in levels]
+    count, abs_sum = roi_contributions(levels, boxes, lvl, grad, 7)
+
+    got = ra.roi_align_backward_cuda(grad, shapes, boxes, lvl, STRIDES, 2,
+                                     torch.float32)
+    # the plain tap form on the CPU, whose divisions are the kernel's
+    leaves = [f.cpu().requires_grad_(True) for f in levels]
+    want = torch.autograd.grad(
+        ra._roi_align_taps(leaves, boxes.cpu(), STRIDES, 7, 2, lvl.cpu()),
+        leaves, grad.cpu())
+    err = (flat_levels(got) - flat_levels(want)).abs()
+    bound = count[:, None] * 2.0 ** -24 * abs_sum
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"roi_align backward f32: max err "
+                             f"{float(err.max())} beyond the atomics bound")
+    worst = float(err.max())
+
+    levels16 = [f.to(torch.bfloat16).requires_grad_(True) for f in levels]
+    g16 = grad.to(torch.bfloat16)
+    got16 = ra.roi_align_backward_cuda(g16, shapes, boxes, lvl, STRIDES, 2,
+                                       torch.bfloat16)
+    want16 = torch.autograd.grad(
+        ra._roi_align_taps(levels16, boxes, STRIDES, 7, 2, lvl), levels16,
+        g16.float())
+    torch.cuda.synchronize()
+    _, abs16 = roi_contributions(levels16, boxes, lvl, g16, 7)
+    err16 = (flat_levels(got16) - flat_levels(want16)).abs()
+    tol16 = (count[:, None] + 1) * 2.0 ** -8 * abs16
+    if not bool((err16 <= tol16).all()):
+        raise AssertionError(f"roi_align backward bf16: max err "
+                             f"{float(err16.max())} beyond (n + 1) 2^-8 "
+                             f"sum|c|")
+    print(f"  R = {r}, 7x7x256: up to {int(count.max())} contributions on "
+          f"one position; f32 vs plain v1 autograd (CPU) max err "
+          f"{worst:.3e}, max err / bound "
+          f"{float((err / bound.clamp(min=1e-30)).max()):.3f}; bf16 vs the "
+          f"card's plain v1 autograd max err {float(err16.max()):.3e}, "
+          f"max err / bound {float((err16 / tol16.clamp(min=1e-30)).max()):.3f}")
+    phase("4f", "roi_align backward within contributions x 2^-24 x "
+                "sum|contribution| of the plain v1 on the CPU (f32), and "
+                "within (contributions + 1) x 2^-8 x sum|contribution| of "
+                "the card's plain v1 (bf16, which rounds every partial sum "
+                "to bf16)")
+    return worst
+
+
 def sync_sites(fn) -> collections.Counter:
     """Run fn() under the sync debug mode "warn" and count the call stacks
     (the innermost frames of this repository, and the frame that called
@@ -452,7 +624,6 @@ def run_main_path(profile_dir):
     init = MemoryState.zeros(cells, dim, "cuda")
     run = make_episode_runner(model, cfg)
 
-    counters = kernel_counters()
     t0 = time.perf_counter()
     syncs = sync_sites(lambda: run(frames, zs, init))
     print(f"  warm-up chunk: {time.perf_counter() - t0:.2f} s")
@@ -463,8 +634,7 @@ def run_main_path(profile_dir):
     if syncs:
         raise AssertionError("the frame synchronises with the host")
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -473,7 +643,7 @@ def run_main_path(profile_dir):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counters()
     print(f"  launches in the main-path run (sync debug mode 'error', no "
           f"error): {launches}")
 
@@ -528,30 +698,33 @@ def run_main_path(profile_dir):
           f"max |ego| {float(ego1.abs().max()):.3f}")
 
     if profile_dir:
-        profile_chunk(run, frames, zs, init, Path(profile_dir))
-    phase(5, f"main path ran {T_FRAMES} frames at 480x640 with no host "
+        profile_run(lambda: run(frames, zs, init), Path(profile_dir),
+                    "chunk", T_FRAMES, "frame")
+    phase(5, f"eval path ran {T_FRAMES} frames at 480x640 with no host "
              f"sync: {min(per_frame):.2f} ms/frame (best chunk), launches a "
              f"frame {LAUNCHES_PER_FRAME}, frame 0 wrote, frame 1 read it")
     return launches, per_frame
 
 
-def profile_chunk(run, frames, zs, init, out_dir):
+def profile_run(fn, out_dir, tag, units, unit):
+    """Profile one fn() call: op table and chrome trace under out_dir,
+    host sync and copy calls, device busy time per `unit`."""
     from torch.profiler import ProfilerActivity, profile
     out_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run(frames, zs, init)
+        fn()
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    (out_dir / "chunk_ops.txt").write_text(table)
-    trace = out_dir / "chunk_trace.json"
+    (out_dir / f"{tag}_ops.txt").write_text(table)
+    trace = out_dir / f"{tag}_trace.json"
     prof.export_chrome_trace(str(trace))
     print("\n".join(table.splitlines()[:30]))
     trace_events = json.loads(trace.read_text())["traceEvents"]
     waits = {name: sum(1 for e in trace_events if e.get("name") == name)
              for name in ("cudaStreamSynchronize", "cudaMemcpyAsync")}
-    print(f"  host calls in the chunk: {waits}")
+    print(f"  host calls in the {tag}: {waits}")
     # device busy time = union of kernel / copy / set intervals
     events = sorted(
         (e["ts"], e["ts"] + e["dur"]) for e in trace_events
@@ -566,9 +739,9 @@ def profile_chunk(run, frames, zs, init, out_dir):
             cur[1] = max(cur[1], e)
     busy += cur[1] - cur[0]
     span = max(e for _, e in events) - events[0][0]
-    print(f"  profiled chunk: {len(events)} device ops, device busy "
+    print(f"  profiled {tag}: {len(events)} device ops, device busy "
           f"{busy / 1e3:.2f} ms of a {span / 1e3:.2f} ms span "
-          f"({busy / 1e3 / T_FRAMES:.2f} ms/frame busy; idle share "
+          f"({busy / 1e3 / units:.2f} ms/{unit} busy; idle share "
           f"{1 - busy / span:.3f} under the profiler)")
 
 
@@ -663,7 +836,171 @@ def check_against_cpu():
              f"{int(cpu.detections.valid.sum())} detections)")
 
 
-def time_kernels(rng, launches, errs):
+def run_train_path(profile_dir):
+    """Phase 8: the default config's training step through the loop."""
+    import shutil
+    import tempfile
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.data.synthetic import (
+        synthetic_batch_fn)
+    from embodied_object_detection_tpu_torch.engine.train import train
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.parallel.train_step import (
+        batch_to_device, make_train_step)
+
+    base = DetectorConfig()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg = base.replace(
+        solver=dataclasses.replace(base.solver, ims_per_batch=2),
+        input=dataclasses.replace(base.input, max_sequence_length=2),
+        output_dir=out_dir)
+    model = build_detector(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(8)
+    zs = rng.randn(cfg.roi.zs_weight_dim,
+                   cfg.roi.num_classes + 1).astype(np.float32)
+    zs[:, -1] = 0.0
+    zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
+    batch_fn = synthetic_batch_fn(cfg, TRAIN_FRAMES)
+    stamps, nonfinite = [], []
+
+    def hook(it, state, losses):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        finite = torch.isfinite(torch.stack(list(losses.values()))).tolist()
+        nonfinite.extend(f"step {it}: {k}"
+                         for k, ok in zip(losses, finite) if not ok)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        state = train(model, cfg, None, zs, max_iter=TRAIN_STEPS,
+                      log_period=1, seed=0, verbose=True, batch_fn=batch_fn,
+                      step_hook=hook)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        lines = (Path(out_dir) / "metrics.json").read_text().splitlines()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    step_ms = [(stamps[0] - t0) * 1e3] + [
+        (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    if nonfinite:
+        raise AssertionError(f"non-finite losses: {nonfinite}")
+    if len(lines) != TRAIN_STEPS:
+        raise AssertionError(f"{len(lines)} metrics lines for {TRAIN_STEPS} "
+                             "steps")
+    print(f"  launches in the {TRAIN_STEPS}-step run: {launches}")
+    for name, fn in kernel_counters().items():
+        expected = LAUNCHES_PER_STEP.get(name, 0) * TRAIN_STEPS
+        if launches[name] != expected:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{TRAIN_STEPS} steps, expected {expected}")
+    print(f"  ms per step (host clock between synchronised step ends): "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)}; steps 2-3 mean "
+          f"{np.mean(step_ms[1:]):.1f}")
+    print(f"  peak device memory: {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+
+    # one more step, under the sync debug mode "warn"
+    _, step_fn = make_train_step(model, cfg, state.optimizer)
+    batch = batch_to_device(batch_fn(TRAIN_STEPS, np.random.RandomState(9),
+                                     1), "cuda")
+    zs_d = torch.from_numpy(zs).cuda()
+    syncs = sync_sites(lambda: step_fn(state, batch, zs_d))
+    print(f"  synchronising calls in one step (sync debug mode 'warn'): "
+          f"{sum(syncs.values())}")
+    for site, n in syncs.items():
+        print(f"    {n} x {site}")
+    if profile_dir:
+        profile_run(lambda: step_fn(state, batch, zs_d), Path(profile_dir),
+                    "train_step", TRAIN_FRAMES, "frame")
+    phase(8, f"training path: {TRAIN_STEPS} AdamW steps at B = "
+             f"{TRAIN_FRAMES} (480x640, bf16), losses finite, "
+             f"{np.mean(step_ms[1:]):.1f} ms/step (steps 2-3), peak "
+             f"{peak / 2 ** 30:.2f} GiB, launches a step "
+             f"{LAUNCHES_PER_STEP}, {sum(syncs.values())} synchronising "
+             f"calls in a step")
+    return launches, step_ms, peak
+
+
+def check_train_against_cpu():
+    """Phase 9: one training step at the 64x96 f32 miniature on the card
+    and on the CPU, from the same seeded weights and batch."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.data.synthetic import (
+        synthetic_train_batch)
+    from embodied_object_detection_tpu_torch.engine.solver import (
+        build_optimizer)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.parallel.train_step import (
+        batch_losses, batch_to_device)
+
+    cfg = DetectorConfig()
+    cfg = cfg.replace(
+        compute_dtype="float32",
+        backbone=dataclasses.replace(cfg.backbone, depths=(1, 1, 1, 1)),
+        input=dataclasses.replace(cfg.input, height=64, width=96,
+                                  max_gt_boxes=4),
+        centernet=dataclasses.replace(cfg.centernet, pre_nms_topk_train=64,
+                                      post_nms_topk_train=16),
+        roi=dataclasses.replace(cfg.roi, detections_per_image=8,
+                                num_classes=5),
+        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=4))
+    batch = synthetic_train_batch(cfg, np.random.RandomState(2), 2, 1)
+    zs = np.random.RandomState(4).randn(512, 6).astype(np.float32)
+    zs[:, -1] = 0.0
+    zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_detector(cfg, seed=3, device=dev)
+        opt = build_optimizer(model, cfg.solver)
+        total, losses = batch_losses(model, cfg, batch_to_device(batch, dev),
+                                     torch.from_numpy(zs).to(dev), 0)
+        total.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        opt.step()
+        res[dev] = ({k: float(v.detach()) for k, v in losses.items()}, grads,
+                    {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    dict(zip(opt.names, opt.mults)), opt.lr(0))
+    (l_c, g_c, p_c, mult, lr0), (l_g, g_g, p_g, _, _) = res["cpu"], \
+        res["cuda"]
+    for k in l_c:
+        if not abs(l_g[k] - l_c[k]) <= 1e-4 * abs(l_c[k]) + 1e-6:
+            raise AssertionError(f"phase 9 loss {k}: card {l_g[k]} vs CPU "
+                                 f"{l_c[k]}")
+    if set(g_c) != set(g_g):
+        raise AssertionError("the card and the CPU differ on which "
+                             "parameters get a gradient")
+    grad_rel = max(float((g_g[n] - g_c[n]).abs().max()) /
+                   max(float(g_c[n].abs().max()), 1e-30) for n in g_c)
+    if grad_rel > 1e-3:
+        raise AssertionError(f"phase 9 gradients differ by {grad_rel:.3e} "
+                             "of a tensor's largest")
+    # AdamW's first step moves each element by lr * mult * (g / (|g| +
+    # eps) + wd * p), at most lr * mult * (1 + wd |p|): the two devices'
+    # parameters may differ by twice that (a gradient near 0 can change
+    # sign) plus an f32 rounding of p
+    worst = 0.0
+    for n in p_c:
+        bound = 2.0 * lr0 * mult[n] * (1 + 1e-4 * p_c[n].abs()) + \
+            2.0 ** -23 * p_c[n].abs()
+        diff = (p_g[n] - p_c[n]).abs()
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"phase 9 parameter {n} differs by "
+                                 f"{float(diff.max())}")
+        worst = max(worst, float((diff / bound).max()))
+    phase(9, f"one training step at 64x96 f32 (B = 2, one padding row): "
+             f"the card matches the CPU, losses within rtol 1e-4, "
+             f"gradients within {grad_rel:.2e} of each tensor's largest "
+             f"(tolerance 1e-3), updated parameters within "
+             f"{worst:.3f} of 2 lr mult (1 + wd |p|) + 2^-23 |p|")
+
+
+def time_kernels(rng, launches, train_launches, errs):
     from embodied_object_detection_tpu_torch.ops import memory_ops
     from embodied_object_detection_tpu_torch.ops import segment_sum as ss
 
@@ -707,7 +1044,10 @@ def time_kernels(rng, launches, errs):
             "bound_by": b_by, "library_ms": None}
     kernels = [seg, read] + time_nms(rng, launches, errs) + \
         time_roi_align(rng, launches, errs) + \
-        time_mask_paste(rng, launches, errs)
+        time_roi_align_backward(rng, train_launches, errs) + \
+        time_mask_paste(rng, launches, errs) + \
+        time_memory_read_batched(rng, train_launches, errs) + \
+        time_write_select(rng, launches, errs)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.1f} us kernel, "
               f"{k['plain_ms'] * 1e3:.1f} us plain, bound "
@@ -715,7 +1055,8 @@ def time_kernels(rng, launches, errs):
               f"{'-' if k['library_ms'] is None else '%.1f us' % (k['library_ms'] * 1e3)}")
     phase(7, "kernel device times from CUDA graphs of 20 calls x 10 "
              "replays, inputs L2-warm (the plain NMS, which checks its "
-             "fixpoint on the host, from CUDA events around 20 eager calls)")
+             "fixpoint on the host, and the plain ROIAlign backward, "
+             "torch autograd, from CUDA events around 20 eager calls)")
     return kernels
 
 
@@ -781,6 +1122,85 @@ def time_roi_align(rng, launches, errs):
     return [entry]
 
 
+def time_roi_align_backward(rng, launches, errs, r=512):
+    """The training pooler's backward (R = 512, 7 x 7 x 256, bf16), three
+    calls a frame; its plain version is torch autograd of the tap form."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    levels, boxes = roi_inputs(rng, r, torch.bfloat16)
+    lvl = roi_levels(boxes)
+    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32)
+                            ).cuda().to(torch.bfloat16)
+    shapes = [f.shape[:2] for f in levels]
+    ms = graph_ms(lambda: ra.roi_align_backward_cuda(
+        grad, shapes, boxes, lvl, STRIDES, 2, torch.bfloat16))
+    leaves = [f.requires_grad_(True) for f in levels]
+    plain_ms = event_ms(lambda: torch.autograd.grad(
+        ra._roi_align_taps(leaves, boxes, STRIDES, 7, 2, lvl), leaves,
+        grad.float()))
+    count, _ = roi_contributions(levels, boxes, lvl, grad, 7)
+    c = grad.shape[-1]
+    contributions = float(count.sum()) * c
+    b_ms, b_by = bound_ms(grad.numel() * 2 + r * 20 +
+                          sum(f.numel() * 2 for f in levels),
+                          2 * contributions)
+    print(f"  roi_align backward, R = {r}, 7x7, bf16: {ms * 1e3:.1f} us "
+          f"kernel, {plain_ms * 1e3:.1f} us plain v1 autograd, "
+          f"{contributions:.3e} atomic adds, bound {b_ms * 1e3:.2f} us "
+          f"({b_by})")
+    return [{"name": "roi_align_backward", "route": "cuda",
+             "source": "embodied_object_detection_tpu_torch/csrc/roi_align_backward.cu",
+             "replaces": "embodied_object_detection_tpu/ops/roi_align.py:229",
+             "launches": launches["roi_align_backward"],
+             "max_abs_err": errs["roi_align_backward"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None}]
+
+
+def time_memory_read_batched(rng, launches, errs, b=TRAIN_FRAMES):
+    from embodied_object_detection_tpu_torch.ops import memory_ops
+    feats = torch.from_numpy(
+        (rng.randn(b, 8192, 512) * 4).astype(np.float32)).cuda()
+    obs = torch.from_numpy(rng.choice([0.0, 1.0, 2.0, 5.0], (b, 8192))
+                           .astype(np.float32)).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (b, 480, 640)).astype(np.int32)).cuda()
+    ms = graph_ms(lambda: memory_ops.memory_read_batched(feats, obs, proj))
+    plain_ms = graph_ms(lambda: memory_ops.memory_read_batched_plain(
+        feats, obs, proj))
+    d = feats.shape[-1]
+    rows_read = sum(int(torch.unique(proj[i]).numel()) for i in range(b))
+    out_elems = b * 120 * 160 * d
+    b_ms, b_by = bound_ms(rows_read * d * 4 + obs.numel() * 4 +
+                          proj.numel() * 4 + out_elems * 4,
+                          out_elems * (16 * 2 + 1))
+    return [{"name": "memory_read_batched", "route": "cuda",
+             "source": "embodied_object_detection_tpu_torch/csrc/memory_read.cu",
+             "replaces": "embodied_object_detection_tpu/ops/memory_ops.py:75",
+             "launches": launches["memory_read_batched"],
+             "max_abs_err": errs["memory_read_batched"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None}]
+
+
+def time_write_select(rng, launches, errs):
+    from embodied_object_detection_tpu_torch.ops import memory_ops
+    masks, valid, proj = select_inputs(rng)
+    ms = graph_ms(lambda: memory_ops.write_select(masks, valid, proj, 8))
+    plain_ms = graph_ms(lambda: memory_ops.write_select_plain(
+        masks, valid, proj, 8))
+    h, w, n = masks.shape
+    slots = h * (w // 8)
+    b_ms, b_by = bound_ms(masks.numel() + n + proj.numel() * 4 +
+                          slots * 4 + slots * (n + 1) * 4, masks.numel())
+    return [{"name": "write_select", "route": "cuda",
+             "source": "embodied_object_detection_tpu_torch/csrc/write_select.cu",
+             "replaces": "embodied_object_detection_tpu/ops/memory_ops.py:188",
+             "launches": launches["write_select"],
+             "max_abs_err": errs["write_select"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None}]
+
+
 def time_mask_paste(rng, launches, errs):
     """The write's paste (100 masks into 480 x 640, pixel-major bool);
     the yardstick is one F.grid_sample (align_corners=False, zero
@@ -828,7 +1248,8 @@ def time_mask_paste(rng, launches, errs):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one main-path chunk into DIR")
+                        help="profile one eval chunk and one training step "
+                             "into DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -848,10 +1269,15 @@ def main() -> int:
             "memory_read": check_memory_read(rng),
             "nms": check_nms(rng),
             "roi_align": check_roi_align(rng),
-            "mask_paste": check_mask_paste(rng)}
+            "mask_paste": check_mask_paste(rng),
+            "write_select": check_write_select(rng),
+            "memory_read_batched": check_memory_read_batched(rng),
+            "roi_align_backward": check_roi_align_backward(rng)}
     launches, _ = run_main_path(args.profile)
     check_against_cpu()
-    kernels = time_kernels(rng, launches, errs)
+    train_launches, _, _ = run_train_path(args.profile)
+    check_train_against_cpu()
+    kernels = time_kernels(rng, launches, train_launches, errs)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -40,9 +40,10 @@ ENTRY_POINTS = {
     # (w, idx, out, rows, lanes, num_cells, stream)
     "segment_sum": ("segment_sum_launch",
                     (_P, _P, _P, ctypes.c_longlong, _I, _I, _P)),
-    # (features, obs_count, proj, out, dim, height, width, pool, stream)
+    # (features, obs_count, proj, out, dim, height, width, pool, batch,
+    #  cells, stream)
     "memory_read": ("memory_read_launch",
-                    (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     # (boxes, classes, valid, mask scratch, keep, n, threshold, disabled,
     #  stream)
     "nms": ("nms_launch", (_P, _P, _P, _P, _P, _I, _F, _I, _P)),
@@ -55,6 +56,16 @@ ENTRY_POINTS = {
     #  pixel_major, stream)
     "mask_paste": ("mask_paste_launch",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
+    # (masks, valid, proj, observed scratch, row_count scratch, seg_idx,
+    #  aug, height, width, n, subsample, stream)
+    "write_select": ("write_select_launch",
+                     (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # (host arrays: f32 level gradients, heights, widths, strides;
+    #  num_levels, boxes, level_ids, grad_out, num_rois, channels,
+    #  out_size, sampling_ratio, is_bf16, stream)
+    "roi_align_backward": ("roi_align_backward_launch",
+                           (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P)),
 }
 
 

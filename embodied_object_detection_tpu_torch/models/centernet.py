@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `models/centernet.py`: a bbox tower of
 3x3 conv + GroupNorm(32) + ReLU shared across the five levels, an f32
 agnostic-heatmap conv and an f32 ltrb regression conv scaled per level,
-and a fixed-shape decode (per-level top-k, a candidate cap, NMS at 0.9).
+and a fixed-shape decode (per-level top-k, a candidate cap, NMS at 0.9;
+the training settings take 4000 -> 2000 proposals).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import CenterNetConfig
-from ..ops.nms import NEG_INF, nms_padded, sort_desc
+from ..ops.nms import NEG_INF, nms_padded, sort_desc, topk_padded
 from ..structures import Detections
 from .layers import GroupNorm, conv, nchw, nhwc
 
@@ -41,11 +42,10 @@ class CenterNetHead(nn.Module):
         self.num_box_convs = num_box_convs
         for i in range(num_box_convs):
             self.add_module(f"bbox_tower_conv{i}", nn.Conv2d(
-                in_channels, in_channels, 3, 1, 1, dtype=dtype))
+                in_channels, in_channels, 3, 1, 1))
             self.add_module(f"bbox_tower_gn{i}", GroupNorm(32, in_channels))
-        self.agn_hm = nn.Conv2d(in_channels, 1, 3, 1, 1, dtype=torch.float32)
-        self.bbox_pred = nn.Conv2d(in_channels, 4, 3, 1, 1,
-                                   dtype=torch.float32)
+        self.agn_hm = nn.Conv2d(in_channels, 1, 3, 1, 1)
+        self.bbox_pred = nn.Conv2d(in_channels, 4, 3, 1, 1)
         for i in range(num_levels):
             self.add_module(f"scale{i}", Scale())
 
@@ -57,7 +57,7 @@ class CenterNetHead(nn.Module):
         for lvl, feat in enumerate(features):
             x = nchw(feat)
             for i in range(self.num_box_convs):
-                x = conv(x, getattr(self, f"bbox_tower_conv{i}"))
+                x = conv(x, getattr(self, f"bbox_tower_conv{i}"), self.dtype)
                 x = getattr(self, f"bbox_tower_gn{i}")(x).to(self.dtype)
                 x = F.relu(x)
             agn_hms.append(nhwc(conv(x, self.agn_hm), batched=False))
@@ -80,12 +80,18 @@ def level_grids(shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
 
 def decode_proposals(agn_hms: Sequence[torch.Tensor],
                      regs: Sequence[torch.Tensor],
-                     cfg: CenterNetConfig) -> Detections:
+                     cfg: CenterNetConfig, training: bool = False
+                     ) -> Detections:
     """Heatmaps + regressions -> top-k NMS'd proposals (fixed shape):
     per-level top `pre_nms_topk`, boxes = grid -/+ reg * stride with at
-    least 0.01 extent, score = sqrt(sigmoid), class-agnostic NMS, top
-    `post_nms_topk` (the test-time settings)."""
-    pre_topk, post_topk = cfg.pre_nms_topk_test, cfg.post_nms_topk_test
+    least 0.01 extent, score = sqrt(sigmoid), class-agnostic NMS (none
+    with `not_nms`), top `post_nms_topk`; the train or test settings."""
+    if training:
+        pre_topk, post_topk = cfg.pre_nms_topk_train, cfg.post_nms_topk_train
+        nms_thresh = cfg.nms_thresh_train
+    else:
+        pre_topk, post_topk = cfg.pre_nms_topk_test, cfg.post_nms_topk_test
+        nms_thresh = cfg.nms_thresh_test
     shapes = [(hm.shape[0], hm.shape[1]) for hm in agn_hms]
     grids = level_grids(shapes, cfg.strides, device=agn_hms[0].device)
 
@@ -114,5 +120,16 @@ def decode_proposals(agn_hms: Sequence[torch.Tensor],
         key = torch.where(valid, scores, scores.new_full((), NEG_INF))
         _, keep = sort_desc(key, cap)
         boxes, scores, valid = boxes[keep], scores[keep], valid[keep]
-    return nms_padded(boxes, scores, valid, cfg.nms_thresh_test, post_topk,
+    if cfg.not_nms:
+        key = torch.where(valid, scores, scores.new_full((), NEG_INF))
+        top_scores, out_valid, (top_boxes,) = topk_padded(key, post_topk,
+                                                          boxes)
+        zero = torch.zeros((), device=boxes.device)
+        return Detections(
+            boxes=torch.where(out_valid[:, None], top_boxes, zero),
+            scores=torch.where(out_valid, top_scores, zero),
+            classes=torch.zeros((post_topk,), dtype=torch.int32,
+                                device=boxes.device),
+            valid=out_valid)
+    return nms_padded(boxes, scores, valid, nms_thresh, post_topk,
                       ml_nms_semantics=True)

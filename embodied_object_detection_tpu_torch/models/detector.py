@@ -1,4 +1,5 @@
-"""The embodied detector: one recurrent eval frame, and an episode chunk.
+"""The embodied detector: one recurrent eval frame, an episode chunk, and
+one frame's training losses.
 
 Counterpart of the JAX package's `models/detector.py`. One frame is
 
@@ -7,8 +8,9 @@ Counterpart of the JAX package's `models/detector.py`. One frame is
 (ResNet-50 -> memory-fused FPN -> CenterNet proposals -> 3-stage cascade
 -> multiclass NMS -> write-row selection -> mask head -> mask paste ->
 memory write), and `make_episode_runner` drives it over a chunk of frames
-with the memory carried (test_type "default"). Public tensors keep the
-JAX package's channels-last layout. Everything runs on the card unless
+with the memory carried (test_type "default"). `frame_train` gives the
+losses of one frame that reads a precomputed memory. Public tensors keep
+the JAX package's channels-last layout. Everything runs on the card unless
 the caller asks for the CPU.
 """
 
@@ -26,12 +28,22 @@ from ..ops.mask_paste import paste_masks
 from ..ops.memory_ops import (MemoryWriteResult, check_proj_indices,
                               memory_read, memory_write, obs_visibility_host)
 from ..ops.nms import multiclass_nms, sort_desc
-from ..structures import Detections, MemoryState
+from ..structures import (Detections, GroundTruth, MemoryState, clip_boxes,
+                          nonempty)
 from .centernet import CenterNetHead, decode_proposals
 from .fpn import RecurrentFPN
 from .layers import DTYPES
 from .resnet import ResNet50
-from .roi_heads import CascadeOutputs, CascadeROIHeads
+from .losses import (add_gt_to_proposals, centernet_normalize,
+                     centernet_raw_losses, centernet_targets, match_proposals,
+                     sample_proposals, stage_losses)
+from .roi_heads import CascadeOutputs, CascadeROIHeads, apply_deltas
+
+
+def grad_scale(x: torch.Tensor, s: float) -> torch.Tensor:
+    """Forward x (as x * s + x * (1 - s), rounded as the JAX package
+    rounds it), backward times s."""
+    return x * s + x.detach() * (1.0 - s)
 
 
 class FrameInputs(NamedTuple):
@@ -138,6 +150,87 @@ class EmbodiedDetector(nn.Module):
         return FrameOutputs(detections=detections, proposals=proposals,
                             write=write, write_boxes=wboxes,
                             write_valid=wvalid)
+
+    def frame_train(self, image: torch.Tensor, zs_weight: torch.Tensor,
+                    mem_features: torch.Tensor, mem_obs: torch.Tensor,
+                    proj_indices: torch.Tensor, gt: GroundTruth,
+                    generator: Optional[torch.Generator] = None,
+                    defer_centernet_norm: bool = False,
+                    ego: Optional[torch.Tensor] = None,
+                    backbone_feats: Optional[tuple] = None) -> dict:
+        """One frame's training losses; the frame reads a precomputed
+        memory and writes none. `ego` is the frame's memory image when the
+        caller read it for a batch, `backbone_feats` (C3, C4, C5) when it
+        ran the trunk for a batch. With `defer_centernet_norm` the
+        CenterNet entries are raw sums, with their counts under
+        `_centernet_num_pos` and `_centernet_reg_cnt` for the batch to
+        normalise. `generator` draws the proposal sample (seed 0 on the
+        frame's device when None)."""
+        cfg = self.cfg
+        h, w = cfg.input.height, cfg.input.width
+        if ego is None and cfg.memory.reads_memory():
+            ego = memory_read(mem_features, mem_obs, proj_indices)
+        if backbone_feats is None:
+            backbone_feats = self.backbone_raw(image)
+        p3, p4, p5, p6, p7 = self.fpn(*backbone_feats, ego)
+        feats = (p3, p4, p5, p6, p7)
+
+        agn_hms, regs = self.centernet(feats)
+        shapes = [(f.shape[0], f.shape[1]) for f in feats]
+        targets = centernet_targets(gt, shapes, cfg.centernet)
+        raw = centernet_raw_losses(
+            torch.cat([x.reshape(-1) for x in agn_hms]),
+            torch.cat([x.reshape(-1, 4) for x in regs]), targets,
+            cfg.centernet)
+        if defer_centernet_norm:
+            losses = {"loss_centernet_agn_pos": raw.pos,
+                      "loss_centernet_agn_neg": raw.neg,
+                      "loss_centernet_loc": raw.loc,
+                      "_centernet_num_pos": raw.num_pos,
+                      "_centernet_reg_cnt": raw.reg_cnt}
+        else:
+            losses = centernet_normalize(raw, raw.num_pos, raw.reg_cnt)
+
+        # the proposals take no gradient (the JAX package stops it)
+        with torch.no_grad():
+            proposals = decode_proposals(agn_hms, regs, cfg.centernet,
+                                         training=True)
+        proposals = add_gt_to_proposals(proposals, gt)
+        boxes, valid = proposals.boxes, proposals.valid
+        roi = cfg.roi
+        c = roi.num_classes
+        bsz = roi.batch_size_per_image
+        if bsz and boxes.shape[0] > bsz:
+            if generator is None:
+                generator = torch.Generator(device=boxes.device)
+                generator.manual_seed(0)
+            m0 = match_proposals(boxes, valid, gt, roi.cascade_ious[0], c)
+            fg = (m0.gt_classes < c) & m0.valid
+            idx, keep = sample_proposals(valid, fg, bsz,
+                                         roi.positive_fraction, generator)
+            boxes, valid = boxes[idx], valid[idx] & keep
+
+        num_stages = len(roi.cascade_ious)
+        matched = match_proposals(boxes, valid, gt, roi.cascade_ious[0], c)
+        for k in range(num_stages):
+            if k > 0:
+                boxes = clip_boxes(prev_boxes.detach(), h, w)
+                valid = valid & nonempty(boxes)
+                matched = match_proposals(boxes, valid, gt,
+                                          roi.cascade_ious[k], c)
+            pooled = self.roi_heads._pool((p3, p4, p5), boxes,
+                                          roi.pooler_resolution)
+            pooled = grad_scale(pooled, 1.0 / num_stages)
+            x = getattr(self.roi_heads, f"box_head{k}")(pooled)
+            logits, deltas, _ = getattr(self.roi_heads,
+                                        f"box_predictor{k}")(x, zs_weight)
+            stage = stage_losses(logits, deltas, matched,
+                                 roi.cascade_bbox_reg_weights[k], c,
+                                 use_sigmoid_ce=roi.use_sigmoid_ce)
+            losses.update({f"{n}_stage{k}": v for n, v in stage.items()})
+            prev_boxes = apply_deltas(deltas, boxes,
+                                      roi.cascade_bbox_reg_weights[k])
+        return losses
 
     def _memory_write(self, proposals: Detections, cascade: CascadeOutputs,
                       features, proj_indices: torch.Tensor,

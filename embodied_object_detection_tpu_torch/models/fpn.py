@@ -32,30 +32,31 @@ class RecurrentFPN(nn.Module):
         if feat_fusion not in FUSIONS:
             raise ValueError(f"unknown fusion {feat_fusion!r}")
         self.feat_fusion = feat_fusion
+        self.dtype = dtype
         self.map_feature_weight = map_feature_weight
         oc = out_channels
         for i, ic in enumerate(in_channels):
             self.add_module(f"lateral{i + 1}",
-                            nn.Conv2d(ic, oc, 1, dtype=dtype))
-            self.add_module(f"output{i + 1}",
-                            nn.Conv2d(oc, oc, 3, 1, 1, dtype=dtype))
+                            nn.Conv2d(ic, oc, 1))
+            self.add_module(f"output{i + 1}", nn.Conv2d(oc, oc, 3, 1, 1))
             self.add_module(f"map_merge_projection{i + 1}",
-                            nn.Conv2d(memory_dim, oc, 1, dtype=torch.float32))
-        self.p6 = nn.Conv2d(oc, oc, 3, 2, 1, dtype=dtype)
-        self.p7 = nn.Conv2d(oc, oc, 3, 2, 1, dtype=dtype)
+                            nn.Conv2d(memory_dim, oc, 1))
+        self.p6 = nn.Conv2d(oc, oc, 3, 2, 1)
+        self.p7 = nn.Conv2d(oc, oc, 3, 2, 1)
 
     def forward(self, c3: torch.Tensor, c4: torch.Tensor, c5: torch.Tensor,
                 ego_memory: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, ...]:
         """C3-C5 [H, W, C] and the memory image [H/4, W/4, D] (or None) of
         one frame -> p3..p7, each [H_l, W_l, 256]."""
-        lat3 = conv(nchw(c3), self.lateral1)
-        lat4 = conv(nchw(c4), self.lateral2)
-        m5 = conv(nchw(c5), self.lateral3)
+        dt = self.dtype
+        lat3 = conv(nchw(c3), self.lateral1, dt)
+        lat4 = conv(nchw(c4), self.lateral2, dt)
+        m5 = conv(nchw(c5), self.lateral3, dt)
         m4 = lat4 + F.interpolate(m5, scale_factor=2, mode="nearest")
         m3 = lat3 + F.interpolate(m4, scale_factor=2, mode="nearest")
-        ps = [conv(m3, self.output1), conv(m4, self.output2),
-              conv(m5, self.output3)]
+        ps = [conv(m3, self.output1, dt), conv(m4, self.output2, dt),
+              conv(m5, self.output3, dt)]
 
         if ego_memory is not None:
             mems = pyramid_pool(ego_memory.float(), 3)
@@ -67,6 +68,6 @@ class RecurrentFPN(nn.Module):
                 proj = (proj * self.map_feature_weight).to(ps[i].dtype)
                 ps[i] = proj + ps[i] if self.feat_fusion == "sum" else proj
 
-        p6 = conv(ps[2], self.p6)
-        p7 = conv(F.relu(p6), self.p7)
+        p6 = conv(ps[2], self.p6, dt)
+        p7 = conv(F.relu(p6), self.p7, dt)
         return tuple(nhwc(p, batched=False) for p in (*ps, p6, p7))

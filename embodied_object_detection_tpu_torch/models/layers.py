@@ -5,6 +5,13 @@ The port's public functions keep the JAX package's channels-last layout
 `nchw` views a channels-last tensor as NCHW without a copy (the view has
 PyTorch's channels_last strides, which cuDNN runs natively) and `nhwc`
 undoes it, also without a copy for a channels_last result.
+
+Parameters are f32, as the JAX package keeps them; a layer that computes
+in bf16 casts its weights at each use (`as_dtype`), so autograd sums
+every use's gradient into the f32 parameter in f32. Outside autograd
+(the eval frame runs under `torch.no_grad()`) the cast copy is cached on
+the parameter and made again only after the parameter changes, so a frame
+does not pay a cast per weight.
 """
 
 from __future__ import annotations
@@ -29,9 +36,38 @@ def nhwc(x: torch.Tensor, batched: bool) -> torch.Tensor:
     return x if batched else x[0]
 
 
-def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
-    """Apply `layer` to an NCHW tensor in the layer's own dtype."""
-    return layer(x.to(layer.weight.dtype))
+def as_dtype(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`p` in `dtype`: a differentiable cast when autograd records it,
+    else a copy cached on `p` until `p` is changed in place or moved."""
+    if p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    key = (dtype, p.device, p.data_ptr(), p._version)
+    cached = getattr(p, "_cast_cache", None)
+    if cached is None or cached[0] != key:
+        cached = (key, p.detach().to(dtype))
+        p._cast_cache = cached
+    return cached[1]
+
+
+def conv(x: torch.Tensor, layer: nn.Conv2d,
+         dtype: "torch.dtype | None" = None) -> torch.Tensor:
+    """Apply `layer` to an NCHW tensor in `dtype` (default: the layer's
+    own), its weight and bias cast to it."""
+    dtype = dtype or layer.weight.dtype
+    if dtype == layer.weight.dtype:
+        return layer(x.to(dtype))
+    bias = None if layer.bias is None else as_dtype(layer.bias, dtype)
+    return layer._conv_forward(x.to(dtype), as_dtype(layer.weight, dtype),
+                               bias)
+
+
+def linear(x: torch.Tensor, layer: nn.Linear,
+           dtype: torch.dtype) -> torch.Tensor:
+    """Apply `layer` in `dtype`, its weight and bias cast to it."""
+    return F.linear(x.to(dtype), as_dtype(layer.weight, dtype),
+                    as_dtype(layer.bias, dtype))
 
 
 class GroupNorm(nn.Module):

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's `models/resnet.py`; module names match
 its parameter tree (conv1, bn1, layer{stage}_{i}.conv{1..3} / bn{1..3} /
-downsample_conv / downsample_bn). Convolutions hold their weights in the
-compute dtype; FrozenBN keeps f32 statistics and applies the folded
+downsample_conv / downsample_bn). Convolutions hold f32 weights and run in
+the compute dtype; FrozenBN keeps f32 statistics and applies the folded
 scale and bias in the activation dtype, as the JAX package does.
 """
 
@@ -42,26 +42,27 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, planes: int, stride: int, downsample: bool,
                  dtype: torch.dtype):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False, dtype=dtype)
+        self.dtype = dtype
+        self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False)
         self.bn1 = FrozenBN(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False,
-                               dtype=dtype)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = FrozenBN(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False, dtype=dtype)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = FrozenBN(planes * 4)
         if downsample:
             self.downsample_conv = nn.Conv2d(in_ch, planes * 4, 1, stride,
-                                             bias=False, dtype=dtype)
+                                             bias=False)
             self.downsample_bn = FrozenBN(planes * 4)
         else:
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(conv(x, self.conv1)))
-        out = F.relu(self.bn2(conv(out, self.conv2)))
-        out = self.bn3(conv(out, self.conv3))
+        dt = self.dtype
+        out = F.relu(self.bn1(conv(x, self.conv1, dt)))
+        out = F.relu(self.bn2(conv(out, self.conv2, dt)))
+        out = self.bn3(conv(out, self.conv3, dt))
         if self.downsample_conv is not None:
-            x = self.downsample_bn(conv(x, self.downsample_conv))
+            x = self.downsample_bn(conv(x, self.downsample_conv, dt))
         return F.relu(out + x)
 
 
@@ -72,7 +73,7 @@ class ResNet50(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, dtype=dtype)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBN(64)
         self.stages = []
         in_ch = 64
@@ -90,7 +91,7 @@ class ResNet50(nn.Module):
 
     def stem_to_c4(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """NCHW image -> (C3 stride 8, C4 stride 16), NCHW."""
-        x = F.relu(self.bn1(conv(x, self.conv1)))
+        x = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
         x = F.max_pool2d(x, 3, 2, 1)
         outs = []
         for blocks in self.stages[:3]:

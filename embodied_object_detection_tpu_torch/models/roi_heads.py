@@ -4,7 +4,7 @@ Counterpart of the JAX package's `models/roi_heads.py`. The class
 embedding matrix `zs_weight` [512, C+1] is an input, not a parameter.
 The zero-shot classifier, the box-delta MLP, the mask deconv and the mask
 predictor run in f32 (callers disable TF32); the box FCs and mask convs
-in the compute dtype.
+in the compute dtype, from f32 parameters.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from torch import nn
 from ..config import ROIHeadsConfig
 from ..ops.roi_align import multilevel_roi_align
 from ..structures import Detections, clip_boxes
-from .layers import conv, nchw
+from .layers import conv, linear, nchw
 
 
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
@@ -53,15 +53,15 @@ class BoxHead(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.num_fc = num_fc
+        self.dtype = dtype
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", nn.Linear(
-                in_dim if i == 0 else fc_dim, fc_dim, dtype=dtype))
+                in_dim if i == 0 else fc_dim, fc_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
         for i in range(self.num_fc):
-            fc = getattr(self, f"fc{i + 1}")
-            x = F.relu(fc(x.to(fc.weight.dtype)))
+            x = F.relu(linear(x, getattr(self, f"fc{i + 1}"), self.dtype))
         return x
 
 
@@ -100,15 +100,14 @@ class MaskHead(nn.Module):
         self.num_convs = num_convs
         for i in range(num_convs):
             self.add_module(f"mask_fcn{i + 1}", nn.Conv2d(
-                in_channels if i == 0 else channels, channels, 3, 1, 1,
-                dtype=dtype))
+                in_channels if i == 0 else channels, channels, 3, 1, 1))
         self.deconv = nn.ConvTranspose2d(channels, channels, 2, 2)
         self.predictor = nn.Conv2d(channels, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = nchw(x)
         for i in range(self.num_convs):
-            x = F.relu(conv(x, getattr(self, f"mask_fcn{i + 1}")))
+            x = F.relu(conv(x, getattr(self, f"mask_fcn{i + 1}"), self.dtype))
         x = F.relu(conv(x, self.deconv).to(self.dtype))
         return conv(x, self.predictor)[:, 0]
 

@@ -1,12 +1,16 @@
 """Spatial-memory read/write ops.
 
   * read  -- gather allocentric map cells into the egocentric frame and
-             mean-pool 4x4 (`memory_read`, kernel 2 of the port), then 2x2
-             pyramid pools for the FPN levels (`pyramid_pool`)
+             mean-pool 4x4 (`memory_read`, kernel 2 of the port; a batch of
+             frames with their own memories in one launch,
+             `memory_read_batched`, kernel 6), then 2x2 pyramid pools for
+             the FPN levels (`pyramid_pool`)
   * write -- splat detection features through instance masks, keep every
-             `subsample`-th observed pixel, segment-sum the per-detection
-             mask weights into cells (kernel 1, `ops/segment_sum.py`) and
-             contract them with the detection features in f32
+             `subsample`-th observed pixel of the row-major compacted
+             observed set (`write_select`, kernel 7), segment-sum the
+             per-detection mask weights into cells (kernel 1,
+             `ops/segment_sum.py`) and contract them with the detection
+             features in f32
 
 Counterpart of the JAX package's `ops/memory_ops.py`, with its host-side
 helpers `obs_visibility_host` and the proj-index guard of
@@ -47,6 +51,64 @@ def memory_read_plain(features: torch.Tensor, obs_count: torch.Tensor,
     return pooled.reshape(h // pool, w // pool, d)
 
 
+def memory_read_batched_plain(features: torch.Tensor,
+                              obs_count: torch.Tensor,
+                              proj_indices: torch.Tensor,
+                              pool: int = 4) -> torch.Tensor:
+    """The plain version of the batched read: one row gather from the
+    flattened [B * cells, D] table, frame b's ids offset by b * cells."""
+    b, cells, d = features.shape
+    h, w = proj_indices.shape[1:]
+    mem = normalize_memory(features.reshape(-1, d),
+                           obs_count.reshape(-1)).to(torch.bfloat16)
+    offset = torch.arange(b, dtype=torch.long,
+                          device=proj_indices.device) * cells
+    idx = proj_indices.long() + offset[:, None, None]
+    idx = idx.reshape(b, h // pool, pool, w // pool, pool)
+    idx = idx.permute(0, 1, 3, 2, 4).reshape(-1, pool * pool)
+    pooled = mem[idx].float().mean(dim=1)
+    return pooled.reshape(b, h // pool, w // pool, d)
+
+
+def _read_launch(name, features, obs_count, proj_indices, pool, batch):
+    """Check the inputs of the memory-read kernel and launch it over
+    `batch` frames: features [B * cells, D], obs_count [B * cells], proj
+    [B, H, W] (leading axes as given)."""
+    d = features.shape[-1]
+    cells = features.shape[-2]
+    h, w = proj_indices.shape[-2:]
+    if features.dtype != torch.float32 or not features.is_contiguous() or \
+            d % 4:
+        raise ValueError(f"{name}: features must be contiguous float32 "
+                         f"[..., cells, D] with D % 4 == 0, got "
+                         f"{features.dtype} {tuple(features.shape)}")
+    if obs_count.dtype != torch.float32 or \
+            obs_count.shape != features.shape[:-1] or \
+            not obs_count.is_contiguous():
+        raise ValueError(f"{name}: obs_count must be contiguous float32 "
+                         f"{tuple(features.shape[:-1])}, got "
+                         f"{obs_count.dtype} {tuple(obs_count.shape)}")
+    if proj_indices.dtype != torch.int32 or \
+            not proj_indices.is_contiguous() or h % pool or w % pool or \
+            pool * pool > 64 or \
+            proj_indices.shape[:-2] != features.shape[:-2]:
+        raise ValueError(f"{name}: proj_indices must be contiguous int32 "
+                         f"{tuple(features.shape[:-2]) + ('H', 'W')} "
+                         f"divisible by pool={pool} (pool <= 8), got "
+                         f"{proj_indices.dtype} {tuple(proj_indices.shape)}")
+    if obs_count.device != features.device or \
+            proj_indices.device != features.device:
+        raise ValueError(f"{name}: inputs lie on different devices")
+    launch = build.load("memory_read")
+    out = torch.empty(proj_indices.shape[:-2] + (h // pool, w // pool, d),
+                      dtype=torch.float32, device=features.device)
+    build.check_launch(
+        launch(features.data_ptr(), obs_count.data_ptr(),
+               proj_indices.data_ptr(), out.data_ptr(), d, h, w, pool,
+               batch, cells, build.stream_handle()), name)
+    return out
+
+
 def memory_read(features: torch.Tensor, obs_count: torch.Tensor,
                 proj_indices: torch.Tensor, pool: int = 4) -> torch.Tensor:
     """Project map memory into the egocentric frame, mean-pooled.
@@ -58,39 +120,40 @@ def memory_read(features: torch.Tensor, obs_count: torch.Tensor,
     """
     if not build.on_card(features):
         return memory_read_plain(features, obs_count, proj_indices, pool)
-    cells, d = features.shape
-    h, w = proj_indices.shape
-    if features.dtype != torch.float32 or not features.is_contiguous() or \
-            d % 4:
-        raise ValueError(f"memory_read: features must be contiguous float32 "
-                         f"[cells, D] with D % 4 == 0, got {features.dtype} "
-                         f"{tuple(features.shape)}")
-    if obs_count.dtype != torch.float32 or obs_count.shape != (cells,) or \
-            not obs_count.is_contiguous():
-        raise ValueError("memory_read: obs_count must be contiguous float32 "
-                         f"[{cells}], got {obs_count.dtype} "
-                         f"{tuple(obs_count.shape)}")
-    if proj_indices.dtype != torch.int32 or \
-            not proj_indices.is_contiguous() or h % pool or w % pool or \
-            pool * pool > 64:
-        raise ValueError(f"memory_read: proj_indices must be contiguous int32 "
-                         f"[H, W] divisible by pool={pool} (pool <= 8), got "
-                         f"{proj_indices.dtype} {tuple(proj_indices.shape)}")
-    if obs_count.device != features.device or \
-            proj_indices.device != features.device:
-        raise ValueError("memory_read: inputs lie on different devices")
-    launch = build.load("memory_read")
-    out = torch.empty((h // pool, w // pool, d), dtype=torch.float32,
-                      device=features.device)
-    build.check_launch(
-        launch(features.data_ptr(), obs_count.data_ptr(),
-               proj_indices.data_ptr(), out.data_ptr(), d, h, w, pool,
-               build.stream_handle()), "memory_read")
+    if features.dim() != 2 or proj_indices.dim() != 2:
+        raise ValueError(f"memory_read: features [cells, D] and proj "
+                         f"[H, W], got {tuple(features.shape)} and "
+                         f"{tuple(proj_indices.shape)}")
+    out = _read_launch("memory_read", features, obs_count, proj_indices,
+                       pool, 1)
     memory_read.launches += 1
     return out
 
 
 memory_read.launches = 0
+
+
+def memory_read_batched(features: torch.Tensor, obs_count: torch.Tensor,
+                        proj_indices: torch.Tensor,
+                        pool: int = 4) -> torch.Tensor:
+    """`memory_read` over a batch of frames, each with its own memory, in
+    one launch: features [B, cells, D], obs_count [B, cells], proj_indices
+    [B, H, W] -> [B, H/pool, W/pool, D] f32, bit-exact per frame to
+    `memory_read` (the training step's read of precomputed memories)."""
+    if not build.on_card(features):
+        return memory_read_batched_plain(features, obs_count, proj_indices,
+                                         pool)
+    if features.dim() != 3 or proj_indices.dim() != 3:
+        raise ValueError(f"memory_read_batched: features [B, cells, D] and "
+                         f"proj [B, H, W], got {tuple(features.shape)} and "
+                         f"{tuple(proj_indices.shape)}")
+    out = _read_launch("memory_read_batched", features, obs_count,
+                       proj_indices, pool, features.shape[0])
+    memory_read_batched.launches += 1
+    return out
+
+
+memory_read_batched.launches = 0
 
 
 def pyramid_pool(ego: torch.Tensor, num_levels: int
@@ -103,6 +166,95 @@ def pyramid_pool(ego: torch.Tensor, num_levels: int
         cur = cur.reshape(h // 2, 2, w // 2, 2, d).mean(dim=(1, 3))
         outs.append(cur)
     return tuple(outs)
+
+
+def write_select_plain(masks_pm: torch.Tensor, det_valid: torch.Tensor,
+                       proj_indices: torch.Tensor, subsample: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the exact write's selection: a per-row
+    inclusive cumsum of the observed flags, the row starts as an exclusive
+    cumsum of the row counts, every `subsample`-th pixel of the row-major
+    compacted observed set found by `searchsorted`, and its mask row."""
+    h, w, n = masks_pm.shape
+    device = masks_pm.device
+    masks_pm = masks_pm & det_valid[None, None, :]              # [H, W, N]
+    s = subsample
+    j_cap = -(-w // s)                                          # slots per row
+    observed = masks_pm.any(dim=-1)                             # [H, W]
+    incl = torch.cumsum(observed.long(), dim=1)                 # [H, W]
+    row_count = incl[:, -1]
+    row_start = torch.cumsum(row_count, dim=0) - row_count      # exclusive
+    t0 = torch.remainder(-row_start, s)         # first selected local rank
+    targets = t0[:, None] + s * torch.arange(j_cap, device=device)[None]
+    slot_valid = targets < row_count[:, None]                   # [H, J]
+    # the (t+1)-th observed pixel of a row is the first column whose
+    # inclusive count reaches t+1
+    col = torch.searchsorted(incl, targets + 1).clamp(max=w - 1)
+    m_sel = torch.gather(masks_pm, 1, col[..., None].expand(h, j_cap, n))
+    m_sel = (m_sel & slot_valid[..., None]).reshape(h * j_cap, n).float()
+    c_sel = m_sel.sum(dim=1)
+    seg_idx = torch.gather(proj_indices.long(), 1, col).reshape(-1)
+    slot_valid = slot_valid.reshape(-1)
+    pix_w = m_sel / c_sel.clamp(min=1.0)[:, None]
+    seg_idx = torch.where(slot_valid, seg_idx, torch.full_like(seg_idx, -1))
+    aug = torch.cat([pix_w, slot_valid.float()[:, None]], dim=1)
+    return seg_idx.to(torch.int32), aug
+
+
+def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
+                 proj_indices: torch.Tensor, subsample: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact write's pixel selection: masks_pm [H, W, N] bool
+    (pixel-major), det_valid [N] bool, proj_indices [H, W] int32 ->
+    (seg_idx [H * J] int32, -1 for an empty slot; aug [H * J, N + 1] f32,
+    each selected pixel's mask weights 1/c over its c covering valid masks
+    and a count of 1 on lane N), J = ceil(W / subsample) slots a row.
+    The rows feed the segment-sum as they are. The row-scan kernel on the
+    card (`csrc/write_select.cu`), the plain version on a CPU tensor;
+    bit-exact to each other."""
+    if not build.on_card(masks_pm):
+        return write_select_plain(masks_pm, det_valid, proj_indices,
+                                  subsample)
+    h, w, n = masks_pm.shape
+    if masks_pm.dtype != torch.bool or not masks_pm.is_contiguous():
+        raise ValueError(f"write_select: masks must be contiguous bool "
+                         f"[H, W, N], got {masks_pm.dtype} "
+                         f"{tuple(masks_pm.shape)}")
+    if det_valid.dtype != torch.bool or det_valid.shape != (n,) or \
+            not det_valid.is_contiguous():
+        raise ValueError(f"write_select: det_valid must be contiguous bool "
+                         f"[{n}], got {det_valid.dtype} "
+                         f"{tuple(det_valid.shape)}")
+    if proj_indices.dtype != torch.int32 or proj_indices.shape != (h, w) or \
+            not proj_indices.is_contiguous():
+        raise ValueError(f"write_select: proj_indices must be contiguous "
+                         f"int32 [{h}, {w}], got {proj_indices.dtype} "
+                         f"{tuple(proj_indices.shape)}")
+    if det_valid.device != masks_pm.device or \
+            proj_indices.device != masks_pm.device:
+        raise ValueError("write_select: inputs lie on different devices")
+    if subsample < 1:
+        raise ValueError(f"write_select: subsample must be >= 1, got "
+                         f"{subsample}")
+    launch = build.load("write_select")
+    j_cap = -(-w // subsample)
+    device = masks_pm.device
+    seg_idx = torch.empty((h * j_cap,), dtype=torch.int32, device=device)
+    aug = torch.empty((h * j_cap, n + 1), dtype=torch.float32, device=device)
+    if h * w == 0:
+        return seg_idx, aug
+    observed = torch.empty((h, w), dtype=torch.uint8, device=device)
+    row_count = torch.empty((h,), dtype=torch.int32, device=device)
+    build.check_launch(
+        launch(masks_pm.data_ptr(), det_valid.data_ptr(),
+               proj_indices.data_ptr(), observed.data_ptr(),
+               row_count.data_ptr(), seg_idx.data_ptr(), aug.data_ptr(), h,
+               w, n, subsample, build.stream_handle()), "write_select")
+    write_select.launches += 1
+    return seg_idx, aug
+
+
+write_select.launches = 0
 
 
 class MemoryWriteResult(NamedTuple):
@@ -143,26 +295,10 @@ def memory_write(det_features: torch.Tensor, det_masks: torch.Tensor,
 
     if exact_subsample:
         masks_pm = det_masks if pixel_major else det_masks.permute(1, 2, 0)
-        masks_pm = masks_pm & det_valid[None, None, :]          # [H, W, N]
-        s = subsample
-        j_cap = -(-w // s)                                      # slots per row
-        observed = masks_pm.any(dim=-1)                         # [H, W]
-        incl = torch.cumsum(observed.long(), dim=1)             # [H, W]
-        row_count = incl[:, -1]
-        row_start = torch.cumsum(row_count, dim=0) - row_count  # exclusive
-        t0 = torch.remainder(-row_start, s)     # first selected local rank
-        targets = t0[:, None] + s * torch.arange(j_cap, device=device)[None]
-        slot_valid = targets < row_count[:, None]               # [H, J]
-        # the (t+1)-th observed pixel of a row is the first column whose
-        # inclusive count reaches t+1
-        col = torch.searchsorted(incl, targets + 1).clamp(max=w - 1)
-        m_sel = torch.gather(masks_pm, 1, col[..., None].expand(h, j_cap, n))
-        m_sel = (m_sel & slot_valid[..., None]).reshape(h * j_cap, n).float()
-        c_sel = m_sel.sum(dim=1)
-        seg_idx = torch.gather(proj_indices.long(), 1, col).reshape(-1)
-        slot_valid = slot_valid.reshape(-1)
-        sel_f = slot_valid.float()
-        pix_w = m_sel / c_sel.clamp(min=1.0)[:, None]
+        seg_idx, aug = write_select(masks_pm.contiguous(),
+                                    det_valid.contiguous(),
+                                    proj_indices.to(torch.int32).contiguous(),
+                                    subsample)
     else:
         masks = det_masks.permute(2, 0, 1) if pixel_major else det_masks
         masks_f = (masks & det_valid[:, None, None]).reshape(n, h * w).float()
@@ -174,12 +310,12 @@ def memory_write(det_features: torch.Tensor, det_masks: torch.Tensor,
         pix_w = torch.where(slot_valid[:, None],
                             masks_f.T / c.clamp(min=1.0)[:, None],
                             torch.zeros((), device=device))
-    # rows that select no pixel carry zero weight and zero count: route
-    # them past the cells so the segment-sum skips them
-    seg_idx = torch.where(slot_valid, seg_idx, torch.full_like(seg_idx, -1))
-
-    aug = torch.cat([pix_w, sel_f[:, None]], dim=1).contiguous()  # [S, N+1]
-    acc = segment_sum(aug, seg_idx.to(torch.int32).contiguous(), num_cells)
+        # rows that select no pixel carry zero weight and zero count: route
+        # them past the cells so the segment-sum skips them
+        seg_idx = torch.where(slot_valid, seg_idx,
+                              torch.full_like(seg_idx, -1)).to(torch.int32)
+        aug = torch.cat([pix_w, sel_f[:, None]], dim=1)          # [S, N+1]
+    acc = segment_sum(aug.contiguous(), seg_idx.contiguous(), num_cells)
     a, cell_count = acc[:, :-1], acc[:, -1]
     cell_sum = a @ det_features.float()                         # [cells, D]
     features_update = torch.where(

@@ -1,5 +1,5 @@
 """Multilevel ROIAlignV2 (aligned=True) over an FPN pyramid (kernel 4 of
-the port).
+the port, and its backward, kernel 4b).
 
 Counterpart of the JAX package's `ops/roi_align.py`: detectron2 level
 assignment, a fixed `sampling_ratio`, and the CUDA ROIAlign clamp rules (a
@@ -12,8 +12,12 @@ On a CUDA tensor `multilevel_roi_align` assigns the levels in PyTorch
 `impl`: the v1 math, accumulated in f32 and written in the features'
 type. The JAX default `impl="v4"` is that math re-associated, with bf16
 weights and a bf16 intermediate in a bf16 config (ARCHITECTURE.md
-divergence 3b), so on the card `impl` has no effect. On a CPU tensor
-`impl` picks the plain form:
+divergence 3b), so on the card `impl` has no effect. Under autograd the
+card's call is `RoiAlignFunction`, whose backward launches
+`csrc/roi_align_backward.cu`: the tap form's transpose, f32 atomics into
+one f32 buffer a level, cast once to the levels' type. Boxes take no
+gradient (the JAX package stops it). On a CPU tensor `impl` picks the
+plain form, differentiated by torch autograd:
 
   impl="v4"  separable hat-weight matmuls (the JAX default): per level,
              pooled = Ry @ level @ Rx^T with the s x s window mean folded
@@ -93,9 +97,10 @@ def _roi_align_matmul(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     return out
 
 
-def _bilinear_flat(flat_table, x, y, h, w, base):
-    """Bilinear taps from the flattened level table with the CUDA ROIAlign
-    clamp rules; x, y, h, w, base broadcast over the sample lattice."""
+def _bilinear_taps(x, y, h, w, base):
+    """The four bilinear taps of each sample with the CUDA ROIAlign clamp
+    rules: (flat row of the level table [..., 4], weight [..., 4]); x, y,
+    h, w, base broadcast over the sample lattice."""
     hf, wf = h.to(x.dtype), w.to(x.dtype)
     valid = (x >= -1.0) & (x <= wf) & (y >= -1.0) & (y <= hf)
     x = torch.minimum(torch.maximum(x, torch.zeros_like(x)), wf - 1.0)
@@ -106,34 +111,32 @@ def _bilinear_flat(flat_table, x, y, h, w, base):
     x1i = torch.minimum(x0i + 1, w - 1)
     y1i = torch.minimum(y0i + 1, h - 1)
     okf = valid.to(x.dtype)
-
-    def tap(yi, xi, wgt):
-        return flat_table[base + yi * w + xi] * wgt[..., None]
-
-    return (tap(y0i, x0i, (1 - ly) * (1 - lx) * okf) +
-            tap(y0i, x1i, (1 - ly) * lx * okf) +
-            tap(y1i, x0i, ly * (1 - lx) * okf) +
-            tap(y1i, x1i, ly * lx * okf))
+    rows = torch.stack([base + y0i * w + x0i, base + y0i * w + x1i,
+                        base + y1i * w + x0i, base + y1i * w + x1i], -1)
+    weights = torch.stack([(1 - ly) * (1 - lx) * okf, (1 - ly) * lx * okf,
+                           ly * (1 - lx) * okf, ly * lx * okf], -1)
+    return rows, weights
 
 
-def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
-                    lvl_of_roi):
+def roi_align_taps(shapes, boxes, strides, output_size, sampling_ratio,
+                   lvl_of_roi):
+    """Every sample's taps of the tap form: (rows [R, S, s, S, s, 4] of
+    the levels flattened one after another, weights of the same shape)
+    for levels of [H_l, W_l] `shapes`."""
     device = boxes.device
-    c = features[0].shape[-1]
-    flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
     lvl = lvl_of_roi.long()
     # per-ROI level shape, flat offset and stride, selected from Python
     # ints (no host-to-device copy of a list)
     roi_h, roi_w, roi_base = (torch.zeros_like(lvl) for _ in range(3))
     roi_stride = torch.zeros_like(boxes[:, 0])
     base = 0
-    for li, f in enumerate(features):
+    for li, (h, w) in enumerate(shapes):
         on = lvl == li
-        roi_h = torch.where(on, f.shape[0], roi_h)
-        roi_w = torch.where(on, f.shape[1], roi_w)
+        roi_h = torch.where(on, h, roi_h)
+        roi_w = torch.where(on, w, roi_w)
         roi_base = torch.where(on, base, roi_base)
         roi_stride = torch.where(on, float(strides[li]), roi_stride)
-        base += f.shape[0] * f.shape[1]
+        base += h * w
     r = boxes.shape[0]
     x1 = boxes[:, 0] / roi_stride
     y1 = boxes[:, 1] / roi_stride
@@ -147,11 +150,24 @@ def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
     sxx = sx[:, None, :].expand(r, p, p) - 0.5
     syy = sy[:, :, None].expand(r, p, p) - 0.5
     lattice = (r, p, p)
-    vals = _bilinear_flat(flat, sxx, syy,
-                          roi_h[:, None, None].expand(lattice),
-                          roi_w[:, None, None].expand(lattice),
-                          roi_base[:, None, None].expand(lattice))
-    vals = vals.reshape(r, output_size, s, output_size, s, c)
+    rows, weights = _bilinear_taps(sxx, syy,
+                                   roi_h[:, None, None].expand(lattice),
+                                   roi_w[:, None, None].expand(lattice),
+                                   roi_base[:, None, None].expand(lattice))
+    shape = (r, output_size, s, output_size, s, 4)
+    return rows.reshape(shape), weights.reshape(shape)
+
+
+def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
+                    lvl_of_roi):
+    c = features[0].shape[-1]
+    flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
+    rows, weights = roi_align_taps([f.shape[:2] for f in features], boxes,
+                                   strides, output_size, sampling_ratio,
+                                   lvl_of_roi)
+    taps = flat[rows] * weights[..., None]
+    vals = taps[..., 0, :] + taps[..., 1, :] + taps[..., 2, :] + \
+        taps[..., 3, :]
     return vals.mean(dim=(2, 4))
 
 
@@ -210,6 +226,81 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
 roi_align_cuda.launches = 0
 
 
+def roi_align_backward_cuda(grad_out: torch.Tensor, shapes,
+                            boxes: torch.Tensor, lvl_of_roi: torch.Tensor,
+                            strides: Tuple[int, ...], sampling_ratio: int,
+                            dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+    """The tap form's transpose on the card (`csrc/roi_align_backward.cu`):
+    grad_out [R, S, S, C] bf16 or f32 -> the gradient of each [H_l, W_l,
+    C] level of `shapes`, accumulated in f32 with atomics and cast once to
+    `dtype`."""
+    r, size, _, c = grad_out.shape
+    if grad_out.dtype not in (torch.bfloat16, torch.float32) or c % 2 or \
+            grad_out.shape != (r, size, size, c) or \
+            not grad_out.is_contiguous() or len(shapes) > 4:
+        raise ValueError(f"roi_align_backward: grad_out must be contiguous "
+                         f"bf16 or f32 [R, S, S, C] with an even C over up to "
+                         f"4 levels, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)} over {len(shapes)}")
+    if boxes.dtype != torch.float32 or boxes.shape != (r, 4) or \
+            not boxes.is_contiguous() or boxes.device != grad_out.device:
+        raise ValueError(f"roi_align_backward: boxes must be contiguous "
+                         f"float32 [{r}, 4] on {grad_out.device}, got "
+                         f"{boxes.dtype} {tuple(boxes.shape)}")
+    if lvl_of_roi.dtype != torch.int32 or lvl_of_roi.shape != (r,) or \
+            not lvl_of_roi.is_contiguous() or \
+            lvl_of_roi.device != grad_out.device:
+        raise ValueError(f"roi_align_backward: level ids must be contiguous "
+                         f"int32 [{r}], got {lvl_of_roi.dtype} "
+                         f"{tuple(lvl_of_roi.shape)}")
+    if size * sampling_ratio ** 2 > 256:
+        raise ValueError(f"roi_align_backward: output_size * "
+                         f"sampling_ratio^2 must be <= 256, got {size} and "
+                         f"{sampling_ratio}")
+    launch = build.load("roi_align_backward")
+    grads = [torch.zeros((h, w, c), dtype=torch.float32,
+                         device=grad_out.device) for h, w in shapes]
+    if r:
+        nl = len(shapes)
+        ptrs = (ctypes.c_void_p * nl)(*[g.data_ptr() for g in grads])
+        heights = (ctypes.c_int * nl)(*[h for h, _ in shapes])
+        widths = (ctypes.c_int * nl)(*[w for _, w in shapes])
+        strides_c = (ctypes.c_int * nl)(*strides)
+        build.check_launch(
+            launch(ptrs, heights, widths, strides_c, nl, boxes.data_ptr(),
+                   lvl_of_roi.data_ptr(), grad_out.data_ptr(), r, c, size,
+                   sampling_ratio, int(grad_out.dtype == torch.bfloat16),
+                   build.stream_handle()), "roi_align_backward")
+        roi_align_backward_cuda.launches += 1
+    return tuple(g.to(dtype) for g in grads)
+
+
+roi_align_backward_cuda.launches = 0
+
+
+class RoiAlignFunction(torch.autograd.Function):
+    """`roi_align_cuda` with `roi_align_backward_cuda` as its gradient;
+    the boxes and level ids take none."""
+
+    @staticmethod
+    def forward(ctx, boxes, lvl_of_roi, strides, output_size,
+                sampling_ratio, *features):
+        ctx.save_for_backward(boxes, lvl_of_roi)
+        ctx.geometry = (tuple(tuple(f.shape[:2]) for f in features),
+                        strides, sampling_ratio, features[0].dtype)
+        return roi_align_cuda(features, boxes, lvl_of_roi, strides,
+                              output_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, lvl_of_roi = ctx.saved_tensors
+        shapes, strides, sampling_ratio, dtype = ctx.geometry
+        grads = roi_align_backward_cuda(grad_out.contiguous(), shapes, boxes,
+                                        lvl_of_roi, strides, sampling_ratio,
+                                        dtype)
+        return (None, None, None, None, None) + grads
+
+
 def multilevel_roi_align(features: Sequence[torch.Tensor],
                          boxes: torch.Tensor, strides: Tuple[int, ...],
                          output_size: int, sampling_ratio: int = 2,
@@ -230,9 +321,15 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
     lvl_of_roi = assign_levels(boxes, lvls[0], lvls[-1], canonical_box_size,
                                canonical_level) - lvls[0]
     if build.on_card(boxes):
-        return roi_align_cuda([f.contiguous() for f in features],
-                              boxes.contiguous(), lvl_of_roi,
-                              tuple(strides), output_size, sampling_ratio)
+        features = [f.contiguous() for f in features]
+        boxes = boxes.detach().contiguous()
+        if torch.is_grad_enabled() and any(f.requires_grad
+                                           for f in features):
+            return RoiAlignFunction.apply(boxes, lvl_of_roi, tuple(strides),
+                                          output_size, sampling_ratio,
+                                          *features)
+        return roi_align_cuda(features, boxes, lvl_of_roi, tuple(strides),
+                              output_size, sampling_ratio)
     if impl == "v4":
         return _roi_align_matmul(features, boxes, strides, output_size,
                                  sampling_ratio, lvl_of_roi)

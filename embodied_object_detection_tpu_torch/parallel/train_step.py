@@ -1,0 +1,153 @@
+"""The training step over a batch of frames, at world size 1.
+
+Counterpart of the JAX package's `parallel/train_step.py`
+(`make_train_step`'s `loss_fn` and step): the batch's memories are read in
+one launch (`memory_read_batched`), the trunk runs batched over the
+frames, each frame's losses come from `frame_train` with the CenterNet
+normalisers deferred, and the batch normalises them by the batch-global
+mean counts. Padding frames carry weight 0. The step sums the losses,
+backpropagates, clips and applies AdamW. Data parallelism over
+`torch.distributed` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import DetectorConfig
+from ..engine.solver import GroupedOptimizer, build_optimizer
+from ..models.detector import EmbodiedDetector
+from ..ops.memory_ops import memory_read_batched
+from ..structures import GroundTruth
+
+SAMPLE_SEED = 17
+
+
+class TrainBatch(NamedTuple):
+    """A batch of independent frames, each with its precomputed memory."""
+    image: torch.Tensor          # [B, H, W, 3] float32
+    proj_indices: torch.Tensor   # [B, H, W] int32
+    mem_features: torch.Tensor   # [B, cells, D] float32
+    mem_obs: torch.Tensor        # [B, cells] float32
+    gt_boxes: torch.Tensor       # [B, G, 4] float32
+    gt_classes: torch.Tensor     # [B, G] int32
+    gt_valid: torch.Tensor       # [B, G] bool
+    weight: torch.Tensor         # [B] float32; 0 marks a padding frame
+    # the reference's normaliser per row (n_chunks * frames of the first
+    # chunk); None normalises by sum(weight)
+    loss_norm: Optional[torch.Tensor] = None
+
+
+class TrainState(NamedTuple):
+    model: EmbodiedDetector
+    optimizer: GroupedOptimizer
+    step: int
+
+
+def sample_generators(step: int, batch: int,
+                      device: torch.device) -> list:
+    """One proposal-sampling generator per frame, seeded from (step,
+    frame): the draws depend on the step, never on what ran before."""
+    gens = []
+    for b in range(batch):
+        seed = np.random.SeedSequence([SAMPLE_SEED, step, b]).generate_state(
+            1, dtype=np.uint64)[0]
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        gens.append(gen)
+    return gens
+
+
+def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
+                 batch: TrainBatch, zs_weight: torch.Tensor,
+                 step: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, losses) of a batch: per-frame losses weighted and divided
+    by the normaliser, the CenterNet terms by the batch-global mean
+    positive and regression-location counts."""
+    n = batch.image.shape[0]
+    egos = memory_read_batched(batch.mem_features, batch.mem_obs,
+                               batch.proj_indices) \
+        if cfg.memory.reads_memory() else None
+    feats = model.backbone_raw(batch.image)
+    gens = sample_generators(step, n, batch.image.device)
+    per_frame = []
+    for b in range(n):
+        gt = GroundTruth(batch.gt_boxes[b], batch.gt_classes[b],
+                         batch.gt_valid[b])
+        per_frame.append(model.frame_train(
+            batch.image[b], zs_weight, batch.mem_features[b],
+            batch.mem_obs[b], batch.proj_indices[b], gt, gens[b],
+            defer_centernet_norm=True,
+            ego=None if egos is None else egos[b],
+            backbone_feats=tuple(f[b] for f in feats)))
+    losses = {k: torch.stack([f[k] for f in per_frame]) for k in per_frame[0]}
+    weight = batch.weight
+    wsum = weight.sum().clamp(min=1.0)
+    norm = wsum if batch.loss_norm is None else \
+        batch.loss_norm.mean().clamp(min=1.0)
+    num_pos_avg = ((losses.pop("_centernet_num_pos") * weight).sum() /
+                   wsum).clamp(min=1.0)
+    reg_norm = ((losses.pop("_centernet_reg_cnt") * weight).sum() /
+                wsum).clamp(min=1.0)
+    losses = {k: (v * weight).sum() / norm for k, v in losses.items()}
+    losses["loss_centernet_agn_pos"] = \
+        losses["loss_centernet_agn_pos"] / num_pos_avg
+    losses["loss_centernet_agn_neg"] = \
+        losses["loss_centernet_agn_neg"] / num_pos_avg
+    losses["loss_centernet_loc"] = losses["loss_centernet_loc"] / reg_norm
+    total = sum(losses.values())
+    return total, losses
+
+
+def make_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
+                    optimizer: Optional[GroupedOptimizer] = None):
+    """(init_state, step_fn): init_state() -> TrainState at step 0;
+    step_fn(state, batch, zs_weight) -> (state, losses), the losses
+    detached, with "total_loss". The model's parameters are updated in
+    place."""
+
+    def init_state() -> TrainState:
+        nonlocal optimizer
+        if optimizer is None:
+            optimizer = build_optimizer(model, cfg.solver)
+        return TrainState(model=model, optimizer=optimizer, step=0)
+
+    def step_fn(state: TrainState, batch: TrainBatch,
+                zs_weight: torch.Tensor
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model.zero_grad(set_to_none=True)
+        total, losses = batch_losses(model, cfg, batch, zs_weight,
+                                     state.step)
+        total.backward()
+        state.optimizer.step()
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["total_loss"] = total.detach()
+        return state._replace(step=state.step + 1), losses
+
+    return init_state, step_fn
+
+
+def batch_to_device(batch, device: "torch.device | str",
+                    pin: bool = False) -> TrainBatch:
+    """A batch of numpy arrays (or tensors) as tensors on `device`. With
+    `pin`, host arrays are staged in pinned memory and copied without
+    waiting for the host."""
+    dtypes = {"image": torch.float32, "proj_indices": torch.int32,
+              "mem_features": torch.float32, "mem_obs": torch.float32,
+              "gt_boxes": torch.float32, "gt_classes": torch.int32,
+              "gt_valid": torch.bool, "weight": torch.float32,
+              "loss_norm": torch.float32}
+    out = {}
+    for name, value in batch._asdict().items():
+        if value is None:
+            out[name] = None
+            continue
+        t = torch.as_tensor(np.asarray(value) if not isinstance(
+            value, torch.Tensor) else value, dtype=dtypes[name])
+        if pin and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[name] = t.to(device, non_blocking=pin)
+    return TrainBatch(**out)

@@ -20,6 +20,14 @@ class Detections(NamedTuple):
     valid: torch.Tensor       # [N] bool
 
 
+class GroundTruth(NamedTuple):
+    """Padded ground-truth boxes of one frame, or of a batch with a
+    leading [B] axis."""
+    boxes: torch.Tensor       # [G, 4] xyxy
+    classes: torch.Tensor     # [G] int32
+    valid: torch.Tensor       # [G] bool
+
+
 class MemoryState(NamedTuple):
     """The recurrent spatial memory carry.
 
@@ -54,6 +62,25 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     union = area(a)[:, None] + area(b)[None, :] - inter
     return torch.where(union > 0, inter / union.clamp(min=1e-12),
                        torch.zeros_like(inter))
+
+
+def giou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise generalized IoU between broadcast XYXY box arrays."""
+    ix1 = torch.maximum(a[..., 0], b[..., 0])
+    iy1 = torch.maximum(a[..., 1], b[..., 1])
+    ix2 = torch.minimum(a[..., 2], b[..., 2])
+    iy2 = torch.minimum(a[..., 3], b[..., 3])
+    inter = (ix2 - ix1).clamp(min=0) * (iy2 - iy1).clamp(min=0)
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = area_a + area_b - inter
+    iou = inter / union.clamp(min=1e-7)
+    cx1 = torch.minimum(a[..., 0], b[..., 0])
+    cy1 = torch.minimum(a[..., 1], b[..., 1])
+    cx2 = torch.maximum(a[..., 2], b[..., 2])
+    cy2 = torch.maximum(a[..., 3], b[..., 3])
+    area_c = (cx2 - cx1) * (cy2 - cy1)
+    return iou - (area_c - union) / area_c.clamp(min=1e-7)
 
 
 def clip_boxes(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:

@@ -379,13 +379,17 @@ def test_frame_step_strided_write_vs_jax(fx):
 
 def test_bf16_frame_runs_on_cpu(fx):
     """The compute dtype the card runs (bf16 trunk, FPN and heads; f32
-    sites stay f32), at the miniature on the CPU: finite, same shapes."""
+    sites stay f32), at the miniature on the CPU: finite, same shapes.
+    Parameters stay f32, as in the JAX package; bf16 layers cast them at
+    each use."""
     cfg = _port_config(fx["cfg"]).replace(compute_dtype="bfloat16")
     model = build_detector(cfg, seed=1, device="cpu")
     model.load_state_dict(fx["port"].state_dict())
-    assert model.backbone.conv1.weight.dtype == torch.bfloat16
-    assert model.fpn.map_merge_projection1.weight.dtype == torch.float32
-    assert model.centernet.agn_hm.weight.dtype == torch.float32
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert model.backbone.dtype == torch.bfloat16
+    assert model.roi_heads.box_head0.dtype == torch.bfloat16
+    assert torch.equal(model.backbone.conv1.weight,
+                       fx["port"].backbone.conv1.weight)
     cells, d = cfg.memory.max_cells, cfg.memory.memory_dim
     frames = frame_inputs(fx["images"][:2], fx["projs"][:2],
                           np.array([True, False]), cells, "cpu")

@@ -50,6 +50,126 @@ def test_segment_sum_kernel_vs_plain(one_cell):
     assert torch.equal(count, rows_in_cell.float())
 
 
+def test_memory_read_batched_kernel_vs_single_reads():
+    """Kernel 6 at B = 4: bit-exact per frame to kernel 2, and close to
+    the plain batched read (its 16-term mean may sum in another order)."""
+    _need_card()
+    rng = np.random.RandomState(21)
+    b, cells, d = 4, 8192, 512
+    feats = torch.from_numpy(
+        rng.randn(b, cells, d).astype(np.float32)).cuda()
+    obs = torch.from_numpy(rng.choice([0.0, 1.0, 2.0, 5.0], (b, cells))
+                           .astype(np.float32)).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, cells, (b, 480, 640)).astype(np.int32)).cuda()
+    got = memory_ops.memory_read_batched(feats, obs, proj)
+    singles = torch.stack([memory_ops.memory_read(feats[i], obs[i], proj[i])
+                           for i in range(b)])
+    plain = memory_ops.memory_read_batched_plain(feats, obs, proj)
+    torch.cuda.synchronize()
+    assert torch.equal(got, singles)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+
+
+def _pasted_masks(rng, n=100, h=480, w=640):
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    probs = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).cuda()
+    x0, y0 = rng.uniform(-60, w - 40, n), rng.uniform(-60, h - 40, n)
+    boxes = torch.from_numpy(np.stack(
+        [x0, y0, x0 + rng.uniform(4, 400, n), y0 + rng.uniform(4, 300, n)],
+        1).astype(np.float32)).cuda()
+    masks = mp.paste_masks(probs, boxes, h, w, 0.5, pixel_major=True)
+    masks[7] = False                       # an image row no mask covers
+    masks[9] = True                        # a row every mask covers
+    return masks.contiguous()
+
+
+@pytest.mark.parametrize("subsample", [8, 3])
+def test_write_select_kernel_vs_plain(subsample):
+    """Kernel 7: equal to its plain version in every element, with real
+    pasted masks, an empty and a full row, and invalid detections."""
+    _need_card()
+    rng = np.random.RandomState(22)
+    masks = _pasted_masks(rng)
+    valid = torch.from_numpy(rng.rand(100) > 0.2).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (480, 640)).astype(np.int32)).cuda()
+    seg, aug = memory_ops.write_select(masks, valid, proj, subsample)
+    seg_p, aug_p = memory_ops.write_select_plain(masks, valid, proj,
+                                                 subsample)
+    torch.cuda.synchronize()
+    assert torch.equal(seg, seg_p)
+    assert torch.equal(aug, aug_p)
+    assert int((seg >= 0).sum()) > 1000
+
+
+def _contributions(levels, boxes, lvl, grad, strides, size):
+    """(count [P], abs_sum [P, C]) over the flattened levels' positions:
+    how many nonzero tap contributions land on each, and the sum of their
+    magnitudes, from the plain tap form on the CPU."""
+    rows, wgt = roi_align.roi_align_taps([f.shape[:2] for f in levels], boxes,
+                                         strides, size, 2, lvl)
+    sizes = [f.shape[0] * f.shape[1] for f in levels]
+    count = torch.zeros(sum(sizes)).index_add_(
+        0, rows.reshape(-1), (wgt.reshape(-1) != 0).float())
+    leaves = [f.detach().float().cpu().requires_grad_(True) for f in levels]
+    out = roi_align._roi_align_taps(leaves, boxes, strides, size, 2, lvl)
+    abs_sum = torch.autograd.grad(out, leaves, grad.abs().float().cpu())
+    return count, torch.cat([a.reshape(-1, a.shape[-1]) for a in abs_sum])
+
+
+def _flat(grads):
+    return torch.cat([g.float().cpu().reshape(-1, g.shape[-1])
+                      for g in grads])
+
+
+@pytest.mark.parametrize("r", [512, 64])
+def test_roi_align_backward_kernel_vs_plain(r):
+    """Kernel 4b against torch autograd of the plain v1 on the CPU, in
+    f32, within contributions x 2^-24 x sum|contribution| per element
+    (f32 atomics sum in any order); in bf16 against the card's plain v1
+    autograd, which rounds each contribution and each partial sum to
+    bf16: within (contributions + 1) x 2^-8 x sum|contribution|."""
+    _need_card()
+    rng = np.random.RandomState(23)
+    strides = (8, 16, 32)
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              for h, w in ((60, 80), (30, 40), (15, 20))]
+    side = np.exp(rng.uniform(np.log(16), np.log(900), r))
+    cx, cy = rng.uniform(-40, 680, r), rng.uniform(-40, 520, r)
+    boxes = torch.from_numpy(np.stack(
+        [cx - side / 2, cy - side / 2, cx + side / 2, cy + side / 2],
+        1).astype(np.float32))
+    lvl = (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
+    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32))
+    shapes = [f.shape[:2] for f in levels]
+    count, abs_sum = _contributions(levels, boxes, lvl, grad, strides, 7)
+
+    got = roi_align.roi_align_backward_cuda(
+        grad.cuda(), shapes, boxes.cuda(), lvl.cuda(), strides, 2,
+        torch.float32)
+    leaves = [f.clone().requires_grad_(True) for f in levels]
+    want = torch.autograd.grad(
+        roi_align._roi_align_taps(leaves, boxes, strides, 7, 2, lvl),
+        leaves, grad)
+    bound = count[:, None] * 2.0 ** -24 * abs_sum
+    assert bool(((_flat(got) - _flat(want)).abs() <= bound).all())
+
+    # bf16, the training path's types
+    dev16 = [f.cuda().to(torch.bfloat16).requires_grad_(True)
+             for f in levels]
+    g16 = grad.cuda().to(torch.bfloat16)
+    got16 = roi_align.roi_align_backward_cuda(
+        g16, shapes, boxes.cuda(), lvl.cuda(), strides, 2, torch.bfloat16)
+    out = roi_align._roi_align_taps(dev16, boxes.cuda(), strides, 7, 2,
+                                    lvl.cuda())
+    want16 = torch.autograd.grad(out, dev16, g16.float())
+    torch.cuda.synchronize()
+    _, abs16 = _contributions(dev16, boxes, lvl, g16, strides, 7)
+    tol16 = (count[:, None] + 1) * 2.0 ** -8 * abs16
+    assert bool(((_flat(got16) - _flat(want16)).abs() <= tol16).all())
+
+
 def test_memory_read_kernel_vs_plain():
     _need_card()
     rng = np.random.RandomState(17)

@@ -466,5 +466,8 @@ def test_slice2_kernel_sources(name, replaces):
 
 
 def test_all_five_kernels_are_built():
+    # slice 2's five sources, with slice 3's write selection and ROIAlign
+    # backward beside them
     assert set(build.ENTRY_POINTS) == {"segment_sum", "memory_read", "nms",
-                                       "roi_align", "mask_paste"}
+                                       "roi_align", "mask_paste",
+                                       "write_select", "roi_align_backward"}
