@@ -61,6 +61,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -185,7 +186,9 @@ def build_kernels():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
     phase(2, f"kernels ready in {time.perf_counter() - t0:.1f} s "
-             f"({len(report)} compiled, {len(build.ENTRY_POINTS)} total)")
+             f"({len(report)} of "
+             f"{len(set(map(build.source, build.ENTRY_POINTS)))} sources "
+             f"compiled, {len(build.ENTRY_POINTS)} entry points)")
 
 
 def segment_sum_inputs(rng, one_cell=False):
@@ -546,6 +549,19 @@ def check_roi_align_backward(rng, r=512):
         g16.float())
     torch.cuda.synchronize()
     _, abs16 = roi_contributions(levels16, boxes, lvl, g16, 7)
+    # the f32 autograd on the CPU of the bf16-rounded gradient: the kernel
+    # sums the same f32 products and casts once
+    leaves = [f.cpu().requires_grad_(True) for f in levels]
+    ref16 = flat_levels(torch.autograd.grad(
+        ra._roi_align_taps(leaves, boxes.cpu(), STRIDES, 7, 2, lvl.cpu()),
+        leaves, g16.float().cpu()))
+    err_ref = (flat_levels(got16) - ref16).abs()
+    tight = 2.0 ** -8 * ref16.abs() + \
+        (1 + 2.0 ** -8) * count[:, None] * 2.0 ** -24 * abs16
+    if not bool((err_ref <= tight).all()):
+        raise AssertionError(f"roi_align backward bf16: max err "
+                             f"{float(err_ref.max())} against the f32 "
+                             f"autograd beyond 2^-8 |ref| + n 2^-24 sum|c|")
     err16 = (flat_levels(got16) - flat_levels(want16)).abs()
     tol16 = (count[:, None] + 1) * 2.0 ** -8 * abs16
     if not bool((err16 <= tol16).all()):
@@ -556,13 +572,18 @@ def check_roi_align_backward(rng, r=512):
           f"one position; f32 vs plain v1 autograd (CPU) max err "
           f"{worst:.3e}, max err / bound "
           f"{float((err / bound.clamp(min=1e-30)).max()):.3f}; bf16 vs the "
-          f"card's plain v1 autograd max err {float(err16.max()):.3e}, "
+          f"f32 autograd (CPU) of the bf16 gradient max err "
+          f"{float(err_ref.max()):.3e}, max err / bound "
+          f"{float((err_ref / tight.clamp(min=1e-30)).max()):.3f}; bf16 vs "
+          f"the card's plain v1 autograd max err {float(err16.max()):.3e}, "
           f"max err / bound {float((err16 / tol16.clamp(min=1e-30)).max()):.3f}")
     phase("4f", "roi_align backward within contributions x 2^-24 x "
-                "sum|contribution| of the plain v1 on the CPU (f32), and "
-                "within (contributions + 1) x 2^-8 x sum|contribution| of "
-                "the card's plain v1 (bf16, which rounds every partial sum "
-                "to bf16)")
+                "sum|contribution| of the plain v1 on the CPU (f32); in "
+                "bf16 within 2^-8 |ref| + (1 + 2^-8) contributions x 2^-24 "
+                "x sum|contribution| of the CPU's f32 plain v1 of the "
+                "bf16-rounded gradient (one final rounding), and within "
+                "(contributions + 1) x 2^-8 x sum|contribution| of the "
+                "card's plain v1 in bf16 (which rounds every partial sum)")
     return worst
 
 
@@ -862,42 +883,36 @@ def run_train_path(profile_dir):
     zs[:, -1] = 0.0
     zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
     batch_fn = synthetic_batch_fn(cfg, TRAIN_FRAMES)
-    stamps, nonfinite = [], []
-
-    def hook(it, state, losses):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        finite = torch.isfinite(torch.stack(list(losses.values()))).tolist()
-        nonfinite.extend(f"step {it}: {k}"
-                         for k, ok in zip(losses, finite) if not ok)
-
     try:
         torch.cuda.reset_peak_memory_stats()
         zero_counters()
-        t0 = time.perf_counter()
         state = train(model, cfg, None, zs, max_iter=TRAIN_STEPS,
-                      log_period=1, seed=0, verbose=True, batch_fn=batch_fn,
-                      step_hook=hook)
+                      log_period=1, seed=0, verbose=True, batch_fn=batch_fn)
         torch.cuda.synchronize()
         launches = read_counters()
         peak = torch.cuda.max_memory_allocated()
-        lines = (Path(out_dir) / "metrics.json").read_text().splitlines()
+        lines = [json.loads(x) for x in
+                 (Path(out_dir) / "metrics.json").read_text().splitlines()]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    step_ms = [(stamps[0] - t0) * 1e3] + [
-        (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    if nonfinite:
-        raise AssertionError(f"non-finite losses: {nonfinite}")
     if len(lines) != TRAIN_STEPS:
         raise AssertionError(f"{len(lines)} metrics lines for {TRAIN_STEPS} "
                              "steps")
+    # a line a step (log_period 1): its losses, and the step's wall time,
+    # the wait for its batch plus the step up to the loop's one host read
+    nonfinite = [f"step {rec['iteration']}: {k}" for rec in lines
+                 for k, v in rec.items() if not math.isfinite(v)]
+    if nonfinite:
+        raise AssertionError(f"non-finite losses: {nonfinite}")
+    step_ms = [(rec["data_time"] + rec["time"]) * 1e3 for rec in lines]
     print(f"  launches in the {TRAIN_STEPS}-step run: {launches}")
     for name, fn in kernel_counters().items():
         expected = LAUNCHES_PER_STEP.get(name, 0) * TRAIN_STEPS
         if launches[name] != expected:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{TRAIN_STEPS} steps, expected {expected}")
-    print(f"  ms per step (host clock between synchronised step ends): "
+    print(f"  ms per step (host clock, batch wait + step to its loss "
+          f"read, from metrics.json): "
           f"{', '.join(f'{x:.1f}' for x in step_ms)}; steps 2-3 mean "
           f"{np.mean(step_ms[1:]):.1f}")
     print(f"  peak device memory: {peak / 2 ** 30:.2f} GiB "
@@ -927,12 +942,13 @@ def run_train_path(profile_dir):
 
 def check_train_against_cpu():
     """Phase 9: one training step at the 64x96 f32 miniature on the card
-    and on the CPU, from the same seeded weights and batch."""
+    and on the CPU, from the same seeded weights and batch, at a learning
+    rate the update can be seen at (base_lr 1e-3, no warmup)."""
     from embodied_object_detection_tpu_torch.config import DetectorConfig
     from embodied_object_detection_tpu_torch.data.synthetic import (
         synthetic_train_batch)
     from embodied_object_detection_tpu_torch.engine.solver import (
-        build_optimizer)
+        ADAM_EPS, build_optimizer)
     from embodied_object_detection_tpu_torch.models.detector import (
         build_detector)
     from embodied_object_detection_tpu_torch.parallel.train_step import (
@@ -948,7 +964,9 @@ def check_train_against_cpu():
                                       post_nms_topk_train=16),
         roi=dataclasses.replace(cfg.roi, detections_per_image=8,
                                 num_classes=5),
-        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=4))
+        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=4),
+        solver=dataclasses.replace(cfg.solver, base_lr=1e-3,
+                                   warmup_factor=1.0))
     batch = synthetic_train_batch(cfg, np.random.RandomState(2), 2, 1)
     zs = np.random.RandomState(4).randn(512, 6).astype(np.float32)
     zs[:, -1] = 0.0
@@ -957,6 +975,8 @@ def check_train_against_cpu():
     for dev in ("cpu", "cuda"):
         model = build_detector(cfg, seed=3, device=dev)
         opt = build_optimizer(model, cfg.solver)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
         total, losses = batch_losses(model, cfg, batch_to_device(batch, dev),
                                      torch.from_numpy(zs).to(dev), 0)
         total.backward()
@@ -964,10 +984,11 @@ def check_train_against_cpu():
                  for n, p in model.named_parameters() if p.grad is not None}
         opt.step()
         res[dev] = ({k: float(v.detach()) for k, v in losses.items()}, grads,
-                    {n: p.detach().cpu() for n, p in model.named_parameters()},
-                    dict(zip(opt.names, opt.mults)), opt.lr(0))
-    (l_c, g_c, p_c, mult, lr0), (l_g, g_g, p_g, _, _) = res["cpu"], \
-        res["cuda"]
+                    {n: p.detach().cpu() - before[n]
+                     for n, p in model.named_parameters()},
+                    before, dict(zip(opt.names, opt.mults)), opt.lr(0))
+    (l_c, g_c, d_c, p0, mult, lr0), (l_g, g_g, d_g, p0_g, _, _) = \
+        res["cpu"], res["cuda"]
     for k in l_c:
         if not abs(l_g[k] - l_c[k]) <= 1e-4 * abs(l_c[k]) + 1e-6:
             raise AssertionError(f"phase 9 loss {k}: card {l_g[k]} vs CPU "
@@ -975,29 +996,64 @@ def check_train_against_cpu():
     if set(g_c) != set(g_g):
         raise AssertionError("the card and the CPU differ on which "
                              "parameters get a gradient")
+    if any(not torch.equal(p0[n], p0_g[n]) for n in p0):
+        raise AssertionError("the card and the CPU start from different "
+                             "parameters")
     grad_rel = max(float((g_g[n] - g_c[n]).abs().max()) /
                    max(float(g_c[n].abs().max()), 1e-30) for n in g_c)
     if grad_rel > 1e-3:
         raise AssertionError(f"phase 9 gradients differ by {grad_rel:.3e} "
                              "of a tensor's largest")
-    # AdamW's first step moves each element by lr * mult * (g / (|g| +
-    # eps) + wd * p), at most lr * mult * (1 + wd |p|): the two devices'
-    # parameters may differ by twice that (a gradient near 0 can change
-    # sign) plus an f32 rounding of p
-    worst = 0.0
-    for n in p_c:
-        bound = 2.0 * lr0 * mult[n] * (1 + 1e-4 * p_c[n].abs()) + \
-            2.0 ** -23 * p_c[n].abs()
-        diff = (p_g[n] - p_c[n]).abs()
+    # AdamW's first step is -lr mult (f(g) + wd p) with f(g) = g / (|g| +
+    # eps) of the clipped gradient. Where the two devices' clipped
+    # gradients a, b share a sign, f(a) - f(b) = eps (a - b) / ((|a| + eps)
+    # (|b| + eps)), so the updates must agree to that plus f32 rounding
+    # (rtol 1e-5 of the update, 2^-23 of the parameter); where a gradient
+    # near 0 flips sign, f may differ by up to 2. Every element whose
+    # gradient is far above eps on the card must move by at least half of
+    # lr mult, so a step that does not update fails.
+    clip = cfg.solver.clip_value
+    worst, worst_round, flipped, moved, total_n = 0.0, 0.0, 0, 0, 0
+    for n in d_c:
+        a = g_g.get(n, torch.zeros_like(d_c[n])).clamp(-clip, clip)
+        b = g_c.get(n, torch.zeros_like(d_c[n])).clamp(-clip, clip)
+        same = torch.sign(a) == torch.sign(b)
+        df = torch.where(same, ADAM_EPS * (a - b).abs() /
+                         ((a.abs() + ADAM_EPS) * (b.abs() + ADAM_EPS)),
+                         torch.full_like(a, 2.0))
+        lrm = lr0 * mult.get(n, 0.0)
+        rounding = 1e-5 * d_c[n].abs() + 2.0 ** -23 * p0[n].abs()
+        bound = lrm * df + rounding
+        diff = (d_g[n] - d_c[n]).abs()
         if not bool((diff <= bound).all()):
-            raise AssertionError(f"phase 9 parameter {n} differs by "
-                                 f"{float(diff.max())}")
-        worst = max(worst, float((diff / bound).max()))
-    phase(9, f"one training step at 64x96 f32 (B = 2, one padding row): "
-             f"the card matches the CPU, losses within rtol 1e-4, "
+            raise AssertionError(f"phase 9 update of {n} differs by "
+                                 f"{float(diff.max())} (card vs CPU)")
+        worst = max(worst, float(torch.where(
+            same, diff / bound.clamp(min=1e-30), 0.0).max()))
+        # where the gradients agree to within the rounding terms
+        worst_round = max(worst_round, float(torch.where(
+            same & (lrm * df <= rounding), diff / bound.clamp(min=1e-30),
+            0.0).max()))
+        flipped += int((~same).sum())
+        live = a.abs() > 100 * ADAM_EPS
+        if n in mult and not bool(
+                (d_g[n][live].abs() >= 0.5 * lrm).all()):
+            raise AssertionError(f"phase 9: the card's step left {n} (almost) "
+                                 f"unchanged where its gradient is not 0")
+        moved += int(live.sum()) if n in mult else 0
+        total_n += a.numel()
+    if moved == 0:
+        raise AssertionError("phase 9: no parameter has a gradient")
+    phase(9, f"one training step at 64x96 f32 (B = 2, one padding row, lr "
+             f"{lr0:g}): the card matches the CPU, losses within rtol 1e-4, "
              f"gradients within {grad_rel:.2e} of each tensor's largest "
-             f"(tolerance 1e-3), updated parameters within "
-             f"{worst:.3f} of 2 lr mult (1 + wd |p|) + 2^-23 |p|")
+             f"(tolerance 1e-3), updates p_new - p_old within {worst:.3f} of "
+             f"lr mult eps|a-b|/((|a|+eps)(|b|+eps)) + 1e-5 |update| + "
+             f"2^-23 |p| where the gradients share a sign (the first term "
+             f"is f(a) - f(b) exactly, so near 1 where it dominates; "
+             f"{worst_round:.3f} where the rounding terms do; {flipped} of "
+             f"{total_n} elements flip sign, held within 2 lr mult), "
+             f"{moved} elements moved by >= lr mult / 2 on the card")
 
 
 def time_kernels(rng, launches, train_launches, errs):
@@ -1148,7 +1204,7 @@ def time_roi_align_backward(rng, launches, errs, r=512):
           f"{contributions:.3e} atomic adds, bound {b_ms * 1e3:.2f} us "
           f"({b_by})")
     return [{"name": "roi_align_backward", "route": "cuda",
-             "source": "embodied_object_detection_tpu_torch/csrc/roi_align_backward.cu",
+             "source": "embodied_object_detection_tpu_torch/csrc/roi_align.cu",
              "replaces": "embodied_object_detection_tpu/ops/roi_align.py:229",
              "launches": launches["roi_align_backward"],
              "max_abs_err": errs["roi_align_backward"], "ms": ms,

@@ -1,4 +1,5 @@
-// Multilevel ROIAlignV2 forward (aligned=True, fixed sampling ratio s):
+// Multilevel ROIAlignV2 (aligned=True, fixed sampling ratio s), forward
+// and backward. Forward:
 //     out[r, ph, pw, c] = mean over the s x s samples of bin (ph, pw) of the
 //                         bilinear sample of level lvl[r] at channel c
 // levels: up to 4 contiguous [H_l, W_l, C] tensors (bf16 or f32, all one
@@ -26,6 +27,25 @@
 // adjacent channels (one __nv_bfloat162 or float2 load per tap), so a warp
 // reads 128 or 256 contiguous bytes of a level row per tap, and the block's
 // output row is one contiguous store.
+//
+// Backward, the transpose of the same tap form: for every ROI r, output
+// cell (ph, pw), sample of the bin and bilinear tap t at level position p
+//     grad_level[lvl[r]][p, c] += (grad_out[r, ph, pw, c] / s^2) * w_t
+// with the forward's sample table (sample_table below: the same
+// coordinates, clamps and weights). grad_out [R, S, S, C] bf16 or f32; the
+// gradients accumulate into one f32 [H_l, W_l, C] buffer a level (zeroed
+// by the caller, who casts each once to the levels' type). It replaces
+// the backward of the same function, which JAX derives by autodiff (of
+// v4's hat-weight matmuls, or of v1's tap gathers as a scatter-add). Each
+// contribution is the f32 product that autodiff of the tap form computes;
+// only the order of the sums differs, because they are f32 atomicAdds: per
+// element the result is within (contributions) x 2^-24 x sum|contribution|
+// of any other order. Bound in principle by bytes (grad_out read once, 6.4
+// MB at R = 512, 7 x 7, 256 bf16; the f32 accumulators, 6.5 MB, written
+// once), in practice by the atomics: R x S^2 x s^2 x 4 taps x C adds that
+// land in L2, many on the same addresses (overlapping ROIs on the 60 x 80
+// level). Same blocks as the forward; zero-weight taps (samples outside
+// [-1, size]) are skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,21 +99,14 @@ __device__ __forceinline__ Axis sample_axis(float c, int size) {
   return a;
 }
 
-template <typename T>
-__global__ void roi_align_kernel(Levels lv, const float* __restrict__ boxes,
-                                 const int* __restrict__ level_ids,
-                                 T* __restrict__ out, int channels,
-                                 int out_size, int s) {
-  __shared__ int off[kMaxSamples][4];
-  __shared__ float wgt[kMaxSamples][4];
-  const int roi = blockIdx.x / out_size;
-  const int ph = blockIdx.x - roi * out_size;
-  const int lvl = level_ids[roi];
-  const int h = lv.height[lvl];
-  const int w = lv.width[lvl];
-  const float stride = lv.stride[lvl];
-  const T* __restrict__ f = static_cast<const T*>(lv.data[lvl]);
-
+// The s * S * s sample positions of output row ph of ROI `roi` (k = sample
+// row within the bin * S * s + sample column across all bins): their four
+// tap offsets into the level and the taps' weights, 0 for a sample outside
+// [-1, size]. The block fills the table in shared memory; the forward and
+// the backward read the same one, so their taps are the same.
+__device__ __forceinline__ void sample_table(
+    const float* __restrict__ boxes, int roi, int ph, int h, int w,
+    float stride, int out_size, int s, int (*off)[4], float (*wgt)[4]) {
   const float* b = boxes + 4LL * roi;
   const float x1 = __fdiv_rn(b[0], stride);
   const float y1 = __fdiv_rn(b[1], stride);
@@ -124,7 +137,24 @@ __global__ void roi_align_kernel(Levels lv, const float* __restrict__ boxes,
     wgt[k][3] = __fmul_rn(__fmul_rn(ay.hi, ax.hi), okf);
   }
   __syncthreads();
+}
 
+// One block per (ROI, output row); each thread owns two adjacent channels.
+template <typename T>
+__global__ void roi_align_kernel(Levels lv, const float* __restrict__ boxes,
+                                 const int* __restrict__ level_ids,
+                                 T* __restrict__ out, int channels,
+                                 int out_size, int s) {
+  __shared__ int off[kMaxSamples][4];
+  __shared__ float wgt[kMaxSamples][4];
+  const int roi = blockIdx.x / out_size;
+  const int ph = blockIdx.x - roi * out_size;
+  const int lvl = level_ids[roi];
+  const T* __restrict__ f = static_cast<const T*>(lv.data[lvl]);
+  sample_table(boxes, roi, ph, lv.height[lvl], lv.width[lvl],
+               lv.stride[lvl], out_size, s, off, wgt);
+
+  const int row_samples = out_size * s;
   const float inv = 1.0f / (float)(s * s);
   T* row_out = out + ((long long)roi * out_size + ph) * out_size * channels;
   for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
@@ -150,6 +180,73 @@ __global__ void roi_align_kernel(Levels lv, const float* __restrict__ boxes,
   }
 }
 
+// The transpose: lv.data[l] is level l's f32 gradient buffer.
+template <typename T>
+__global__ void roi_align_backward_kernel(Levels lv,
+                                          const float* __restrict__ boxes,
+                                          const int* __restrict__ level_ids,
+                                          const T* __restrict__ grad_out,
+                                          int channels, int out_size, int s) {
+  __shared__ int off[kMaxSamples][4];
+  __shared__ float wgt[kMaxSamples][4];
+  const int roi = blockIdx.x / out_size;
+  const int ph = blockIdx.x - roi * out_size;
+  const int lvl = level_ids[roi];
+  float* __restrict__ g = static_cast<float*>(const_cast<void*>(lv.data[lvl]));
+  sample_table(boxes, roi, ph, lv.height[lvl], lv.width[lvl],
+               lv.stride[lvl], out_size, s, off, wgt);
+
+  const int row_samples = out_size * s;
+  const float ss = (float)(s * s);
+  const T* row_grad =
+      grad_out + ((long long)roi * out_size + ph) * out_size * channels;
+  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
+    for (int pw = 0; pw < out_size; ++pw) {
+      const float2 go = load2(row_grad + (long long)pw * channels + c);
+      const float g0 = __fdiv_rn(go.x, ss);       // the mean's transpose
+      const float g1 = __fdiv_rn(go.y, ss);
+      for (int iy = 0; iy < s; ++iy) {
+        for (int ix = 0; ix < s; ++ix) {
+          const int k = iy * row_samples + pw * s + ix;
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) {
+            const float wt = wgt[k][tap];
+            if (wt == 0.0f) continue;
+            float* dst = g + (long long)off[k][tap] * channels + c;
+            atomicAdd(dst, __fmul_rn(g0, wt));
+            atomicAdd(dst + 1, __fmul_rn(g1, wt));
+          }
+        }
+      }
+    }
+  }
+}
+
+Levels make_levels(const void* const* data, const int* heights,
+                   const int* widths, const int* strides, int num_levels) {
+  Levels lv = {};
+  for (int l = 0; l < num_levels; ++l) {
+    lv.data[l] = data[l];
+    lv.height[l] = heights[l];
+    lv.width[l] = widths[l];
+    lv.stride[l] = (float)strides[l];
+  }
+  return lv;
+}
+
+bool bad_geometry(int num_levels, int channels, int out_size,
+                  int sampling_ratio) {
+  return num_levels < 1 || num_levels > kMaxLevels || channels % 2 != 0 ||
+         out_size < 1 || sampling_ratio < 1 ||
+         out_size * sampling_ratio * sampling_ratio > kMaxSamples;
+}
+
+int threads_for(int channels) {
+  int threads = channels / 2;
+  if (threads > 256) threads = 256;
+  return ((threads + 31) / 32) * 32;
+}
+
 }  // namespace
 
 // levels, heights, widths, strides: host arrays of num_levels entries.
@@ -160,21 +257,11 @@ extern "C" int roi_align_launch(const void* const* levels, const int* heights,
                                 int num_rois, int channels, int out_size,
                                 int sampling_ratio, int is_bf16,
                                 void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || channels % 2 != 0 ||
-      out_size < 1 || sampling_ratio < 1 ||
-      out_size * sampling_ratio * sampling_ratio > kMaxSamples)
+  if (bad_geometry(num_levels, channels, out_size, sampling_ratio))
     return (int)cudaErrorInvalidValue;
   if (num_rois == 0 || channels == 0) return 0;
-  Levels lv = {};
-  for (int l = 0; l < num_levels; ++l) {
-    lv.data[l] = levels[l];
-    lv.height[l] = heights[l];
-    lv.width[l] = widths[l];
-    lv.stride[l] = (float)strides[l];
-  }
-  int threads = channels / 2;
-  if (threads > 256) threads = 256;
-  threads = ((threads + 31) / 32) * 32;
+  const Levels lv = make_levels(levels, heights, widths, strides, num_levels);
+  const int threads = threads_for(channels);
   const unsigned int blocks = (unsigned int)num_rois * out_size;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
@@ -185,5 +272,30 @@ extern "C" int roi_align_launch(const void* const* levels, const int* heights,
     roi_align_kernel<float><<<blocks, threads, 0, s>>>(
         lv, (const float*)boxes, (const int*)level_ids, (float*)out,
         channels, out_size, sampling_ratio);
+  return (int)cudaGetLastError();
+}
+
+// grads, heights, widths, strides: host arrays of num_levels entries; each
+// grads[l] is a zeroed f32 [H_l, W_l, C] device buffer.
+extern "C" int roi_align_backward_launch(
+    void* const* grads, const int* heights, const int* widths,
+    const int* strides, int num_levels, const void* boxes,
+    const void* level_ids, const void* grad_out, int num_rois, int channels,
+    int out_size, int sampling_ratio, int is_bf16, void* stream) {
+  if (bad_geometry(num_levels, channels, out_size, sampling_ratio))
+    return (int)cudaErrorInvalidValue;
+  if (num_rois == 0 || channels == 0) return 0;
+  const Levels lv = make_levels(grads, heights, widths, strides, num_levels);
+  const int threads = threads_for(channels);
+  const unsigned int blocks = (unsigned int)num_rois * out_size;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    roi_align_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+        lv, (const float*)boxes, (const int*)level_ids,
+        (const __nv_bfloat16*)grad_out, channels, out_size, sampling_ratio);
+  else
+    roi_align_backward_kernel<float><<<blocks, threads, 0, st>>>(
+        lv, (const float*)boxes, (const int*)level_ids,
+        (const float*)grad_out, channels, out_size, sampling_ratio);
   return (int)cudaGetLastError();
 }

@@ -139,14 +139,14 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
           max_iter: Optional[int] = None, resume: bool = False,
           frames_per_chunk: Optional[int] = None, log_period: int = 20,
           seed: int = 0, verbose: bool = True,
-          batch_fn: Optional[Callable] = None,
-          step_hook: Optional[Callable[[int, TrainState, dict], None]] = None
-          ) -> TrainState:
+          batch_fn: Optional[Callable] = None) -> TrainState:
     """Train `model` in place on its device for `max_iter` (default
     `solver.max_iter`) iterations. `batch_fn(it, rng, dp) -> TrainBatch`
     of numpy arrays replaces sampling chunks from `dataset` (which may
-    then be None). `step_hook(it, state, losses)` runs after each step,
-    before the loss is read. Returns the final TrainState."""
+    then be None). Each metrics line holds the window's median losses,
+    the learning rate, and the mean seconds a step spent waiting for its
+    batch (`data_time`) and in the step up to its host read (`time`).
+    Returns the final TrainState."""
     solver = cfg.solver
     max_iter = max_iter if max_iter is not None else solver.max_iter
     device = next(model.parameters()).device
@@ -199,8 +199,6 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
 
             t0 = time.perf_counter()
             state, losses = step_fn(state, batch, zs)
-            if step_hook is not None:
-                step_hook(it, state, losses)
             # the step's one host read: every loss in one copy
             values = dict(zip(losses, torch.stack(
                 list(losses.values())).tolist()))

@@ -1,6 +1,6 @@
 """Build the port's CUDA sources with nvcc and bind them with ctypes.
 
-Each `csrc/<name>.cu` compiles on its own into a shared library with a
+Each `csrc/<source>.cu` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), under
 `build/` at the repository root, named by a hash of the source and the
 flags so that an edited source is never served from a stale library.
@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# source name -> (C symbol, argtypes); every pointer and the stream is void*
+# kernel name -> (C symbol, argtypes); every pointer and the stream is void*.
+# A kernel's source is csrc/<name>.cu unless SOURCES names another.
 ENTRY_POINTS = {
     # (w, idx, out, rows, lanes, num_cells, stream)
     "segment_sum": ("segment_sum_launch",
@@ -67,6 +68,13 @@ ENTRY_POINTS = {
                            (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P)),
 }
+# the ROIAlign backward shares the forward's sample table
+SOURCES = {"roi_align_backward": "roi_align"}
+
+
+def source(name: str) -> str:
+    """The `csrc/<source>.cu` that holds kernel `name`."""
+    return SOURCES.get(name, name)
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -93,21 +101,24 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
+    """The library of kernel `name`'s source."""
+    src = source(name)
+    text = (CSRC / f"{src}.cu").read_bytes()
     digest = hashlib.sha256(
-        source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src}-{digest}.so"
 
 
 def build(names: Iterable[str] = tuple(ENTRY_POINTS)
           ) -> Dict[str, Tuple[float, str]]:
-    """Compile every named source whose library is missing, all nvcc
-    processes started together. Returns {name: (seconds, compiler log)}
-    for the sources it compiled; raises if any compile failed."""
+    """Compile the source of every named kernel whose library is missing,
+    all nvcc processes started together. Returns {source: (seconds,
+    compiler log)} for the sources it compiled; raises if any compile
+    failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
     running = {}
-    for name in names:
+    for name in dict.fromkeys(map(source, names)):
         out = library_path(name)
         if out.exists():
             continue

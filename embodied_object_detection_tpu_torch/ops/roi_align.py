@@ -13,8 +13,8 @@ On a CUDA tensor `multilevel_roi_align` assigns the levels in PyTorch
 type. The JAX default `impl="v4"` is that math re-associated, with bf16
 weights and a bf16 intermediate in a bf16 config (ARCHITECTURE.md
 divergence 3b), so on the card `impl` has no effect. Under autograd the
-card's call is `RoiAlignFunction`, whose backward launches
-`csrc/roi_align_backward.cu`: the tap form's transpose, f32 atomics into
+card's call is `RoiAlignFunction`, whose backward launches the second
+kernel of `csrc/roi_align.cu`: the tap form's transpose, f32 atomics into
 one f32 buffer a level, cast once to the levels' type. Boxes take no
 gradient (the JAX package stops it). On a CPU tensor `impl` picks the
 plain form, differentiated by torch autograd:
@@ -230,7 +230,7 @@ def roi_align_backward_cuda(grad_out: torch.Tensor, shapes,
                             boxes: torch.Tensor, lvl_of_roi: torch.Tensor,
                             strides: Tuple[int, ...], sampling_ratio: int,
                             dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
-    """The tap form's transpose on the card (`csrc/roi_align_backward.cu`):
+    """The tap form's transpose on the card (`csrc/roi_align.cu`):
     grad_out [R, S, S, C] bf16 or f32 -> the gradient of each [H_l, W_l,
     C] level of `shapes`, accumulated in f32 with atomics and cast once to
     `dtype`."""

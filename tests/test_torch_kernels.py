@@ -127,9 +127,12 @@ def _flat(grads):
 def test_roi_align_backward_kernel_vs_plain(r):
     """Kernel 4b against torch autograd of the plain v1 on the CPU, in
     f32, within contributions x 2^-24 x sum|contribution| per element
-    (f32 atomics sum in any order); in bf16 against the card's plain v1
-    autograd, which rounds each contribution and each partial sum to
-    bf16: within (contributions + 1) x 2^-8 x sum|contribution|."""
+    (f32 atomics sum in any order). In bf16 against the same f32 autograd
+    of the bf16-rounded gradient: the kernel accumulates in f32 and casts
+    once, so within 2^-8 |ref| + (1 + 2^-8) contributions x 2^-24 x
+    sum|contribution|; and against the card's plain v1 autograd, which
+    rounds each contribution and each partial sum to bf16: within
+    (contributions + 1) x 2^-8 x sum|contribution|."""
     _need_card()
     rng = np.random.RandomState(23)
     strides = (8, 16, 32)
@@ -166,6 +169,13 @@ def test_roi_align_backward_kernel_vs_plain(r):
     want16 = torch.autograd.grad(out, dev16, g16.float())
     torch.cuda.synchronize()
     _, abs16 = _contributions(dev16, boxes, lvl, g16, strides, 7)
+    leaves = [f.clone().requires_grad_(True) for f in levels]
+    ref16 = _flat(torch.autograd.grad(
+        roi_align._roi_align_taps(leaves, boxes, strides, 7, 2, lvl),
+        leaves, g16.float().cpu()))
+    tight = 2.0 ** -8 * ref16.abs() + \
+        (1 + 2.0 ** -8) * count[:, None] * 2.0 ** -24 * abs16
+    assert bool(((_flat(got16) - ref16).abs() <= tight).all())
     tol16 = (count[:, None] + 1) * 2.0 ** -8 * abs16
     assert bool(((_flat(got16) - _flat(want16)).abs() <= tol16).all())
 

@@ -130,8 +130,14 @@ def test_cpu_tensors_take_the_plain_versions():
 
 def test_kernel_sources_and_flags():
     for name in build.ENTRY_POINTS:
-        src = (build.CSRC / f"{name}.cu").read_text()
+        src = (build.CSRC / f"{build.source(name)}.cu").read_text()
         assert f'extern "C" int {build.ENTRY_POINTS[name][0]}(' in src
         assert "torch/extension.h" not in src
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path("segment_sum").parent == build.BUILD_DIR
+    # one library a source: the ROIAlign backward is a second symbol of
+    # the forward's
+    assert build.library_path("roi_align_backward") == \
+        build.library_path("roi_align")
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(
+        set(map(build.source, build.ENTRY_POINTS)))

@@ -14,7 +14,7 @@ in numpy, step for step, and held against the JAX package:
   * batched memory read (`csrc/memory_read.cu` with a batch): frame b
     reads rows b * cells + id; exact against JAX's `memory_read_batched`
     on values whose sums are exact in any order
-  * ROIAlign backward (`csrc/roi_align_backward.cu`): every tap's
+  * ROIAlign backward (`csrc/roi_align.cu`'s backward): every tap's
     contribution (grad / s^2) * weight added into an f32 accumulator,
     within contributions x 2^-24 x sum|contribution| of the port's plain
     v1 autograd (the same taps and weights), and within rtol 1e-5 of

@@ -11,7 +11,10 @@ Checked here, each at its stated tolerance:
     sum with respect to every parameter (max |diff| <= 1e-3 max |grad| per
     tensor), against `jax.grad` through the same parameter mapping
   * three `make_train_step` steps at B = 2 with one padding row (weight
-    0): losses and updated parameters against optax's (rtol 1e-4)
+    0), at base_lr 1e-3: at each step the losses (rtol 1e-4) and the batch
+    gradient (1e-3 max |grad| per tensor) against JAX's, and the update
+    against optax's on the same gradients (rtol 1e-5); every parameter
+    with a gradient moves beyond the tolerance
   * the optimizer alone on the same gradients (rtol 1e-5), for AdamW and
     SGD, value and full-model clipping, and frozen groups; every
     parameter's label; `lr_schedule` at steps 0, 1, warmup and max
@@ -176,31 +179,90 @@ def _batch(cfg, seed):
 
 
 def test_three_train_steps_vs_optax(fx):
-    cfg = fx["cfg"]
+    """Three `make_train_step` steps at a learning rate the updates can be
+    seen at (base_lr 1e-3 after a 2-step warmup), beside JAX's step (its
+    `loss_fn` gradient, then optax). At every step:
+
+      * the losses against JAX's (rtol 1e-4)
+      * the batch gradient against JAX's (max |diff| <= 1e-3 max |grad|
+        per tensor)
+      * the updated parameters against optax's chain applied to the same
+        parameters and the port's own gradients (rtol 1e-5): the clip,
+        the moments, the bias correction and the schedule's step
+
+    The parameters of the two runs are not compared element by element:
+    AdamW's direction g / (|g| + eps) flips sign wherever the packages'
+    gradients differ in sign near 0, a lr-sized step. Every trainable
+    parameter with a gradient must move by more than 10 times the update
+    check's tolerance, so a step that does not update cannot pass."""
+    cfg = fx["cfg"].replace(solver=dataclasses.replace(
+        fx["cfg"].solver, base_lr=1e-3, warmup_iters=2, max_iter=10))
     batches = [_batch(cfg, s) for s in (31, 32, 33)]
     init_state, step_fn = jax_make_train_step(fx["model"], cfg)
-    state, _ = init_state(fx["params"])
-    step = jax.jit(step_fn)
+    state, tx = init_state(fx["params"])
+    grad_fn = jax.jit(jax.value_and_grad(step_fn.loss_fn, has_aux=True))
+    update = jax.jit(tx.update)
     port = _port_model(fx)
-    pcfg = _port_config(cfg)
-    t_init, t_step = make_train_step(port, pcfg)
+    t_init, t_step = make_train_step(port, _port_config(cfg))
     t_state = t_init()
+    named = dict(port.named_parameters())
+    leaves = [(keys, name) for keys, name, _ in _flax_leaves(fx["params"])
+              if name in named]
+
+    def port_tree(values):
+        """The port's tensors under their flax paths (the optimizer is
+        elementwise, so the port's layout serves)."""
+        return _nested((keys, jnp.asarray(values[name].numpy()))
+                       for keys, name in leaves)
+
+    start = {n: p.detach().clone() for n, p in named.items()}
+    # the same chain over the port's parameters (FrozenBN is buffers there)
+    port_tx = jsolver.build_optimizer(port_tree(start), cfg.solver)
+    port_update = jax.jit(port_tx.update)
+    port_opt = port_tx.init(port_tree(start))
     zs = jnp.asarray(fx["zs"])
-    for b in batches:
-        state, want = step(state, JaxBatch(
-            **{k: jnp.asarray(v) for k, v in b._asdict().items()
-               if v is not None}), zs)
+    for i, b in enumerate(batches):
+        jb = JaxBatch(**{k: jnp.asarray(v) for k, v in b._asdict().items()
+                         if v is not None})
+        (total, want), grads = grad_fn(state.params, jb, zs, state.step)
+        want["total_loss"] = total
+        upd, opt_state = update(grads, state.opt_state, state.params)
+        state = state._replace(params=optax.apply_updates(state.params, upd),
+                               opt_state=opt_state, step=state.step + 1)
+        before = {n: p.detach().clone() for n, p in named.items()}
         t_state, got = t_step(t_state, batch_to_device(b, "cpu"),
                               T(fx["zs"]))
         assert set(got) == set(want)
         for k in want:
             np.testing.assert_allclose(float(got[k]), float(want[k]),
                                        rtol=1e-4, atol=1e-7, err_msg=k)
+        jgrads = load_jax_params(jax.tree_util.tree_map(np.asarray, grads))
+        pgrads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                  for n, p in named.items()}
+        for n, g in pgrads.items():
+            scale = float(jgrads[n].abs().max())
+            assert float((g - jgrads[n]).abs().max()) <= 1e-3 * scale, \
+                (i, n, scale)
+        upd, port_opt = port_update(port_tree(pgrads), port_opt,
+                                    port_tree(before))
+        expect = optax.apply_updates(port_tree(before), upd)
+        for keys, n in leaves:
+            node = expect["params"]
+            for k in keys:
+                node = node[k]
+            np.testing.assert_allclose(named[n].detach().numpy(),
+                                       np.asarray(node), rtol=1e-5,
+                                       atol=1e-8, err_msg=f"step {i} {n}")
     assert t_state.step == 3 and int(state.step) == 3
-    new = load_jax_params(jax.tree_util.tree_map(np.asarray, state.params))
-    for name, p in port.named_parameters():
-        np.testing.assert_allclose(p.detach().numpy(), new[name].numpy(),
-                                   rtol=1e-4, atol=1e-7, err_msg=name)
+    assert t_state.optimizer.lr(2) > 5e-4
+    moved = 0
+    for n, p in named.items():
+        if p.grad is None or not bool(p.grad.abs().max() > 0):
+            continue
+        tol = 1e-8 + 1e-5 * start[n].abs()     # the update check's
+        assert float(((p.detach() - start[n]).abs() / tol).max()) > 10, n
+        moved += 1
+    assert moved >= 80
 
 
 def _flax_leaves(tree):
