@@ -13,16 +13,22 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. the segment-sum kernel against its plain version at the memory
      write's shapes, with out-of-range ids and a one-cell worst case
   4. the memory-read kernel against its plain version at the read's shapes
-  4a. the NMS kernel against the plain fixpoint: proposal NMS (1024
+  4a. the NMS kernels against the plain fixpoint: proposal NMS (1024
      candidates, class-agnostic, t = 0.9, and t = 0 with the ml_nms
      bypass) and the multiclass NMS (2048 candidates of 20 classes,
      t = 0.5), with tied scores, duplicated boxes and a suppression chain
-     deeper than 64; keep sets must be equal
+     deeper than 64; then the class partition's cases: classes of 0, 1,
+     63, 64, 65 and 130 members (segments starting mid-word) at t = 0.5,
+     0.9 and 0, the chain among other classes, every candidate in one
+     class, and class ids beyond the partition's bins; keep sets must be
+     equal
   4b. the ROIAlign kernel against the plain tap form (v1, f32) and the
      plain separable form (v4, bf16) at the box pooler's (R = 256, 7 x 7)
      and the mask pooler's (R = 100, 14 x 14) shapes over p3-p5
   4c. the mask-paste kernel against its plain version at 100 masks into
-     480 x 640, flips at the 0.5 threshold counted and bounded
+     480 x 640, flips at the 0.5 threshold counted and bounded; then 1 and
+     130 masks, thresholds 0 and -1, boxes wholly outside the image and
+     one covering it, pixel-major and mask-major (x_stride 8)
   4d. the write-selection kernel against its plain version on real
      pasted masks (480 x 640 x 100) with an empty and a full image row:
      equal in every element
@@ -268,6 +274,26 @@ NMS_CASES = (
     ("training proposal NMS, t = 0.9", 2000, 1, 0.9, True, 4.0),
     ("multiclass NMS, 20 classes, t = 0.5", 2048, 20, 0.5, False, 25.0),
 )
+MULTICLASS_CASE = NMS_CASES[3][0]     # the kernels line's NMS entry
+CLASS_SIZES = (0, 1, 63, 64, 65, 130)
+# the class partition's cases, from a generator of their own so that the
+# cases above draw the same inputs as before them; `classes` is a count of
+# classes drawn at random, member counts per class (no chain), or "wide"
+# (class ids -5, 0 and 1000: more than the partition's 256 bins)
+PARTITION_CASES = (
+    ("classes of 0/1/63/64/65/130 members, t = 0.5", 323, CLASS_SIZES, 0.5,
+     False, 25.0),
+    ("classes of 0/1/63/64/65/130 members, t = 0.9", 323, CLASS_SIZES, 0.9,
+     False, 25.0),
+    ("classes of 0/1/63/64/65/130 members, t = 0 (no bypass)", 323,
+     CLASS_SIZES, 0.0, False, 25.0),
+    ("the chain among 4 classes, t = 0.5", 1024, 4, 0.5, False, 25.0),
+    ("one class of 2048, t = 0.5", 2048, 1, 0.5, False, 25.0),
+    ("class ids beyond 256 bins, t = 0.5", 2048, "wide", 0.5, False, 25.0),
+    ("one class of 5000 (more than 32 words), t = 0.5", 5000, 1, 0.5, False,
+     25.0),
+    ("3 classes over 3000 candidates, t = 0.5", 3000, 3, 0.5, False, 25.0),
+)
 CHAIN = 150
 
 
@@ -275,8 +301,9 @@ def nms_inputs(rng, n, classes, shift):
     """Score-sorted candidates like the frame's (random boxes over the
     image; a third of the scores rounded to sixteenths, so many tie
     exactly; a tenth of the boxes duplicated; 5 % invalid), led by a
-    suppression chain of CHAIN boxes of class 0 with descending scores,
-    sorted as `_nms_core` sorts them."""
+    suppression chain of CHAIN boxes of class 0 with descending scores
+    unless `classes` gives member counts, sorted as `_nms_core` sorts
+    them."""
     from embodied_object_detection_tpu_torch.ops import nms
     xy = rng.uniform(-20, 600, (n, 2)) * np.array([1.0, 0.75])
     boxes = np.concatenate([xy, xy + rng.uniform(8, 200, (n, 2))], 1)
@@ -284,13 +311,19 @@ def nms_inputs(rng, n, classes, shift):
     scores[::3] = np.round(scores[::3] * 16) / 16
     dup = rng.choice(n - 1, n // 10, replace=False)
     boxes[dup] = boxes[dup + 1]
-    cls = rng.randint(0, classes, n)
+    if isinstance(classes, tuple):
+        cls = np.concatenate([np.full(k, c) for c, k in enumerate(classes)])
+        rng.shuffle(cls)
+    else:
+        cls = (rng.choice([-5, 1000], n) if classes == "wide"
+               else rng.randint(0, classes, n))
     valid = rng.rand(n) > 0.05
-    c = np.arange(CHAIN)
-    boxes[:CHAIN] = np.stack([10 + c * shift, np.full(CHAIN, 100.0),
-                              110 + c * shift, np.full(CHAIN, 180.0)], 1)
-    scores[:CHAIN] = 2.0 - c / CHAIN
-    cls[:CHAIN], valid[:CHAIN] = 0, True
+    if not isinstance(classes, tuple):
+        c = np.arange(CHAIN)
+        boxes[:CHAIN] = np.stack([10 + c * shift, np.full(CHAIN, 100.0),
+                                  110 + c * shift, np.full(CHAIN, 180.0)], 1)
+        scores[:CHAIN] = 2.0 - c / CHAIN
+        cls[:CHAIN], valid[:CHAIN] = 0, True
     b = torch.from_numpy(boxes.astype(np.float32)).cuda()
     sc = torch.from_numpy(scores.astype(np.float32)).cuda()
     cl = torch.from_numpy(cls.astype(np.int32)).cuda()
@@ -301,28 +334,35 @@ def nms_inputs(rng, n, classes, shift):
 
 def check_nms(rng):
     from embodied_object_detection_tpu_torch.ops import nms
-    for name, n, classes, t, ml, shift in NMS_CASES:
-        b, c, v = nms_inputs(rng, n, classes, shift)
-        disabled = ml and not t > 0
-        got = nms.nms_keep(b, c, v, t, disabled)
-        want = nms.nms_keep_plain(b, c, v, t, disabled)
-        torch.cuda.synchronize()
-        differ = int((got != want).sum())
-        if differ:
-            raise AssertionError(f"nms {name}: {differ} keep flags differ "
-                                 "from the plain fixpoint")
-        chain = got[:CHAIN].cpu().numpy()
-        expect = v[:CHAIN].cpu().numpy() if disabled \
-            else np.arange(CHAIN) % 2 == 0
-        if not (chain == expect).all():
-            raise AssertionError(f"nms {name}: the {CHAIN}-deep chain is not "
-                                 "resolved greedily")
-        print(f"  {name}: N = {n}, {int(v.sum())} valid, {int(got.sum())} "
-              f"kept, keep set equal to the plain fixpoint, the "
-              f"{CHAIN}-deep chain greedy")
+    part_rng = np.random.RandomState(4)
+    for cases, r in ((NMS_CASES, rng), (PARTITION_CASES, part_rng)):
+        for name, n, classes, t, ml, shift in cases:
+            b, c, v = nms_inputs(r, n, classes, shift)
+            disabled = ml and not t > 0
+            got = nms.nms_keep(b, c, v, t, disabled)
+            want = nms.nms_keep_plain(b, c, v, t, disabled)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            if differ:
+                raise AssertionError(f"nms {name}: {differ} keep flags differ "
+                                     "from the plain fixpoint")
+            chained = not isinstance(classes, tuple)
+            if chained:
+                chain = got[:CHAIN].cpu().numpy()
+                expect = v[:CHAIN].cpu().numpy() if disabled \
+                    else np.arange(CHAIN) % 2 == 0
+                if not (chain == expect).all():
+                    raise AssertionError(f"nms {name}: the {CHAIN}-deep chain "
+                                         "is not resolved greedily")
+            print(f"  {name}: N = {n}, {int(v.sum())} valid, "
+                  f"{int(got.sum())} kept, keep set equal to the plain "
+                  f"fixpoint" + (f", the {CHAIN}-deep chain greedy"
+                                 if chained else ""))
     phase("4a", "nms keep sets equal the plain fixpoint in every case "
                 "(ties, duplicated boxes, chain deeper than 64; 2000 "
-                "candidates at training)")
+                "candidates at training; classes of 0-130 members, one "
+                "class, class ids beyond the bins, 3000 and 5000 "
+                "candidates)")
     return 0.0
 
 
@@ -399,40 +439,75 @@ def check_roi_align(rng):
     return worst
 
 
-def paste_inputs(rng, n=100, m=28):
+def paste_inputs(rng, n=100, m=28, edges=False):
+    """n random masks and boxes over 480 x 640; with `edges`, the first
+    box covers the image and the next three lie wholly outside it."""
     probs = rng.rand(n, m, m).astype(np.float32)
     x0 = rng.uniform(-60, 600, n)
     y0 = rng.uniform(-60, 440, n)
     boxes = np.stack([x0, y0, x0 + rng.uniform(4, 400, n),
                       y0 + rng.uniform(4, 300, n)], 1).astype(np.float32)
+    if edges:
+        boxes[:4] = [[-3, -1, 645, 482], [650, 10, 700, 90],
+                     [20, -90, 80, -5], [-70, 490, -10, 560]][:n]
     return torch.from_numpy(probs).cuda(), torch.from_numpy(boxes).cuda()
 
 
-def check_mask_paste(rng):
+# (masks, threshold, pixel_major, x_stride) of phase 4c's edge cases
+PASTE_CASES = ((1, 0.5, True, 1), (130, 0.5, True, 1), (100, 0.0, True, 1),
+               (130, -1.0, True, 1), (100, -1.0, False, 8),
+               (130, 0.0, False, 8), (1, -1.0, False, 1))
+
+
+def check_paste(masks, boxes, threshold, pixel_major, x_stride):
+    """The kernel against the plain version: values within atol 1e-6, and
+    at a threshold at most one flip in 10^4 pixels, each within 1e-5 of
+    it. Returns (max value error, flips, pixels)."""
     from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    kw = dict(x_stride=x_stride, pixel_major=pixel_major)
+    vals = mp.paste_masks(masks, boxes, 480, 640, -1.0, **kw)
+    want_vals = mp.paste_masks_plain(masks, boxes, 480, 640, -1.0, **kw)
+    torch.cuda.synchronize()
+    err = float((vals - want_vals).abs().max())
+    torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
+    if threshold < 0:
+        return err, 0, vals.numel()
+    got = mp.paste_masks(masks, boxes, 480, 640, threshold, **kw)
+    want = mp.paste_masks_plain(masks, boxes, 480, 640, threshold, **kw)
+    torch.cuda.synchronize()
+    flipped = got != want
+    flips = int(flipped.sum())
+    near = bool(((want_vals[flipped] - threshold).abs() < 1e-5).all())
+    if flips > max(1, got.numel() // 10000) or not near:
+        raise AssertionError(f"mask paste: {flips} flips at {threshold} "
+                             f"(near it: {near})")
+    return err, flips, got.numel()
+
+
+def check_mask_paste(rng):
     masks, boxes = paste_inputs(rng)
     worst = 0.0
     for pixel_major, x_stride in ((True, 1), (False, 8)):
-        kw = dict(x_stride=x_stride, pixel_major=pixel_major)
-        vals = mp.paste_masks(masks, boxes, 480, 640, -1.0, **kw)
-        want_vals = mp.paste_masks_plain(masks, boxes, 480, 640, -1.0, **kw)
-        got = mp.paste_masks(masks, boxes, 480, 640, 0.5, **kw)
-        want = mp.paste_masks_plain(masks, boxes, 480, 640, 0.5, **kw)
-        torch.cuda.synchronize()
-        err = float((vals - want_vals).abs().max())
-        torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
-        flipped = got != want
-        flips = int(flipped.sum())
-        near = bool(((want_vals[flipped] - 0.5).abs() < 1e-5).all())
-        if flips > max(1, got.numel() // 10000) or not near:
-            raise AssertionError(f"mask paste: {flips} flips (near 0.5: "
-                                 f"{near})")
+        err, flips, pixels = check_paste(masks, boxes, 0.5, pixel_major,
+                                         x_stride)
         worst = max(worst, err)
         print(f"  pixel_major={pixel_major}, x_stride={x_stride}: values max "
-              f"err {err:.3e} (atol 1e-6); {flips} of {got.numel()} pixels "
+              f"err {err:.3e} (atol 1e-6); {flips} of {pixels} pixels "
               f"flipped at 0.5, all within 1e-5 of it")
-    phase("4c", "mask_paste agrees with its plain version (at most one flip "
-                "in 10^4 pixels, and only where |plain - 0.5| < 1e-5)")
+    # the edge cases, from a generator of their own
+    edge_rng = np.random.RandomState(5)
+    for n, threshold, pixel_major, x_stride in PASTE_CASES:
+        masks, boxes = paste_inputs(edge_rng, n, edges=True)
+        err, flips, pixels = check_paste(masks, boxes, threshold,
+                                         pixel_major, x_stride)
+        worst = max(worst, err)
+        print(f"  N = {n}, threshold {threshold}, pixel_major={pixel_major}, "
+              f"x_stride={x_stride}, a covering box and boxes outside: "
+              f"values max err {err:.3e}; {flips} of {pixels} flipped")
+    phase("4c", "mask_paste agrees with its plain version (values within "
+                "atol 1e-6; at most one flip in 10^4 pixels, and only where "
+                "|plain - threshold| < 1e-5), 1-130 masks, thresholds 0.5, "
+                "0 and -1, both layouts")
     return worst
 
 
@@ -736,12 +811,20 @@ def profile_run(fn, out_dir, tag, units, unit):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="cuda_time_total", row_limit=-1)
     (out_dir / f"{tag}_ops.txt").write_text(table)
     trace = out_dir / f"{tag}_trace.json"
     prof.export_chrome_trace(str(trace))
     print("\n".join(table.splitlines()[:30]))
+    # the device time of each of the port's kernels in this run
+    ours = ("segment_sum", "memory_read", "nms_", "roi_align", "mask_paste",
+            "write_select")
+    for e in sorted(averages, key=lambda e: -e.device_time_total):
+        if e.device_time_total > 0 and any(k in e.key for k in ours):
+            name = e.key.split("::")[-1].split("(")[0]
+            print(f"  in the {tag}: {name} "
+                  f"{e.device_time_total / e.count:.1f} us a call x {e.count}")
     trace_events = json.loads(trace.read_text())["traceEvents"]
     waits = {name: sum(1 for e in trace_events if e.get("name") == name)
              for name in ("cudaStreamSynchronize", "cudaMemcpyAsync")}
@@ -1117,30 +1200,37 @@ def time_kernels(rng, launches, train_launches, errs):
 
 
 def time_nms(rng, launches, errs):
-    """Every NMS shape of the frame; the JSON entry is the multiclass one
-    (2048 candidates, 20 classes), two of the three calls a frame."""
+    """Every NMS shape of the frame, the bypass and the partition's cases;
+    the JSON entry is the multiclass one (2048 candidates, 20 classes),
+    two of the three calls a frame."""
     from embodied_object_detection_tpu_torch.ops import nms
     entry = None
-    for name, n, classes, t, ml, shift in NMS_CASES:
-        b, c, v = nms_inputs(rng, n, classes, shift)
-        disabled = ml and not t > 0
-        ms = graph_ms(lambda: nms.nms_keep(b, c, v, t, disabled))
-        plain_ms = event_ms(lambda: nms.nms_keep_plain(b, c, v, t, disabled))
-        # IoU operations of the pairs that need one (i < j, both valid,
-        # one class); the sweep is serial and bound by its latency
-        per_class = torch.bincount(c[v].long(), minlength=classes).tolist()
-        pairs = 0 if disabled else sum(k * (k - 1) // 2 for k in per_class)
-        b_ms, b_by = bound_ms(n * (16 + 4 + 1) + n, 13 * pairs)
-        print(f"  nms, {name}: {ms * 1e3:.1f} us kernel, {plain_ms * 1e3:.1f}"
-              f" us plain, bound {b_ms * 1e3:.3f} us ({b_by}: {pairs} IoUs); "
-              f"the sweep is serial, bound by latency, not by bytes")
-        if classes > 1:
-            entry = {"name": "nms", "route": "cuda",
-                     "source": "embodied_object_detection_tpu_torch/csrc/nms.cu",
-                     "replaces": "embodied_object_detection_tpu/ops/nms.py:51",
-                     "launches": launches["nms"], "max_abs_err": errs["nms"],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None}
+    part_rng = np.random.RandomState(6)
+    for cases, r in ((NMS_CASES, rng), (PARTITION_CASES, part_rng)):
+        for name, n, classes, t, ml, shift in cases:
+            b, c, v = nms_inputs(r, n, classes, shift)
+            disabled = ml and not t > 0
+            ms = graph_ms(lambda: nms.nms_keep(b, c, v, t, disabled))
+            plain_ms = event_ms(lambda: nms.nms_keep_plain(b, c, v, t,
+                                                           disabled))
+            # IoU operations of the pairs that need one (i < j, both valid,
+            # one class); the sweep is serial and bound by its latency
+            _, per_class = torch.unique(c[v], return_counts=True)
+            pairs = 0 if disabled else sum(k * (k - 1) // 2
+                                           for k in per_class.tolist())
+            b_ms, b_by = bound_ms(n * (16 + 4 + 1) + n, 13 * pairs)
+            print(f"  nms, {name}: {ms * 1e3:.1f} us kernel, "
+                  f"{plain_ms * 1e3:.1f} us plain, bound {b_ms * 1e3:.3f} us "
+                  f"({b_by}: {pairs} IoUs); the sweep is serial, bound by "
+                  f"latency, not by bytes")
+            if name == MULTICLASS_CASE:
+                entry = {"name": "nms", "route": "cuda",
+                         "source": "embodied_object_detection_tpu_torch/csrc/nms.cu",
+                         "replaces": "embodied_object_detection_tpu/ops/nms.py:51",
+                         "launches": launches["nms"],
+                         "max_abs_err": errs["nms"], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None}
     return [entry]
 
 

@@ -45,9 +45,9 @@ ENTRY_POINTS = {
     #  cells, stream)
     "memory_read": ("memory_read_launch",
                     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    # (boxes, classes, valid, mask scratch, keep, n, threshold, disabled,
-    #  stream)
-    "nms": ("nms_launch", (_P, _P, _P, _P, _P, _I, _F, _I, _P)),
+    # (boxes, classes, valid, mask scratch, int32 scratch, keep, n,
+    #  threshold, disabled, stream)
+    "nms": ("nms_launch", (_P, _P, _P, _P, _P, _P, _I, _F, _I, _P)),
     # (host arrays: level pointers, heights, widths, strides; num_levels,
     #  boxes, level_ids, out, num_rois, channels, out_size, sampling_ratio,
     #  is_bf16, stream)

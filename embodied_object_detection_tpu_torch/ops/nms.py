@@ -5,9 +5,10 @@ The greedy keep set over score-sorted candidates is
     keep[j] = valid[j] and no kept i with score_i > score_j and IoU(i,j) > t
 
 within a class (counterpart of the JAX package's `ops/nms.py`). On a CUDA
-tensor `nms_keep` launches `csrc/nms.cu`: a 64-bit-word IoU bitmask and a
-one-block sweep that decides the keep set on the device, with no host
-sync. On a CPU tensor it takes the plain version, the JAX package's
+tensor `nms_keep` launches `csrc/nms.cu`: a stable partition of the
+candidates by class, a 64-bit-word IoU bitmask over the same-class tiles
+only, and a sweep with one warp per class, which decides the keep set on
+the device with no host sync. On a CPU tensor it takes the plain version, the JAX package's
 fixpoint iterated over the static [N, N] suppression mask until it stops
 changing (one host check per iteration). Both give the unique greedy
 solution. Orders follow the JAX package's tie rules: `jnp.argsort` is
@@ -26,7 +27,9 @@ from ..structures import Detections, pairwise_iou
 
 NEG_INF = -1e10
 WORD = 64
-MAX_CANDIDATES = WORD * 6144    # the sweep's removed set: <= 48 KB of shared
+# the sweep holds a class's removed set in registers, 8 words a lane
+MAX_CANDIDATES = WORD * 32 * 8
+CLASS_BINS = 256                # the partition's class bins (csrc/nms.cu)
 
 
 def sort_desc(x: torch.Tensor, k: Optional[int] = None
@@ -91,8 +94,8 @@ def nms_keep(boxes_s: torch.Tensor, classes_s: torch.Tensor,
              disabled: bool = False) -> torch.Tensor:
     """Greedy keep set [N] bool of score-sorted boxes [N, 4] f32, classes
     [N] int32 and valid [N] bool; `disabled` suppresses nothing. The
-    bitmask kernel on the card (`csrc/nms.cu`), the plain version on a
-    CPU tensor."""
+    class-partitioned bitmask kernels on the card (`csrc/nms.cu`), the
+    plain version on a CPU tensor."""
     if not build.on_card(boxes_s):
         return nms_keep_plain(boxes_s, classes_s, valid_s, iou_threshold,
                               disabled)
@@ -120,11 +123,23 @@ def nms_keep(boxes_s: torch.Tensor, classes_s: torch.Tensor,
     keep = torch.empty((n,), dtype=torch.bool, device=boxes_s.device)
     if n == 0:
         return keep
-    mask = torch.empty((n, -(-n // WORD)), dtype=torch.int64,
-                       device=boxes_s.device)
+    mask = scratch = None
+    if not disabled:
+        # one class may hold every candidate (the proposal NMS), and the
+        # class sizes are not known on the host without a sync, so the mask
+        # keeps its full [n, words] size; only the same-class tiles are
+        # written and read. Row n holds each row block's later-rows flags.
+        # The int32 scratch holds the partition order, each position's
+        # class segment, the segment bounds and count.
+        mask = torch.empty((n + 1, -(-n // WORD)), dtype=torch.int64,
+                           device=boxes_s.device)
+        scratch = torch.empty((2 * n + CLASS_BINS + 3,), dtype=torch.int32,
+                              device=boxes_s.device)
     build.check_launch(
         launch(boxes_s.data_ptr(), classes_s.data_ptr(), valid_s.data_ptr(),
-               mask.data_ptr(), keep.data_ptr(), n, float(iou_threshold),
+               None if mask is None else mask.data_ptr(),
+               None if scratch is None else scratch.data_ptr(),
+               keep.data_ptr(), n, float(iou_threshold),
                int(bool(disabled)), build.stream_handle()), "nms")
     nms_keep.launches += 1
     return keep

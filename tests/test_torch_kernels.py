@@ -200,6 +200,16 @@ def test_memory_read_kernel_vs_plain():
     (1024, 1, 0.9, True, 4.0),      # proposal NMS
     (1024, 1, 0.0, True, 4.0),      # proposal NMS, ml_nms bypass
     (2048, 20, 0.5, False, 25.0),   # final and write multiclass NMS
+    (2000, 1, 0.9, True, 4.0),      # training proposal NMS
+    (1024, 4, 0.5, False, 25.0),    # the chain among other classes
+    (2048, 1, 0.5, False, 25.0),    # every candidate in one class
+    (2048, "wide", 0.5, False, 25.0),   # class ids beyond the 256 bins
+    (5000, 1, 0.5, False, 25.0),    # a class over more than 32 words
+    (3000, 3, 0.5, False, 25.0),    # more candidates than staged
+    # classes of 0, 1, 63, 64, 65 and 130 members, interleaved
+    (323, (0, 1, 63, 64, 65, 130), 0.5, False, 25.0),
+    (323, (0, 1, 63, 64, 65, 130), 0.9, False, 25.0),
+    (323, (0, 1, 63, 64, 65, 130), 0.0, False, 25.0),
 ])
 def test_nms_kernel_vs_plain(n, classes, thresh, ml, shift):
     _need_card()
@@ -210,12 +220,18 @@ def test_nms_kernel_vs_plain(n, classes, thresh, ml, shift):
     scores[::3] = np.round(scores[::3] * 16) / 16          # exact ties
     dup = rng.choice(n - 1, n // 10, replace=False)
     boxes[dup] = boxes[dup + 1]                            # duplicated boxes
-    cls = rng.randint(0, classes, n)
     valid = rng.rand(n) > 0.05
-    chain = np.arange(150)            # a suppression chain deeper than 64
-    boxes[:150] = np.stack([10 + chain * shift, np.full(150, 100.0),
-                            110 + chain * shift, np.full(150, 180.0)], 1)
-    scores[:150], cls[:150], valid[:150] = 2.0 - chain / 150, 0, True
+    chained = not isinstance(classes, tuple)
+    if chained:
+        cls = (rng.choice([-5, 1000], n) if classes == "wide"
+               else rng.randint(0, classes, n))
+        chain = np.arange(150)        # a suppression chain deeper than 64
+        boxes[:150] = np.stack([10 + chain * shift, np.full(150, 100.0),
+                                110 + chain * shift, np.full(150, 180.0)], 1)
+        scores[:150], cls[:150], valid[:150] = 2.0 - chain / 150, 0, True
+    else:
+        cls = np.concatenate([np.full(k, c) for c, k in enumerate(classes)])
+        rng.shuffle(cls)
     order = np.argsort(-np.where(valid, scores, -1e10), kind="stable")
     b = torch.from_numpy(boxes[order].astype(np.float32)).cuda()
     c = torch.from_numpy(cls[order].astype(np.int32)).cuda()
@@ -226,7 +242,7 @@ def test_nms_kernel_vs_plain(n, classes, thresh, ml, shift):
     torch.cuda.synchronize()
     # the unique greedy solution: equal, not close
     assert torch.equal(got, want)
-    if not disabled:
+    if chained and not disabled:
         assert torch.equal(got[:150].cpu(), torch.arange(150) % 2 == 0)
 
 
@@ -262,26 +278,44 @@ def test_roi_align_kernel_vs_plain(r, size):
     assert float((got16.float() - v4.float()).abs().max()) <= 2 ** -7 * fmax
 
 
-@pytest.mark.parametrize("pixel_major,x_stride", [(True, 1), (False, 8)])
-def test_mask_paste_kernel_vs_plain(pixel_major, x_stride):
+@pytest.mark.parametrize("n,threshold,pixel_major,x_stride,edges", [
+    (100, 0.5, True, 1, False),
+    (100, 0.5, False, 8, False),
+    (1, 0.5, True, 1, True),
+    (130, 0.5, True, 1, True),
+    (100, 0.0, True, 1, True),
+    (130, 0.0, False, 8, True),
+    (100, -1.0, False, 8, True),
+    (130, -1.0, True, 1, True),
+])
+def test_mask_paste_kernel_vs_plain(n, threshold, pixel_major, x_stride,
+                                    edges):
+    """Values within atol 1e-6 of the plain version; at a threshold at
+    most one flip in 10^4 pixels, each within 1e-5 of it. With `edges` the
+    first box covers the image and the next three lie wholly outside."""
     _need_card()
     rng = np.random.RandomState(20)
-    n = 100
-    masks = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).cuda()
     x0, y0 = rng.uniform(-60, 600, n), rng.uniform(-60, 440, n)
-    boxes = torch.from_numpy(np.stack(
-        [x0, y0, x0 + rng.uniform(4, 400, n), y0 + rng.uniform(4, 300, n)],
-        1).astype(np.float32)).cuda()
+    boxes = np.stack([x0, y0, x0 + rng.uniform(4, 400, n),
+                      y0 + rng.uniform(4, 300, n)], 1).astype(np.float32)
+    if edges:
+        boxes[:4] = [[-3, -1, 645, 482], [650, 10, 700, 90],
+                     [20, -90, 80, -5], [-70, 490, -10, 560]][:n]
+    masks = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).cuda()
+    boxes = torch.from_numpy(boxes).cuda()
     kw = dict(x_stride=x_stride, pixel_major=pixel_major)
     vals = mask_paste.paste_masks(masks, boxes, 480, 640, -1.0, **kw)
     want_vals = mask_paste.paste_masks_plain(masks, boxes, 480, 640, -1.0,
                                              **kw)
     torch.testing.assert_close(vals, want_vals, rtol=0, atol=1e-6)
-    got = mask_paste.paste_masks(masks, boxes, 480, 640, 0.5, **kw)
-    want = mask_paste.paste_masks_plain(masks, boxes, 480, 640, 0.5, **kw)
+    if threshold < 0:
+        return
+    got = mask_paste.paste_masks(masks, boxes, 480, 640, threshold, **kw)
+    want = mask_paste.paste_masks_plain(masks, boxes, 480, 640, threshold,
+                                        **kw)
     torch.cuda.synchronize()
     # the four taps may sum in another order: a value within f32 rounding
-    # of 0.5 may flip, at most one in 10^4 pixels
+    # of the threshold may flip, at most one in 10^4 pixels
     flipped = got != want
     assert int(flipped.sum()) <= max(1, got.numel() // 10000)
-    assert bool(((want_vals[flipped] - 0.5).abs() < 1e-5).all())
+    assert bool(((want_vals[flipped] - threshold).abs() < 1e-5).all())
