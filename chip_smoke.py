@@ -24,7 +24,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal
   4b. the ROIAlign kernel against the plain tap form (v1, f32) and the
      plain separable form (v4, bf16) at the box pooler's (R = 256, 7 x 7)
-     and the mask pooler's (R = 100, 14 x 14) shapes over p3-p5
+     and the mask pooler's (R = 100, 14 x 14) shapes over p3-p5, then
+     ROIs under one level pixel, a whole level, and ROIs whose staged tap
+     grid is taken in bands; the staged grid sizes (min, median, max) and
+     the banded ROIs, as the kernel reports them
   4c. the mask-paste kernel against its plain version at 100 masks into
      480 x 640, flips at the 0.5 threshold counted and bounded; then 1 and
      130 masks, thresholds 0 and -1, boxes wholly outside the image and
@@ -48,7 +51,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      kernel must have launched its expected count per frame
   6. the card against the plain CPU path on a small config
   7. each kernel's device time beside its plain version, the PyTorch
-     library call where one exists, and its bound
+     library call where one exists (the memory reads: one
+     F.embedding_bag(mean) on a table prepared beforehand), and its bound;
+     the ROIAlign forward also at the training shape (R = 512, 7 x 7)
   8. the training path: the default config with seeded weights, 3 AdamW
      steps at B = 4 frames (2 chunks x 2 frames) of synthetic batches
      through `engine.train.train`; every loss finite, ms per step, peak
@@ -68,6 +73,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -384,8 +390,66 @@ def roi_levels(boxes):
     return (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
 
 
-def check_roi_align(rng):
+# (name, boxes in image pixels, whether their grids exceed the budget) of
+# phase 4b's edge cases: a whole level has 300 positions, the wide box 392
+# (7 x 7) and 784 (14 x 14), the budget is 288
+ROI_EDGE_CASES = (
+    ("under one level pixel", [[100.3, 60.2, 104.1, 63.9],
+                               [300.0, 200.0, 300.4, 200.3],
+                               [636.0, 476.0, 639.5, 479.9]], False),
+    ("a whole level (p5)", [[0.0, 0.0, 640.0, 480.0]], True),
+    ("beyond the image (p5)", [[-300.0, -200.0, 940.0, 680.0]], False),
+    ("wide on p3 (480 x 100)", [[40.0, 160.0, 520.0, 260.0]], True),
+)
+
+
+def staged_grids(stats):
+    """(min, median, max) of each ROI's largest staged grid and the count
+    of ROIs taken in bands, from the kernel's stats."""
+    st = stats.cpu().numpy()
+    grid = st[:, 0]
+    return (int(grid.min()), float(np.median(grid)), int(grid.max()),
+            int((st[:, 2] > 0).sum()))
+
+
+def check_roi_case(levels, boxes, size):
+    """The kernel in f32 against the plain tap form on the CPU, in bf16
+    against it and the plain v4; returns (f32 error, bf16 errors, stats)."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    lvl = roi_levels(boxes)
+    r = boxes.shape[0]
+    # the tap form is held on the CPU: there `/ output_size` is a true
+    # division, as in the kernel and the JAX package, while PyTorch's
+    # CUDA division by a Python scalar multiplies by its reciprocal,
+    # which moves bin_w, and so the sample coordinates, by an ulp
+    cpu = ([f.cpu() for f in levels], boxes.cpu(), lvl.cpu())
+    stats = torch.zeros((r, 3), dtype=torch.int32, device="cuda")
+    got = ra.roi_align_cuda(levels, boxes, lvl, STRIDES, size, 2,
+                            stats=stats).cpu()
+    want = ra._roi_align_taps(cpu[0], cpu[1], STRIDES, size, 2, cpu[2])
+    err32 = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    levels16 = [f.to(torch.bfloat16) for f in levels]
+    got16 = ra.roi_align_cuda(levels16, boxes, lvl, STRIDES, size, 2)
+    v1 = ra._roi_align_taps([f.cpu() for f in levels16], cpu[1],
+                            STRIDES, size, 2, cpu[2])
+    v4 = ra._roi_align_matmul(levels16, boxes, STRIDES, size, 2, lvl)
+    torch.cuda.synchronize()
+    fmax = max(float(f.float().abs().max()) for f in levels16)
+    err_v1 = (got16.float().cpu() - v1).abs()
+    if not bool((err_v1 <= 2.0 ** -8 * v1.abs() + 1e-6).all()):
+        raise AssertionError(f"roi_align bf16 differs from v1 by "
+                             f"{float(err_v1.max())}")
+    err_v4 = float((got16.float() - v4.float()).abs().max())
+    tol_v4 = 2.0 ** -7 * fmax
+    if not err_v4 <= tol_v4:
+        raise AssertionError(f"roi_align bf16 differs from v4 by "
+                             f"{err_v4} > {tol_v4}")
+    return err32, float(err_v1.max()), err_v4, err_v4 / fmax, tol_v4, stats
+
+
+def check_roi_align(rng):
     worst = 0.0
     for r, size in ((256, 7), (100, 14)):
         levels, boxes = roi_inputs(rng, r, torch.float32)
@@ -397,45 +461,50 @@ def check_roi_align(rng):
         if min(hits) == 0 or outside == 0:
             raise AssertionError(f"roi_align inputs reach levels {hits} and "
                                  f"cross the border {outside} times")
-        # the tap form is held on the CPU: there `/ output_size` is a true
-        # division, as in the kernel and the JAX package, while PyTorch's
-        # CUDA division by a Python scalar multiplies by its reciprocal,
-        # which moves bin_w, and so the sample coordinates, by an ulp
-        cpu = ([f.cpu() for f in levels], boxes.cpu(), lvl.cpu())
-        got = ra.roi_align_cuda(levels, boxes, lvl, STRIDES, size, 2).cpu()
-        want = ra._roi_align_taps(cpu[0], cpu[1], STRIDES, size, 2, cpu[2])
-        err32 = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err32, err_v1, err_v4, rel_v4, tol_v4, stats = check_roi_case(
+            levels, boxes, size)
         worst = max(worst, err32)
-
-        levels16 = [f.to(torch.bfloat16) for f in levels]
-        got16 = ra.roi_align_cuda(levels16, boxes, lvl, STRIDES, size, 2)
-        v1 = ra._roi_align_taps([f.cpu() for f in levels16], cpu[1],
-                                STRIDES, size, 2, cpu[2])
-        v4 = ra._roi_align_matmul(levels16, boxes, STRIDES, size, 2, lvl)
-        torch.cuda.synchronize()
-        fmax = max(float(f.float().abs().max()) for f in levels16)
-        err_v1 = (got16.float().cpu() - v1).abs()
-        if not bool((err_v1 <= 2.0 ** -8 * v1.abs() + 1e-6).all()):
-            raise AssertionError(f"roi_align bf16 differs from v1 by "
-                                 f"{float(err_v1.max())}")
-        err_v4 = float((got16.float() - v4.float()).abs().max())
-        tol_v4 = 2.0 ** -7 * fmax
-        if not err_v4 <= tol_v4:
-            raise AssertionError(f"roi_align bf16 differs from v4 by "
-                                 f"{err_v4} > {tol_v4}")
+        lo, med, hi, banded = staged_grids(stats)
         print(f"  R = {r}, {size}x{size}: rois per level {hits}, {outside} "
               f"cross the border; f32 vs v1 (CPU) max err {err32:.3e} "
               f"(tolerance rtol/atol 1e-5); bf16 vs v1 (CPU) max err "
-              f"{float(err_v1.max()):.3e} (one bf16 output rounding, "
-              f"<= 2^-8 |v1|); bf16 vs v4 max err {err_v4:.3e} = "
-              f"{err_v4 / fmax:.2e} max|f| (tolerance 2^-7 max|f| = "
-              f"{tol_v4:.3e})")
+              f"{err_v1:.3e} (one bf16 output rounding, <= 2^-8 |v1|); bf16 "
+              f"vs v4 max err {err_v4:.3e} = {rel_v4:.2e} max|f| (tolerance "
+              f"2^-7 max|f| = {tol_v4:.3e}); staged grid positions min "
+              f"{lo}, median {med:g}, max {hi}; {banded} of {r} ROIs in "
+              f"bands")
+    # the edge cases, from a generator of their own, each ahead of 256
+    # random ROIs: with that many the kernel takes all of a ROI's output
+    # rows in one block (it splits them only when its blocks are too few
+    # to fill the card, as for the mask pooler's R = 100)
+    edge_rng = np.random.RandomState(7)
+    levels, others = roi_inputs(edge_rng, 256, torch.float32)
+    for name, edge, must_band in ROI_EDGE_CASES:
+        k = len(edge)
+        boxes = torch.cat([torch.tensor(edge, dtype=torch.float32).cuda(),
+                           others])
+        for size in (7, 14):
+            err32, err_v1, err_v4, _, _, stats = check_roi_case(
+                levels, boxes, size)
+            worst = max(worst, err32)
+            lo, _, hi, banded = staged_grids(stats[:k])
+            print(f"  {name}, {size}x{size}: levels "
+                  f"{(roi_levels(boxes[:k]) + 3).tolist()}, staged grid "
+                  f"positions {lo}-{hi}, {banded} of {k} in bands; f32 vs "
+                  f"v1 max err {err32:.3e}, bf16 vs v1 {err_v1:.3e}, vs v4 "
+                  f"{err_v4:.3e} (with 256 random ROIs)")
+            if name.startswith("under") and hi > 4:
+                raise AssertionError(f"a ROI under one level pixel staged "
+                                     f"{hi} positions")
+            if must_band and banded == 0:
+                raise AssertionError(f"roi_align {name}: not taken in bands")
     phase("4b", "roi_align agrees with the plain tap form (on the CPU, "
                 "f32, rtol/atol 1e-5) and with the plain v4 (bf16, 2^-7 "
                 "max|features|: v4 rounds its weights, its intermediate and "
                 "its output to bf16, the kernel its output, each at most "
-                "2^-9 of the pooled magnitude)")
+                "2^-9 of the pooled magnitude), random ROIs and ROIs under "
+                "one level pixel, over a whole level, beyond the image and "
+                "wide (the whole level and the wide ROI in bands)")
     return worst
 
 
@@ -822,7 +891,9 @@ def profile_run(fn, out_dir, tag, units, unit):
             "write_select")
     for e in sorted(averages, key=lambda e: -e.device_time_total):
         if e.device_time_total > 0 and any(k in e.key for k in ours):
-            name = e.key.split("::")[-1].split("(")[0]
+            # the kernel's own name, without its namespace or arguments
+            m = re.search(r"(\w+(<[^()]*>)?)\(", e.key)
+            name = m.group(1) if m else e.key
             print(f"  in the {tag}: {name} "
                   f"{e.device_time_total / e.count:.1f} us a call x {e.count}")
     trace_events = json.loads(trace.read_text())["traceEvents"]
@@ -1167,6 +1238,9 @@ def time_kernels(rng, launches, train_launches, errs):
     ms = graph_ms(lambda: memory_ops.memory_read(feats, obs, proj))
     plain_ms = graph_ms(lambda: memory_ops.memory_read_plain(feats, obs,
                                                              proj))
+    lib_ms = read_yardstick(feats[None], obs[None], proj[None],
+                            memory_ops.memory_read(feats, obs, proj)[None],
+                            "memory_read")
     h, wd = proj.shape
     d = feats.shape[1]
     rows_read = int(torch.unique(proj).numel())
@@ -1180,7 +1254,7 @@ def time_kernels(rng, launches, train_launches, errs):
             "launches": launches["memory_read"],
             "max_abs_err": errs["memory_read"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": lib_ms}
     kernels = [seg, read] + time_nms(rng, launches, errs) + \
         time_roi_align(rng, launches, errs) + \
         time_roi_align_backward(rng, train_launches, errs) + \
@@ -1235,11 +1309,12 @@ def time_nms(rng, launches, errs):
 
 
 def time_roi_align(rng, launches, errs):
-    """Both pooler shapes in bf16; the JSON entry is the box pooler's
-    (R = 256, 7 x 7), three of the four calls a frame."""
+    """Both pooler shapes and the training pooler's in bf16; the JSON
+    entry is the box pooler's (R = 256, 7 x 7), three of the four calls a
+    frame."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
     entry = None
-    for r, size in ((256, 7), (100, 14)):
+    for r, size in ((256, 7), (100, 14), (512, 7)):
         levels, boxes = roi_inputs(rng, r, torch.bfloat16)
         lvl = roi_levels(boxes)
         ms = graph_ms(lambda: ra.roi_align_cuda(levels, boxes, lvl, STRIDES,
@@ -1313,6 +1388,8 @@ def time_memory_read_batched(rng, launches, errs, b=TRAIN_FRAMES):
     ms = graph_ms(lambda: memory_ops.memory_read_batched(feats, obs, proj))
     plain_ms = graph_ms(lambda: memory_ops.memory_read_batched_plain(
         feats, obs, proj))
+    lib_ms = read_yardstick(feats, obs, proj, memory_ops.memory_read_batched(
+        feats, obs, proj), "memory_read_batched")
     d = feats.shape[-1]
     rows_read = sum(int(torch.unique(proj[i]).numel()) for i in range(b))
     out_elems = b * 120 * 160 * d
@@ -1325,7 +1402,32 @@ def time_memory_read_batched(rng, launches, errs, b=TRAIN_FRAMES):
              "launches": launches["memory_read_batched"],
              "max_abs_err": errs["memory_read_batched"], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None}]
+             "library_ms": lib_ms}]
+
+
+def read_yardstick(feats, obs, proj, got, name, pool=4):
+    """Time one F.embedding_bag(mode="mean") over bags of the pool x pool
+    window ids into the normalised table widened to f32, both prepared
+    beforehand (frame b's ids offset by b * cells); print its largest
+    difference from the kernel's output `got`. Timed only: the port never
+    calls it."""
+    import torch.nn.functional as F
+    from embodied_object_detection_tpu_torch.ops import memory_ops
+    b, cells, d = feats.shape
+    h, w = proj.shape[1:]
+    table = memory_ops.normalize_memory(feats.reshape(-1, d),
+                                        obs.reshape(-1)).to(
+                                            torch.bfloat16).float()
+    idx = proj.long() + (torch.arange(b, device="cuda") * cells)[:, None,
+                                                                 None]
+    idx = idx.reshape(b, h // pool, pool, w // pool, pool).permute(
+        0, 1, 3, 2, 4).reshape(-1, pool * pool).contiguous()
+    lib_ms = graph_ms(lambda: F.embedding_bag(idx, table, mode="mean"))
+    diff = float((F.embedding_bag(idx, table, mode="mean").reshape(got.shape)
+                  - got).abs().max())
+    print(f"  {name}: the F.embedding_bag(mean) yardstick differs from the "
+          f"kernel by at most {diff:.3e} ({lib_ms * 1e3:.1f} us)")
+    return lib_ms
 
 
 def time_write_select(rng, launches, errs):

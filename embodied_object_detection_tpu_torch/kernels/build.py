@@ -41,18 +41,19 @@ ENTRY_POINTS = {
     # (w, idx, out, rows, lanes, num_cells, stream)
     "segment_sum": ("segment_sum_launch",
                     (_P, _P, _P, ctypes.c_longlong, _I, _I, _P)),
-    # (features, obs_count, proj, out, dim, height, width, pool, batch,
-    #  cells, stream)
+    # (features, obs_count, proj, bf16 table scratch, out, dim, height,
+    #  width, pool, batch, cells, stream)
     "memory_read": ("memory_read_launch",
-                    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     # (boxes, classes, valid, mask scratch, int32 scratch, keep, n,
     #  threshold, disabled, stream)
     "nms": ("nms_launch", (_P, _P, _P, _P, _P, _P, _I, _F, _I, _P)),
     # (host arrays: level pointers, heights, widths, strides; num_levels,
     #  boxes, level_ids, out, num_rois, channels, out_size, sampling_ratio,
-    #  is_bf16, stream)
+    #  is_bf16, stats (null or int32 [num_rois, 3]), stream)
     "roi_align": ("roi_align_launch",
-                  (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                  (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                   _P)),
     # (masks, boxes, out, n, m, height, width, x_stride, threshold,
     #  pixel_major, stream)
     "mask_paste": ("mask_paste_launch",

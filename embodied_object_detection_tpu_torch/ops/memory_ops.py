@@ -78,9 +78,9 @@ def _read_launch(name, features, obs_count, proj_indices, pool, batch):
     cells = features.shape[-2]
     h, w = proj_indices.shape[-2:]
     if features.dtype != torch.float32 or not features.is_contiguous() or \
-            d % 4:
+            d % 8:
         raise ValueError(f"{name}: features must be contiguous float32 "
-                         f"[..., cells, D] with D % 4 == 0, got "
+                         f"[..., cells, D] with D % 8 == 0, got "
                          f"{features.dtype} {tuple(features.shape)}")
     if obs_count.dtype != torch.float32 or \
             obs_count.shape != features.shape[:-1] or \
@@ -90,7 +90,7 @@ def _read_launch(name, features, obs_count, proj_indices, pool, batch):
                          f"{obs_count.dtype} {tuple(obs_count.shape)}")
     if proj_indices.dtype != torch.int32 or \
             not proj_indices.is_contiguous() or h % pool or w % pool or \
-            pool * pool > 64 or \
+            pool > 8 or \
             proj_indices.shape[:-2] != features.shape[:-2]:
         raise ValueError(f"{name}: proj_indices must be contiguous int32 "
                          f"{tuple(features.shape[:-2]) + ('H', 'W')} "
@@ -100,12 +100,18 @@ def _read_launch(name, features, obs_count, proj_indices, pool, batch):
             proj_indices.device != features.device:
         raise ValueError(f"{name}: inputs lie on different devices")
     launch = build.load("memory_read")
+    if features.data_ptr() % 16:
+        raise ValueError(f"{name}: features must start on a 16-byte "
+                         f"boundary (the kernel reads float4 vectors)")
     out = torch.empty(proj_indices.shape[:-2] + (h // pool, w // pool, d),
                       dtype=torch.float32, device=features.device)
+    # the pre-pass's normalised bf16 table, read back by the gather
+    table = torch.empty((batch * cells, d), dtype=torch.bfloat16,
+                        device=features.device)
     build.check_launch(
         launch(features.data_ptr(), obs_count.data_ptr(),
-               proj_indices.data_ptr(), out.data_ptr(), d, h, w, pool,
-               batch, cells, build.stream_handle()), name)
+               proj_indices.data_ptr(), table.data_ptr(), out.data_ptr(), d,
+               h, w, pool, batch, cells, build.stream_handle()), name)
     return out
 
 
@@ -115,8 +121,9 @@ def memory_read(features: torch.Tensor, obs_count: torch.Tensor,
 
     features [cells, D] f32 sums, obs_count [cells] f32, proj_indices
     [H, W] int32 with ids in [0, cells) -> [H/pool, W/pool, D] f32.
-    Fused gather + normalise + bf16 round + mean on the card
-    (`csrc/memory_read.cu`); the plain version on a CPU tensor.
+    On the card (`csrc/memory_read.cu`) a pre-pass writes the normalised
+    bf16 table once, then a gather takes the mean of 16-byte vectors of
+    it; the plain version on a CPU tensor.
     """
     if not build.on_card(features):
         return memory_read_plain(features, obs_count, proj_indices, pool)

@@ -10,8 +10,9 @@ On a CUDA tensor `multilevel_roi_align` assigns the levels in PyTorch
 (`assign_levels`, bit-equal to the JAX package's) and launches
 `csrc/roi_align.cu`, which computes the tap form (`impl="v1"`) for every
 `impl`: the v1 math, accumulated in f32 and written in the features'
-type. The JAX default `impl="v4"` is that math re-associated, with bf16
-weights and a bf16 intermediate in a bf16 config (ARCHITECTURE.md
+type, each ROI's tap grid staged in shared memory. The JAX default
+`impl="v4"` is that math re-associated, with bf16 weights and a bf16
+intermediate in a bf16 config (ARCHITECTURE.md
 divergence 3b), so on the card `impl` has no effect. Under autograd the
 card's call is `RoiAlignFunction`, whose backward launches the second
 kernel of `csrc/roi_align.cu`: the tap form's transpose, f32 atomics into
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -173,24 +174,32 @@ def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
 
 def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                    lvl_of_roi: torch.Tensor, strides: Tuple[int, ...],
-                   output_size: int, sampling_ratio: int) -> torch.Tensor:
+                   output_size: int, sampling_ratio: int,
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tap form on the card (`csrc/roi_align.cu`): features per-level
     [H_l, W_l, C] bf16 or f32, boxes [R, 4] f32, lvl_of_roi [R] int32 in
-    [0, levels) -> [R, S, S, C] in the features' type."""
+    [0, levels) -> [R, S, S, C] in the features' type. Each block stages
+    its ROI's distinct tap rows x distinct tap columns in shared memory,
+    in bands of output rows when they do not fit; `stats`, an int32 [R, 3]
+    tensor on the card, is zeroed and then receives each ROI's largest
+    staged grid (positions), the positions all its bands staged, and its
+    bands beyond one a block (0 where no band split)."""
     dtype = features[0].dtype
     c = features[0].shape[-1]
     r = boxes.shape[0]
-    if dtype not in (torch.bfloat16, torch.float32) or c % 2 or \
+    if dtype not in (torch.bfloat16, torch.float32) or c % 8 or \
             len(features) > 4:
-        raise ValueError(f"roi_align: up to 4 levels of bf16 or f32 with an "
-                         f"even channel count, got {len(features)} levels "
-                         f"of {dtype} with C={c}")
+        raise ValueError(f"roi_align: up to 4 levels of bf16 or f32 with a "
+                         f"channel count divisible by 8, got "
+                         f"{len(features)} levels of {dtype} with C={c}")
     for f in features:
         if f.dtype != dtype or f.dim() != 3 or f.shape[-1] != c or \
-                not f.is_contiguous() or f.device != boxes.device:
+                not f.is_contiguous() or f.device != boxes.device or \
+                max(f.shape[:2]) > 1024:
             raise ValueError(f"roi_align: every level must be a contiguous "
-                             f"[H, W, {c}] {dtype} tensor on {boxes.device}, "
-                             f"got {f.dtype} {tuple(f.shape)} on {f.device}")
+                             f"[H, W, {c}] {dtype} tensor on {boxes.device} "
+                             f"with H, W <= 1024, got {f.dtype} "
+                             f"{tuple(f.shape)} on {f.device}")
     if boxes.dtype != torch.float32 or boxes.shape != (r, 4) or \
             not boxes.is_contiguous():
         raise ValueError(f"roi_align: boxes must be contiguous float32 "
@@ -201,10 +210,23 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
         raise ValueError(f"roi_align: level ids must be contiguous int32 "
                          f"[{r}] on {boxes.device}, got {lvl_of_roi.dtype} "
                          f"{tuple(lvl_of_roi.shape)}")
-    if output_size * sampling_ratio ** 2 > 256:
+    if output_size * sampling_ratio ** 2 > 256 or \
+            output_size * sampling_ratio > 64:
         raise ValueError(f"roi_align: output_size * sampling_ratio^2 must be "
-                         f"<= 256, got {output_size} and {sampling_ratio}")
+                         f"<= 256 and output_size * sampling_ratio <= 64, "
+                         f"got {output_size} and {sampling_ratio}")
+    if stats is not None and (stats.dtype != torch.int32 or
+                              stats.shape != (r, 3) or
+                              not stats.is_contiguous() or
+                              stats.device != boxes.device):
+        raise ValueError(f"roi_align: stats must be a contiguous int32 "
+                         f"[{r}, 3] tensor on {boxes.device}")
     launch = build.load("roi_align")
+    if stats is not None:
+        stats.zero_()
+    if any(f.data_ptr() % 16 for f in features):
+        raise ValueError("roi_align: every level must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte vectors)")
     out = torch.empty((r, output_size, output_size, c), dtype=dtype,
                       device=boxes.device)
     if r == 0:
@@ -218,6 +240,7 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
         launch(ptrs, heights, widths, strides_c, nl, boxes.data_ptr(),
                lvl_of_roi.data_ptr(), out.data_ptr(), r, c, output_size,
                sampling_ratio, int(dtype == torch.bfloat16),
+               0 if stats is None else stats.data_ptr(),
                build.stream_handle()), "roi_align")
     roi_align_cuda.launches += 1
     return out

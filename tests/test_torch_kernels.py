@@ -71,6 +71,74 @@ def test_memory_read_batched_kernel_vs_single_reads():
     torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("b,h,w,d", [(3, 36, 52, 264), (1, 20, 28, 512)])
+def test_memory_read_off_tile_shapes_bit_equal(b, h, w, d):
+    """Output cells that are no multiple of the gather's 16-cell tile (351
+    and 35) and a channel count of 33 vectors: the batched read is
+    bit-equal to B single reads, and close to the plain version."""
+    _need_card()
+    rng = np.random.RandomState(22)
+    cells = 1000
+    feats = torch.from_numpy(
+        (rng.randn(b, cells, d) * 4).astype(np.float32)).cuda()
+    obs = torch.from_numpy(rng.choice([0.0, 1.0, 2.0, 5.0], (b, cells))
+                           .astype(np.float32)).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, cells, (b, h, w)).astype(np.int32)).cuda()
+    got = memory_ops.memory_read_batched(feats, obs, proj)
+    singles = torch.stack([memory_ops.memory_read(feats[i], obs[i], proj[i])
+                           for i in range(b)])
+    plain = memory_ops.memory_read_batched_plain(feats, obs, proj)
+    torch.cuda.synchronize()
+    assert (b * (h // 4) * (w // 4)) % 16
+    assert torch.equal(got, singles)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+
+
+# boxes of the ROIAlign edge cases, with the staged grid they must give
+ROI_EDGES = {
+    "tiny": ([[100.3, 60.2, 104.1, 63.9], [300.0, 200.0, 300.4, 200.3],
+              [636.0, 476.0, 639.5, 479.9]], "small"),
+    "whole_level": ([[0.0, 0.0, 640.0, 480.0]], "banded"),
+    "beyond_image": ([[-300.0, -200.0, 940.0, 680.0]], None),
+    "wide": ([[40.0, 160.0, 520.0, 260.0], [300.0, 20.0, 360.0, 140.0]],
+             None),
+}
+
+
+@pytest.mark.parametrize("size", [7, 14])
+@pytest.mark.parametrize("case", sorted(ROI_EDGES))
+def test_roi_align_kernel_edge_cases(case, size):
+    """ROIs under one level pixel, over a whole level, beyond the image
+    and wide (aspect 4.8 and 1/2), ahead of 256 random ROIs: f32 within
+    1e-5 of the plain tap form on the CPU; the kernel's stats show the
+    tiny ROIs' grids of at most 2 x 2 and the whole level in bands."""
+    _need_card()
+    rng = np.random.RandomState(23)
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              for h, w in ((60, 80), (30, 40), (15, 20))]
+    side = np.exp(rng.uniform(np.log(16), np.log(900), 256))
+    cx, cy = rng.uniform(-40, 680, 256), rng.uniform(-40, 520, 256)
+    edge, expect = ROI_EDGES[case]
+    boxes = torch.from_numpy(np.concatenate([np.array(edge), np.stack(
+        [cx - side / 2, cy - side / 2, cx + side / 2, cy + side / 2], 1)])
+        .astype(np.float32))
+    lvl = (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
+    strides = (8, 16, 32)
+    stats = torch.zeros((len(boxes), 3), dtype=torch.int32, device="cuda")
+    got = roi_align.roi_align_cuda([f.cuda() for f in levels], boxes.cuda(),
+                                   lvl.cuda(), strides, size, 2,
+                                   stats=stats).cpu()
+    want = roi_align._roi_align_taps(levels, boxes, strides, size, 2, lvl)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    st = stats[:len(edge)].cpu()
+    assert bool((st[:, 0] >= 1).all())
+    if expect == "small":
+        assert int(st[:, 0].max()) <= 4 and int(st[:, 2].max()) == 0
+    elif expect == "banded":
+        assert int(st[:, 2].min()) >= 1 and int(st[:, 0].max()) <= 288
+
+
 def _pasted_masks(rng, n=100, h=480, w=640):
     from embodied_object_detection_tpu_torch.ops import mask_paste as mp
     probs = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).cuda()
