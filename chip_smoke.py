@@ -32,15 +32,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      480 x 640, flips at the 0.5 threshold counted and bounded; then 1 and
      130 masks, thresholds 0 and -1, boxes wholly outside the image and
      one covering it, pixel-major and mask-major (x_stride 8)
-  4d. the write-selection kernel against its plain version on real
-     pasted masks (480 x 640 x 100) with an empty and a full image row:
-     equal in every element
+  4d. the exact write's selection: the mask paste with its observed-flag
+     epilogue and the selection on its flags (the frame's path) against
+     the plain paste, its flags and the plain selection, on 100 masks at
+     0.5 with an empty and a full image row and invalid detections, 99
+     masks (N % 4 != 0), 130 masks (two passes) and threshold 0: masks
+     within the paste's flip bound, and flags, counts, ids and rows equal
+     in every element; then the two-pass selection (masks only) against
+     its plain version on pasted masks with an empty and a full row
   4e. the batched memory-read kernel (B = 4) against four single reads:
      equal in every element
-  4f. the ROIAlign backward kernel (R = 512, 7 x 7 x 256) against torch
-     autograd of the plain tap form on the CPU in f32 (within
-     contributions x 2^-24 x sum|contribution| per element) and on the
-     card in bf16 (within (contributions + 1) x 2^-8 x sum|contribution|)
+  4f. the ROIAlign backward kernel (R = 512, 7 x 7 x 256, then ROIs under
+     one level pixel, a whole level, beyond the image and wide ahead of 64
+     random ROIs) in f32 within contributions x 2^-24 x sum|contribution|
+     per element of the exact (f64) sum of the plain tap form's f32
+     contributions, which any summation order keeps (at R = 512 also of
+     torch autograd of the plain tap form on the CPU), and in bf16 within
+     2^-8 |ref| + (1 + 2^-8) contributions x 2^-24 x sum|contribution| of
+     the exact sum of the bf16 gradient's contributions and within
+     (contributions + 1) x 2^-8 x sum|contribution| of the card's plain
+     v1 autograd in bf16; the vector atomics its flush issues (each
+     distinct position a ROI touches, once per 4 channels) beside the
+     scalar atomics of a kernel that adds every tap
   5. the eval path: the default config (480x640, ResNet-50, 8192 x 512
      memory, 300 detections, write top-100, bf16) with seeded weights,
      one chunk of frames through `make_episode_runner` with the memory
@@ -53,7 +66,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. each kernel's device time beside its plain version, the PyTorch
      library call where one exists (the memory reads: one
      F.embedding_bag(mean) on a table prepared beforehand), and its bound;
-     the ROIAlign forward also at the training shape (R = 512, 7 x 7)
+     the ROIAlign forward also at the training shape (R = 512, 7 x 7); the
+     mask paste with its flag epilogue (the JSON entry) and without it,
+     the selection on the paste's flags (the JSON entry) and the two-pass
+     selection on masks alone
   8. the training path: the default config with seeded weights, 3 AdamW
      steps at B = 4 frames (2 chunks x 2 frames) of synthetic batches
      through `engine.train.train`; every loss finite, ms per step, peak
@@ -62,6 +78,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      debug mode "warn" listing any synchronising call
   9. one training step at the 64x96 f32 miniature on the card against
      the same step on the CPU: losses, gradients and updated parameters
+
+With --profile, phases 5 and 8 also print each port kernel's device
+time a call in the profiled chunk and step, and the chunk's mask paste +
+write selection a frame.
 
 It then prints one JSON line of kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a card, or without the rest of
@@ -581,10 +601,10 @@ def check_mask_paste(rng):
 
 
 def select_inputs(rng):
-    """The write selection's inputs as the eval frame gives them: 100
-    masks pasted into 480 x 640 (pixel-major, by the paste kernel), with
-    one image row no mask covers and one every mask covers; a fifth of
-    the detections invalid; random cell ids."""
+    """The two-pass selection's inputs: 100 masks pasted into 480 x 640
+    (pixel-major, by the paste kernel), with one image row no mask covers
+    and one every mask covers; a fifth of the detections invalid; random
+    cell ids."""
     from embodied_object_detection_tpu_torch.ops import mask_paste as mp
     probs, boxes = paste_inputs(rng)
     masks = mp.paste_masks(probs, boxes, 480, 640, 0.5, pixel_major=True)
@@ -596,8 +616,94 @@ def select_inputs(rng):
     return masks.contiguous(), valid, proj
 
 
+# (masks, threshold) of phase 4d's fused cases: the frame's, N % 4 != 0,
+# two passes of the paste's 128 masks, and every value >= 0
+SELECT_CASES = ((100, 0.5), (99, 0.5), (130, 0.5), (100, 0.0))
+FULL_ROWS = (114, 126)          # rows mask 0 (all ones) covers
+EMPTY_ROWS = (300, 312)         # rows no valid mask reaches
+
+
+def fused_select_inputs(rng, n):
+    """The exact write's paste inputs: n random masks and boxes, mask 0
+    all ones over a band of full image rows, a fifth of the detections
+    invalid and every detection whose box comes near EMPTY_ROWS too;
+    random cell ids."""
+    probs, boxes = paste_inputs(rng, n)
+    probs[0] = 1.0
+    boxes[0] = torch.tensor([-3.0, 110.0, 645.0, 130.0], device="cuda")
+    b = boxes.cpu().numpy()
+    near = (b[:, 1] < EMPTY_ROWS[1] + 20) & (b[:, 3] > EMPTY_ROWS[0] - 20)
+    valid = (rng.rand(n) > 0.2) & ~near
+    valid[0] = True
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (480, 640)).astype(np.int32)).cuda()
+    return probs, boxes, torch.from_numpy(valid).cuda(), proj
+
+
+def check_fused_select(probs, boxes, valid, proj, threshold):
+    """The paste with its flag epilogue, then the selection on its flags,
+    against the plain paste, its flags and the plain selection. Returns
+    (flips, filled slots)."""
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    from embodied_object_detection_tpu_torch.ops import memory_ops
+    h, w = 480, 640
+    masks, observed, counts = mp.paste_masks_observed(probs, boxes, valid, h,
+                                                      w, threshold)
+    seg, aug = memory_ops.write_select(masks, valid, proj, 8, observed,
+                                       counts)
+    plain = mp.paste_masks_plain(probs, boxes, h, w, threshold,
+                                 pixel_major=True)
+    torch.cuda.synchronize()
+    flipped = masks != plain
+    flips = int(flipped.sum())
+    if flips:
+        vals = mp.paste_masks_plain(probs, boxes, h, w, -1.0,
+                                    pixel_major=True)
+        near = bool(((vals[flipped] - threshold).abs() < 1e-5).all())
+        if flips > max(1, plain.numel() // 10000) or not near:
+            raise AssertionError(f"fused paste: {flips} flips (near the "
+                                 f"threshold: {near})")
+    # the flags, counts, ids and rows of the kernel's masks, and when no
+    # value flipped, of the plain paste's: equal in every element
+    for ref in (masks,) if flips else (masks, plain):
+        want_obs = (ref & valid).any(dim=-1)
+        tiles = counts.shape[1]
+        pad = tiles * mp.TILE_COLS - w
+        want_counts = torch.nn.functional.pad(want_obs.int(), (0, pad)) \
+            .reshape(h, tiles, mp.TILE_COLS).sum(-1, dtype=torch.int32)
+        seg_p, aug_p = memory_ops.write_select_plain(ref, valid, proj, 8)
+        if not (torch.equal(observed, want_obs) and
+                torch.equal(counts, want_counts) and
+                torch.equal(seg, seg_p) and torch.equal(aug, aug_p)):
+            raise AssertionError(
+                f"fused select at threshold {threshold}, N = {len(valid)}: "
+                f"{int((observed != want_obs).sum())} flags, "
+                f"{int((counts != want_counts).sum())} counts, "
+                f"{int((seg != seg_p).sum())} ids, "
+                f"{int((aug != aug_p).sum())} weights differ")
+    if threshold > 0:
+        rows = observed[FULL_ROWS[0]:FULL_ROWS[1]]
+        if not (bool(rows.all()) and
+                not bool(observed[EMPTY_ROWS[0]:EMPTY_ROWS[1]].any())):
+            raise AssertionError("fused select: the full rows are not full "
+                                 "or the empty rows not empty")
+    return flips, int((seg >= 0).sum())
+
+
 def check_write_select(rng):
     from embodied_object_detection_tpu_torch.ops import memory_ops
+    fused_rng = np.random.RandomState(11)
+    for n, threshold in SELECT_CASES:
+        probs, boxes, valid, proj = fused_select_inputs(fused_rng, n)
+        flips, filled = check_fused_select(probs, boxes, valid, proj,
+                                           threshold)
+        print(f"  fused paste + select, N = {n}, threshold {threshold}: "
+              f"{flips} pasted values flip against the plain paste; flags, "
+              f"counts, ids and rows equal to the plain chain; {filled} "
+              f"slots filled" + (f"; rows {FULL_ROWS[0]}-{FULL_ROWS[1] - 1} "
+                                 f"full, rows {EMPTY_ROWS[0]}-"
+                                 f"{EMPTY_ROWS[1] - 1} empty"
+                                 if threshold > 0 else ""))
     masks, valid, proj = select_inputs(rng)
     seg, aug = memory_ops.write_select(masks, valid, proj, 8)
     seg_p, aug_p = memory_ops.write_select_plain(masks, valid, proj, 8)
@@ -608,10 +714,14 @@ def check_write_select(rng):
             f"{int((seg != seg_p).sum())} ids, "
             f"{int((aug != aug_p).sum())} weights")
     filled = int((seg >= 0).sum())
-    print(f"  {filled} of {seg.numel()} slots filled; row 100 empty, row "
-          f"101 full; ids and [{aug.shape[0]}, {aug.shape[1]}] rows equal "
-          f"to the plain version")
-    phase("4d", "write_select equals its plain version in every element")
+    print(f"  two-pass selection on masks alone: {filled} of {seg.numel()} "
+          f"slots filled; row 100 empty, row 101 full; ids and "
+          f"[{aug.shape[0]}, {aug.shape[1]}] rows equal to the plain version")
+    phase("4d", "the mask paste's flags and the selection on them equal the "
+                "plain chain in every element (masks within the paste's "
+                "flip bound), 99-130 masks, thresholds 0.5 and 0, full and "
+                "empty rows; the two-pass selection equals its plain "
+                "version")
     return 0.0
 
 
@@ -639,95 +749,165 @@ def check_memory_read_batched(rng, b=TRAIN_FRAMES):
     return err
 
 
-def roi_contributions(levels, boxes, lvl, grad, size):
-    """(count [P], abs_sum [P, C]) over the flattened levels: the nonzero
-    tap contributions landing on each position and the sum of their
-    magnitudes, from the plain tap form on the CPU."""
-    from embodied_object_detection_tpu_torch.ops import roi_align as ra
-    boxes, lvl = boxes.cpu(), lvl.cpu()
-    rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes,
-                                  STRIDES, size, 2, lvl)
-    total = sum(f.shape[0] * f.shape[1] for f in levels)
-    count = torch.zeros(total).index_add_(0, rows.reshape(-1),
-                                          (wgt.reshape(-1) != 0).float())
-    leaves = [f.detach().float().cpu().requires_grad_(True) for f in levels]
-    out = ra._roi_align_taps(leaves, boxes, STRIDES, size, 2, lvl)
-    abs_sum = torch.autograd.grad(out, leaves, grad.abs().float().cpu())
-    return count, torch.cat([a.reshape(-1, a.shape[-1]) for a in abs_sum])
-
-
 def flat_levels(grads):
     return torch.cat([g.float().cpu().reshape(-1, g.shape[-1])
                       for g in grads])
 
 
-def check_roi_align_backward(rng, r=512):
+def backward_atomics(levels, boxes, lvl, c, size=7):
+    """(scalar, vector): the atomic adds a kernel that adds every nonzero
+    tap's contribution issues (taps x C), and those the staged-grid
+    kernel's flush issues (each distinct position a ROI touches with a
+    nonzero weight, once per 4 channels), from the plain tap form."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
-    levels, boxes = roi_inputs(rng, r, torch.float32)
-    lvl = roi_levels(boxes)
-    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32)
-                            ).cuda()
-    shapes = [f.shape[:2] for f in levels]
-    count, abs_sum = roi_contributions(levels, boxes, lvl, grad, 7)
+    rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes.cpu(),
+                                  STRIDES, size, 2, lvl.cpu())
+    total = sum(f.shape[0] * f.shape[1] for f in levels)
+    r = boxes.shape[0]
+    key = rows.reshape(r, -1) + total * torch.arange(r)[:, None]
+    live = wgt.reshape(r, -1) != 0
+    return (int(live.sum()) * c,
+            int(torch.unique(key[live]).numel()) * (c // 4))
 
-    got = ra.roi_align_backward_cuda(grad, shapes, boxes, lvl, STRIDES, 2,
-                                     torch.float32)
-    # the plain tap form on the CPU, whose divisions are the kernel's
-    leaves = [f.cpu().requires_grad_(True) for f in levels]
-    want = torch.autograd.grad(
-        ra._roi_align_taps(leaves, boxes.cpu(), STRIDES, 7, 2, lvl.cpu()),
-        leaves, grad.cpu())
-    err = (flat_levels(got) - flat_levels(want)).abs()
-    bound = count[:, None] * 2.0 ** -24 * abs_sum
+
+def exact_contributions(levels, boxes, lvl, grad, size):
+    """(count [P], exact [P, C], magnitude [P, C]) over the flattened
+    levels: the nonzero tap contributions (grad / s^2) * w of the plain
+    tap form on each position, each the f32 product the kernel forms, and
+    their sum and the sum of their magnitudes taken exactly (f64). Summed
+    in any order in f32, n contributions stay within (n - 1) 2^-24
+    sum|c| of the exact sum, so within the n 2^-24 sum|c| bound; two f32
+    orders may differ from each other by up to twice that."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes.cpu(),
+                                  STRIDES, size, 2, lvl.cpu())
+    total = sum(f.shape[0] * f.shape[1] for f in levels)
+    c = grad.shape[-1]
+    g = grad.float().cpu() / 4.0        # s^2 = 4: exact, as __fdiv_rn
+    count = torch.zeros(total).index_add_(0, rows.reshape(-1),
+                                          (wgt.reshape(-1) != 0).float())
+    exact = torch.zeros((total, c), dtype=torch.float64)
+    mag = torch.zeros((total, c), dtype=torch.float64)
+    for i in range(0, boxes.shape[0], 32):
+        prod = (g[i:i + 32, :, None, :, None, None, :] *
+                wgt[i:i + 32, ..., None]).reshape(-1, c).double()
+        idx = rows[i:i + 32].reshape(-1)
+        exact.index_add_(0, idx, prod)
+        mag.index_add_(0, idx, prod.abs())
+    return count, exact, mag
+
+
+def check_backward_case(levels, boxes, grad, strict_plain):
+    """The backward kernel in f32 and bf16 against the exact sums of the
+    plain tap form's contributions, and against torch autograd of the
+    plain tap form (in f32 on the CPU, in bf16 on the card); returns (f32
+    error from the exact sum, its share of the bound, the share of the
+    bound of its difference from the CPU's f32 autograd, the bf16
+    shares, the most contributions on one position). With
+    `strict_plain`, the f32 autograd is also held within the bound."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    lvl = roi_levels(boxes)
+    shapes = [f.shape[:2] for f in levels]
+    size = grad.shape[1]
+    count, exact, mag = exact_contributions(levels, boxes, lvl, grad, size)
+    bound = count[:, None].double() * 2.0 ** -24 * mag
+    got = flat_levels(ra.roi_align_backward_cuda(grad, shapes, boxes, lvl,
+                                                 STRIDES, 2, torch.float32))
+    err = (got.double() - exact).abs()
     if not bool((err <= bound).all()):
         raise AssertionError(f"roi_align backward f32: max err "
-                             f"{float(err.max())} beyond the atomics bound")
-    worst = float(err.max())
+                             f"{float(err.max())} from the exact sum beyond "
+                             f"n 2^-24 sum|c|")
+    # the plain tap form on the CPU, whose divisions are the kernel's
+    leaves = [f.cpu().requires_grad_(True) for f in levels]
+    plain = flat_levels(torch.autograd.grad(
+        ra._roi_align_taps(leaves, boxes.cpu(), STRIDES, size, 2, lvl.cpu()),
+        leaves, grad.cpu()))
+    err_plain = (got - plain).abs().double()
+    if strict_plain and not bool((err_plain <= bound).all()):
+        raise AssertionError(f"roi_align backward f32: max err "
+                             f"{float(err_plain.max())} from the plain v1 "
+                             f"autograd beyond n 2^-24 sum|c|")
 
     levels16 = [f.to(torch.bfloat16).requires_grad_(True) for f in levels]
     g16 = grad.to(torch.bfloat16)
-    got16 = ra.roi_align_backward_cuda(g16, shapes, boxes, lvl, STRIDES, 2,
-                                       torch.bfloat16)
-    want16 = torch.autograd.grad(
-        ra._roi_align_taps(levels16, boxes, STRIDES, 7, 2, lvl), levels16,
-        g16.float())
+    got16 = flat_levels(ra.roi_align_backward_cuda(
+        g16, shapes, boxes, lvl, STRIDES, 2, torch.bfloat16)).double()
+    want16 = flat_levels(torch.autograd.grad(
+        ra._roi_align_taps(levels16, boxes, STRIDES, size, 2, lvl), levels16,
+        g16.float())).double()
     torch.cuda.synchronize()
-    _, abs16 = roi_contributions(levels16, boxes, lvl, g16, 7)
-    # the f32 autograd on the CPU of the bf16-rounded gradient: the kernel
-    # sums the same f32 products and casts once
-    leaves = [f.cpu().requires_grad_(True) for f in levels]
-    ref16 = flat_levels(torch.autograd.grad(
-        ra._roi_align_taps(leaves, boxes.cpu(), STRIDES, 7, 2, lvl.cpu()),
-        leaves, g16.float().cpu()))
-    err_ref = (flat_levels(got16) - ref16).abs()
-    tight = 2.0 ** -8 * ref16.abs() + \
-        (1 + 2.0 ** -8) * count[:, None] * 2.0 ** -24 * abs16
+    # the exact sum of the bf16-rounded gradient's f32 contributions: the
+    # kernel sums the same f32 products and rounds once to bf16
+    _, exact16, mag16 = exact_contributions(levels, boxes, lvl, g16, size)
+    err_ref = (got16 - exact16).abs()
+    tight = 2.0 ** -8 * exact16.abs() + \
+        (1 + 2.0 ** -8) * count[:, None].double() * 2.0 ** -24 * mag16
     if not bool((err_ref <= tight).all()):
         raise AssertionError(f"roi_align backward bf16: max err "
-                             f"{float(err_ref.max())} against the f32 "
-                             f"autograd beyond 2^-8 |ref| + n 2^-24 sum|c|")
-    err16 = (flat_levels(got16) - flat_levels(want16)).abs()
-    tol16 = (count[:, None] + 1) * 2.0 ** -8 * abs16
+                             f"{float(err_ref.max())} from the exact sum "
+                             f"beyond 2^-8 |ref| + n 2^-24 sum|c|")
+    err16 = (got16 - want16).abs()
+    tol16 = (count[:, None].double() + 1) * 2.0 ** -8 * mag16
     if not bool((err16 <= tol16).all()):
         raise AssertionError(f"roi_align backward bf16: max err "
                              f"{float(err16.max())} beyond (n + 1) 2^-8 "
                              f"sum|c|")
-    print(f"  R = {r}, 7x7x256: up to {int(count.max())} contributions on "
-          f"one position; f32 vs plain v1 autograd (CPU) max err "
-          f"{worst:.3e}, max err / bound "
-          f"{float((err / bound.clamp(min=1e-30)).max()):.3f}; bf16 vs the "
-          f"f32 autograd (CPU) of the bf16 gradient max err "
-          f"{float(err_ref.max()):.3e}, max err / bound "
-          f"{float((err_ref / tight.clamp(min=1e-30)).max()):.3f}; bf16 vs "
-          f"the card's plain v1 autograd max err {float(err16.max()):.3e}, "
-          f"max err / bound {float((err16 / tol16.clamp(min=1e-30)).max()):.3f}")
+
+    def share(e, b):
+        return float((e / b.clamp(min=1e-30)).max())
+
+    return (float(err.max()), share(err, bound), share(err_plain, bound),
+            share(err_ref, tight), share(err16, tol16), int(count.max()))
+
+
+def check_roi_align_backward(rng, r=512):
+    levels, boxes = roi_inputs(rng, r, torch.float32)
+    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32)
+                            ).cuda()
+    worst, s32, s_plain, s_ref, s16, most = check_backward_case(
+        levels, boxes, grad, strict_plain=True)
+    scalar, vector = backward_atomics(levels, boxes, roi_levels(boxes), 256)
+    print(f"  R = {r}, 7x7x256: up to {most} contributions on one position; "
+          f"f32 vs the exact sum max err {worst:.3e}, max err / bound "
+          f"{s32:.3f}; vs the plain v1 autograd (CPU) {s_plain:.3f}; bf16 "
+          f"vs the exact sum of the bf16 gradient's contributions max err "
+          f"/ bound {s_ref:.3f}; bf16 vs the card's plain v1 autograd max "
+          f"err / bound {s16:.3f}; the flush's float4 "
+          f"atomics {vector} (the staged grid's distinct positions x C/4) "
+          f"against {scalar:.3e} scalar atomics of a kernel adding every "
+          f"tap")
+    # the edge cases, from a generator of their own, each ahead of 64
+    # random ROIs
+    edge_rng = np.random.RandomState(9)
+    levels, others = roi_inputs(edge_rng, 64, torch.float32)
+    for name, edge, _ in ROI_EDGE_CASES:
+        boxes = torch.cat([torch.tensor(edge, dtype=torch.float32).cuda(),
+                           others])
+        grad = torch.from_numpy(edge_rng.randn(len(boxes), 7, 7, 256)
+                                .astype(np.float32)).cuda()
+        err, s32, s_plain, s_ref, s16, most = check_backward_case(
+            levels, boxes, grad, strict_plain=False)
+        worst = max(worst, err)
+        k = len(edge)
+        _, vector = backward_atomics(levels, boxes[:k], roi_levels(boxes[:k]),
+                                     256)
+        print(f"  {name}: levels {(roi_levels(boxes[:k]) + 3).tolist()}, "
+              f"{vector // 64} distinct positions flushed; f32 max err / "
+              f"bound {s32:.3f} from the exact sum ({s_plain:.3f} from the "
+              f"plain v1 autograd's own f32 order), bf16 {s_ref:.3f} and "
+              f"{s16:.3f} (with 64 random ROIs; up to {most} contributions "
+              f"on one position)")
     phase("4f", "roi_align backward within contributions x 2^-24 x "
-                "sum|contribution| of the plain v1 on the CPU (f32); in "
-                "bf16 within 2^-8 |ref| + (1 + 2^-8) contributions x 2^-24 "
-                "x sum|contribution| of the CPU's f32 plain v1 of the "
-                "bf16-rounded gradient (one final rounding), and within "
-                "(contributions + 1) x 2^-8 x sum|contribution| of the "
-                "card's plain v1 in bf16 (which rounds every partial sum)")
+                "sum|contribution| of the exact sum of the plain v1's f32 "
+                "contributions (f32; at R = 512 also of the CPU's plain v1 "
+                "autograd); in bf16 within 2^-8 |ref| + (1 + 2^-8) "
+                "contributions x 2^-24 x sum|contribution| of the exact sum "
+                "of the bf16-rounded gradient's contributions (one final "
+                "rounding), and within (contributions + 1) x 2^-8 x "
+                "sum|contribution| of the card's plain v1 in bf16 (which "
+                "rounds every partial sum); R = 512 and ROIs under one level "
+                "pixel, a whole level, beyond the image and wide")
     return worst
 
 
@@ -871,6 +1051,12 @@ def run_main_path(profile_dir):
     return launches, per_frame
 
 
+def kernel_name(key):
+    """A profiler key's kernel name, without its namespace or arguments."""
+    m = re.search(r"(\w+(<[^()]*>)?)\(", key)
+    return m.group(1) if m else key
+
+
 def profile_run(fn, out_dir, tag, units, unit):
     """Profile one fn() call: op table and chrome trace under out_dir,
     host sync and copy calls, device busy time per `unit`."""
@@ -891,11 +1077,15 @@ def profile_run(fn, out_dir, tag, units, unit):
             "write_select")
     for e in sorted(averages, key=lambda e: -e.device_time_total):
         if e.device_time_total > 0 and any(k in e.key for k in ours):
-            # the kernel's own name, without its namespace or arguments
-            m = re.search(r"(\w+(<[^()]*>)?)\(", e.key)
-            name = m.group(1) if m else e.key
-            print(f"  in the {tag}: {name} "
+            print(f"  in the {tag}: {kernel_name(e.key)} "
                   f"{e.device_time_total / e.count:.1f} us a call x {e.count}")
+    write = [e for e in averages if e.device_time_total > 0 and
+             any(k in e.key for k in ("mask_paste", "select_kernel",
+                                      "observed_kernel"))]
+    if write:
+        print(f"  in the {tag}: mask paste + write selection "
+              f"{sum(e.device_time_total for e in write) / units:.1f} us a "
+              f"{unit} ({', '.join(kernel_name(e.key) for e in write)})")
     trace_events = json.loads(trace.read_text())["traceEvents"]
     waits = {name: sum(1 for e in trace_events if e.get("name") == name)
              for name in ("cudaStreamSynchronize", "cudaMemcpyAsync")}
@@ -945,19 +1135,19 @@ def check_against_cpu():
     zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
     # record every paste on both devices, to count threshold flips
     pasted = {"cpu": [], "cuda": []}
-    paste = detector.paste_masks
+    paste = detector.paste_masks_observed
 
     def recording(dev):
         def spy(masks, boxes, *args, **kwargs):
             out = paste(masks, boxes, *args, **kwargs)
-            pasted[dev].append((masks, boxes, out))
+            pasted[dev].append((masks, boxes, out[0]))
             return out
         return spy
 
     outs = {}
     try:
         for dev in ("cpu", "cuda"):
-            detector.paste_masks = recording(dev)
+            detector.paste_masks_observed = recording(dev)
             model = detector.build_detector(cfg, seed=3, device=dev)
             frames = detector.frame_inputs(images, projs,
                                            np.array([True, False]), 64, dev)
@@ -965,7 +1155,7 @@ def check_against_cpu():
                 frames, torch.from_numpy(zs).to(dev),
                 MemoryState.zeros(64, 512, dev))
     finally:
-        detector.paste_masks = paste
+        detector.paste_masks_observed = paste
     cpu, card = outs["cpu"], outs["cuda"]
     if not torch.equal(cpu.any_detection, card.any_detection.cpu()):
         raise AssertionError("the card and the CPU disagree on writes")
@@ -1358,15 +1548,16 @@ def time_roi_align_backward(rng, launches, errs, r=512):
     plain_ms = event_ms(lambda: torch.autograd.grad(
         ra._roi_align_taps(leaves, boxes, STRIDES, 7, 2, lvl), leaves,
         grad.float()))
-    count, _ = roi_contributions(levels, boxes, lvl, grad, 7)
     c = grad.shape[-1]
-    contributions = float(count.sum()) * c
+    scalar, vector = backward_atomics(levels, boxes, lvl, c)
+    contributions = float(scalar)
     b_ms, b_by = bound_ms(grad.numel() * 2 + r * 20 +
                           sum(f.numel() * 2 for f in levels),
                           2 * contributions)
     print(f"  roi_align backward, R = {r}, 7x7, bf16: {ms * 1e3:.1f} us "
           f"kernel, {plain_ms * 1e3:.1f} us plain v1 autograd, "
-          f"{contributions:.3e} atomic adds, bound {b_ms * 1e3:.2f} us "
+          f"{contributions:.3e} contributions summed in registers and "
+          f"flushed as {vector} float4 atomics, bound {b_ms * 1e3:.2f} us "
           f"({b_by})")
     return [{"name": "roi_align_backward", "route": "cuda",
              "source": "embodied_object_detection_tpu_torch/csrc/roi_align.cu",
@@ -1431,15 +1622,34 @@ def read_yardstick(feats, obs, proj, got, name, pool=4):
 
 
 def time_write_select(rng, launches, errs):
+    """The selection on the paste's flags (the frame's path; the JSON
+    entry), and the two-pass selection on masks alone beside it. The bound
+    counts what the select pass must move: the flags, the counts, the
+    selected pixels' mask rows and cell ids, seg_idx and aug."""
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
     from embodied_object_detection_tpu_torch.ops import memory_ops
-    masks, valid, proj = select_inputs(rng)
-    ms = graph_ms(lambda: memory_ops.write_select(masks, valid, proj, 8))
+    probs, boxes = paste_inputs(rng)
+    valid = torch.from_numpy(rng.rand(100) > 0.2).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (480, 640)).astype(np.int32)).cuda()
+    masks, observed, counts = mp.paste_masks_observed(probs, boxes, valid,
+                                                      480, 640)
+    ms = graph_ms(lambda: memory_ops.write_select(masks, valid, proj, 8,
+                                                  observed, counts))
+    two_pass_ms = graph_ms(lambda: memory_ops.write_select(masks, valid,
+                                                           proj, 8))
     plain_ms = graph_ms(lambda: memory_ops.write_select_plain(
-        masks, valid, proj, 8))
+        masks, valid, proj, 8, observed, counts))
     h, w, n = masks.shape
     slots = h * (w // 8)
-    b_ms, b_by = bound_ms(masks.numel() + n + proj.numel() * 4 +
-                          slots * 4 + slots * (n + 1) * 4, masks.numel())
+    seg, _ = memory_ops.write_select(masks, valid, proj, 8, observed, counts)
+    filled = int((seg >= 0).sum())
+    b_ms, b_by = bound_ms(observed.numel() + counts.numel() * 4 + n +
+                          filled * (n + 4) + slots * 4 +
+                          slots * (n + 1) * 4, filled * n)
+    print(f"  write_select on the paste's flags: {ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}; {filled} pixels selected); the "
+          f"two-pass selection on masks alone {two_pass_ms * 1e3:.1f} us")
     return [{"name": "write_select", "route": "cuda",
              "source": "embodied_object_detection_tpu_torch/csrc/write_select.cu",
              "replaces": "embodied_object_detection_tpu/ops/memory_ops.py:188",
@@ -1450,18 +1660,21 @@ def time_write_select(rng, launches, errs):
 
 
 def time_mask_paste(rng, launches, errs):
-    """The write's paste (100 masks into 480 x 640, pixel-major bool);
-    the yardstick is one F.grid_sample (align_corners=False, zero
-    padding) and the compare, on a sampling grid built beforehand."""
+    """The write's paste with its flag epilogue (100 masks into 480 x 640,
+    pixel-major bool, the frame's path; the JSON entry), and the paste
+    without it beside it; the yardstick is one F.grid_sample
+    (align_corners=False, zero padding) and the compare, on a sampling
+    grid built beforehand."""
     import torch.nn.functional as F
     from embodied_object_detection_tpu_torch.ops import mask_paste as mp
     masks, boxes = paste_inputs(rng)
+    valid = torch.from_numpy(rng.rand(100) > 0.2).cuda()
     n, m, _ = masks.shape
     h, w = 480, 640
-    ms = graph_ms(lambda: mp.paste_masks(masks, boxes, h, w, 0.5,
-                                         pixel_major=True))
-    plain_ms = graph_ms(lambda: mp.paste_masks_plain(masks, boxes, h, w, 0.5,
-                                                     pixel_major=True))
+    ms = graph_ms(lambda: mp.paste_masks_observed(masks, boxes, valid, h, w))
+    bare_ms = graph_ms(lambda: mp.paste_masks(masks, boxes, h, w, 0.5,
+                                              pixel_major=True))
+    plain_ms = graph_ms(lambda: plain_observed(masks, boxes, valid, h, w))
     xs = torch.arange(w, device="cuda", dtype=torch.float32) + 0.5
     ys = torch.arange(h, device="cuda", dtype=torch.float32) + 0.5
     bw = (boxes[:, 2] - boxes[:, 0]).clamp(min=1e-4)[:, None]
@@ -1480,10 +1693,13 @@ def time_mask_paste(rng, launches, errs):
     lib_flips = int((library().permute(1, 2, 0) !=
                      mp.paste_masks_plain(masks, boxes, h, w, 0.5,
                                           pixel_major=True)).sum())
-    b_ms, b_by = bound_ms(n * m * m * 4 + n * 16 + h * w * n,
-                          h * w * n * 10)
-    print(f"  mask_paste: the grid_sample yardstick disagrees with the plain "
-          f"version on {lib_flips} of {h * w * n} pixels")
+    tiles = -(-w // mp.TILE_COLS)
+    b_ms, b_by = bound_ms(n * m * m * 4 + n * 16 + n + h * w * n + h * w +
+                          h * tiles * 4, h * w * n * 10)
+    print(f"  mask_paste with the flag epilogue {ms * 1e3:.1f} us, without "
+          f"it {bare_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}); "
+          f"the grid_sample yardstick disagrees with the plain version on "
+          f"{lib_flips} of {h * w * n} pixels")
     return [{"name": "mask_paste", "route": "cuda",
              "source": "embodied_object_detection_tpu_torch/csrc/mask_paste.cu",
              "replaces": "embodied_object_detection_tpu/ops/mask_paste.py:38",
@@ -1491,6 +1707,16 @@ def time_mask_paste(rng, launches, errs):
              "max_abs_err": errs["mask_paste"], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": lib_ms}]
+
+
+def plain_observed(masks, boxes, valid, h, w):
+    """The plain version of the exact write's paste on the card: the plain
+    paste, then its flags and row counts."""
+    from embodied_object_detection_tpu_torch.ops import mask_paste as mp
+    out = mp.paste_masks_plain(masks, boxes, h, w, 0.5, pixel_major=True)
+    observed = (out & valid).any(dim=-1)
+    return out, observed, observed.sum(dim=1, keepdim=True,
+                                       dtype=torch.int32)
 
 
 def main() -> int:

@@ -37,6 +37,16 @@
 //   with more masks than one pass holds, each pixel's slice is one
 //   contiguous run. Mask-major, the stage is laid out [mask][pixel] and
 //   each (mask, row) run of the tile's columns is stored contiguously.
+// - The exact memory write's first pass rides along (pixel-major bool,
+//   when `observed` is given): each thread ORs its pixel's staged values
+//   of a pass, ANDed with valid[n] (a byte each in shared memory, 32-bit
+//   words when the pass's span is a multiple of 4), into its flag:
+//       observed[y, x] = any_n(out[y, x, n] && valid[n])
+//   the OR of exactly the values stored, finish(0) included, so the flags
+//   are those of the masks written. After the last pass it stores the flag
+//   and each warp (one tile row) stores __popc of its ballot as the count
+//   of (row, column tile): counts [H, ceil(W' / 32)], each written by one
+//   block, so nobody zeroes them; csrc/write_select.cu sums them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -129,9 +139,11 @@ template <typename Out>
 __global__ void __launch_bounds__(kPix) mask_paste_kernel(
     const float* __restrict__ masks, const float* __restrict__ boxes,
     Out* __restrict__ out, int n, int m, int height, int x_stride, int out_w,
-    float threshold, int pixel_major) {
+    float threshold, int pixel_major, const unsigned char* __restrict__ valid,
+    unsigned char* __restrict__ observed, int* __restrict__ tile_counts) {
   constexpr int kPass = kStageBytes / (kPix * (int)sizeof(Out));
   __shared__ __align__(16) unsigned char stage_bytes[kStageBytes];
+  __shared__ __align__(16) unsigned char valid_s[kPass];
   __shared__ Taps ytap[kGroup][kRows];
   __shared__ Taps xtap[kGroup][kCols];
   __shared__ int live[kPass];
@@ -152,6 +164,7 @@ __global__ void __launch_bounds__(kPix) mask_paste_kernel(
   const float y_last = (float)(y_base + rows - 1) + 0.5f;
   const float x_first = (float)(x_base * x_stride) + 0.5f;
   const float x_last = (float)((x_base + cols - 1) * x_stride) + 0.5f;
+  bool flag = false;           // this pixel's observed flag
 
   for (int q0 = 0; q0 < n; q0 += kPass) {
     const int span = min(kPass, n - q0);
@@ -179,6 +192,7 @@ __global__ void __launch_bounds__(kPix) mask_paste_kernel(
           live[num_live + __popc(ballot & ((1u << (t & 31)) - 1u))] = q0 + t;
       num_live += warp_live[w];
     }
+    if (observed != nullptr && t < span) valid_s[t] = valid[q0 + t];
     // every value starts as finish(0)
     const int fill = (kPix * span * (int)sizeof(Out) + 15) >> 4;
     for (int e = t; e < fill; e += kPix)
@@ -222,6 +236,20 @@ __global__ void __launch_bounds__(kPix) mask_paste_kernel(
       }
       __syncthreads();
     }
+    if (observed != nullptr && mine) {
+      // the pass's values of this pixel, ANDed with valid
+      const unsigned char* px = stage_bytes + t * span;
+      unsigned int any = 0u;
+      if ((span & 3) == 0) {
+        const unsigned int* pw = reinterpret_cast<const unsigned int*>(px);
+        const unsigned int* vw =
+            reinterpret_cast<const unsigned int*>(valid_s);
+        for (int k = 0; k < span / 4; ++k) any |= pw[k] & vw[k];
+      } else {
+        for (int k = 0; k < span; ++k) any |= px[k] & valid_s[k];
+      }
+      flag = flag || any != 0u;
+    }
 
     if (pixel_major && span == n) {
       // each image row of the tile: cols x n consecutive values
@@ -251,15 +279,31 @@ __global__ void __launch_bounds__(kPix) mask_paste_kernel(
       }
     }
   }
+  if (observed != nullptr) {
+    if (mine) observed[(long long)(y_base + r) * out_w + x_base + c] = flag;
+    const unsigned int ballot = __ballot_sync(0xffffffffu, flag);
+    if (c == 0 && r < rows)
+      tile_counts[(long long)(y_base + r) * gridDim.x + blockIdx.x] =
+          __popc(ballot);
+  }
 }
 
 }  // namespace
 
+// valid, observed, tile_counts: null, or (pixel-major, threshold >= 0)
+// valid [N] bytes (0/1), and outputs observed [H, W'] bytes and
+// tile_counts [H, ceil(W' / 32)] int32, W' = ceil(W / x_stride).
 extern "C" int mask_paste_launch(const void* masks, const void* boxes,
                                  void* out, int n, int m, int height,
                                  int width, int x_stride, float threshold,
-                                 int pixel_major, void* stream) {
+                                 int pixel_major, const void* valid,
+                                 void* observed, void* tile_counts,
+                                 void* stream) {
   if (n < 0 || m < 1 || height < 0 || width < 0 || x_stride < 1)
+    return (int)cudaErrorInvalidValue;
+  if (observed != nullptr &&
+      (!pixel_major || !(threshold >= 0.0f) || valid == nullptr ||
+       tile_counts == nullptr))
     return (int)cudaErrorInvalidValue;
   const int out_w = (width + x_stride - 1) / x_stride;
   if (n == 0 || height == 0 || out_w == 0) return 0;
@@ -268,10 +312,12 @@ extern "C" int mask_paste_launch(const void* masks, const void* boxes,
   if (threshold >= 0.0f)
     mask_paste_kernel<bool><<<grid, kPix, 0, s>>>(
         (const float*)masks, (const float*)boxes, (bool*)out, n, m, height,
-        x_stride, out_w, threshold, pixel_major);
+        x_stride, out_w, threshold, pixel_major,
+        (const unsigned char*)valid, (unsigned char*)observed,
+        (int*)tile_counts);
   else
     mask_paste_kernel<float><<<grid, kPix, 0, s>>>(
         (const float*)masks, (const float*)boxes, (float*)out, n, m, height,
-        x_stride, out_w, threshold, pixel_major);
+        x_stride, out_w, threshold, pixel_major, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }

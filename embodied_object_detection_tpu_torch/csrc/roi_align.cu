@@ -53,15 +53,34 @@
 // by the caller, who casts each once to the levels' type). It replaces
 // the backward of the same function, which JAX derives by autodiff (of
 // v4's hat-weight matmuls, or of v1's tap gathers as a scatter-add). Each
-// contribution is the f32 product that autodiff of the tap form computes;
-// only the order of the sums differs, because they are f32 atomicAdds: per
-// element the result is within (contributions) x 2^-24 x sum|contribution|
-// of any other order. Bound in principle by bytes (grad_out read once, 6.4
-// MB at R = 512, 7 x 7, 256 bf16; the f32 accumulators, 6.5 MB, written
-// once), in practice by the atomics: R x S^2 x s^2 x 4 taps x C adds that
-// land in L2, many on the same addresses (overlapping ROIs on the 60 x 80
-// level). One block per (ROI, output row), two channels a thread;
-// zero-weight taps (samples outside [-1, size]) are skipped.
+// contribution is the f32 product that autodiff of the tap form computes,
+// (grad / s^2) * (w_y * w_x) with __fdiv_rn/__fmul_rn; only the order of
+// the sums differs: per element the result is within (contributions) x
+// 2^-24 x sum|contribution| of any other order.
+//
+// What bounds it on Hopper, backward: bytes (grad_out read once, 6.4 MB at
+// R = 512, 7 x 7, 256 bf16; the f32 accumulators, 6.5 MB, written once).
+// A kernel that adds every tap's contribution to device memory is bound
+// instead by ~7 x 10^7 scalar f32 atomics a call in L2, up to ~300 on one
+// address. But a ROI's 784 taps land on a median of ~128 distinct
+// positions, the same staged grid the forward finds. So a block takes one
+// ROI and one slab of 128 channels, stages grad_out's slab once with
+// 16-byte loads, divided by s^2, in shared memory, and finds the ROI's
+// distinct tap rows and columns as the forward does (sample_table). A grid
+// position (Y, X) receives exactly the taps of the y-samples with a tap on
+// slot Y times those of the x-samples with a tap on slot X, so each axis's
+// 2 n (sample, tap) entries are sorted by slot (a count, a warp's scan,
+// each entry's rank among its slot's). Then each thread owns one position
+// and two float4s of channels at a time and sums its contributions in
+// registers in a fixed order: no atomics in shared memory, no zeroing, no
+// bands (the grid is an index space, not a buffer, so no budget applies).
+// Each position a ROI touches with a nonzero weight is then flushed once,
+// one float4 atomicAdd (sm_90, a vector RED in L2) per 4 channels: ~5 x
+// 10^6 vector atomics a call instead of ~7 x 10^7 scalar ones. What
+// remains is the block's own work: its set-up (the slab's loads, the
+// table, the entry sort: ~7 barriers), paid once per 128 channels, and
+// ~10 instructions of control per contribution, paid once per 8 channels.
+// Zero-weight taps (samples outside [-1, size]) are skipped, as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,15 +88,21 @@
 namespace {
 
 constexpr int kMaxLevels = 4;
-constexpr int kMaxSamples = 256;   // s * S * s positions of one output row
+constexpr int kMaxSamples = 256;   // s * S * s samples of one output row
 constexpr int kThreads = 224;      // forward: 7 warps
-constexpr int kMaxAxis = 128;      // forward: tap candidates an axis, 2 S s
+constexpr int kMaxAxis = 128;      // tap candidates an axis, 2 S s
 constexpr int kSlabBytes = 128;    // forward: channels a block
 constexpr int kChunks = kSlabBytes / 16;
 constexpr int kGridPositions = 288;   // staged positions: 36 KB
 constexpr int kBlocksPerSM = 5;    // forward: by its shared memory
 constexpr int kMinBlocksPerSM = 8;  // forward: when its rows are split
-constexpr int kMaxSide = 1024;     // forward: level height and width
+constexpr int kMaxSide = 1024;     // level height and width
+constexpr int kBwdThreads = 256;   // backward: 8 warps
+constexpr int kBwdSlab = 128;      // backward: f32 channels a block
+constexpr int kBwdVecs = kBwdSlab / 4;              // its float4s
+constexpr int kBwdOwners = kBwdVecs / 2;   // threads a position: 2 float4s
+constexpr int kBwdLanes = kBwdThreads / kBwdOwners;  // positions at a time
+constexpr int kMaxGradBytes = 200 * 1024;   // backward: grad_out's slab
 
 struct Levels {
   const void* data[kMaxLevels];
@@ -85,14 +110,6 @@ struct Levels {
   int width[kMaxLevels];
   float stride[kMaxLevels];
 };
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 // One axis of a sample: clamp rule, taps and weights as in _bilinear_flat.
 struct Axis {
@@ -141,32 +158,77 @@ __device__ __forceinline__ float sample_coord(float start, float bin, int i,
   return __fsub_rn(__fadd_rn(start, __fmul_rn(g, bin)), 0.5f);
 }
 
-// The s * S * s sample positions of output row ph of ROI `roi` (k = sample
-// row within the bin * S * s + sample column across all bins): their four
-// tap offsets into the level and the taps' weights, 0 for a sample outside
-// [-1, size]. The backward's block fills the table in shared memory; the
-// forward computes the same axes (sample_coord, sample_axis) and weights.
-__device__ __forceinline__ void sample_table(
-    const float* __restrict__ boxes, int roi, int ph, int h, int w,
-    float stride, int out_size, int s, int (*off)[4], float (*wgt)[4]) {
-  const Bins bn = roi_bins(boxes, roi, stride, out_size);
-  const int row_samples = out_size * s;          // x samples of the row
-  const int samples = s * row_samples;
-  for (int k = threadIdx.x; k < samples; k += blockDim.x) {
-    const int iy = k / row_samples;              // sample row within the bin
-    const int px = k - iy * row_samples;         // sample column, all bins
-    const Axis ay = sample_axis(sample_coord(bn.y1, bn.bin_h, ph * s + iy, s),
-                                h);
-    const Axis ax = sample_axis(sample_coord(bn.x1, bn.bin_w, px, s), w);
-    const float okf = (ay.ok && ax.ok) ? 1.0f : 0.0f;
-    off[k][0] = ay.i0 * w + ax.i0;
-    off[k][1] = ay.i0 * w + ax.i1;
-    off[k][2] = ay.i1 * w + ax.i0;
-    off[k][3] = ay.i1 * w + ax.i1;
-    wgt[k][0] = __fmul_rn(__fmul_rn(ay.lo, ax.lo), okf);
-    wgt[k][1] = __fmul_rn(__fmul_rn(ay.lo, ax.hi), okf);
-    wgt[k][2] = __fmul_rn(__fmul_rn(ay.hi, ax.lo), okf);
-    wgt[k][3] = __fmul_rn(__fmul_rn(ay.hi, ax.hi), okf);
+// One sample of an axis: the slots of its two taps among the axis's
+// sorted distinct taps, and their weights times the in-range flag
+// (multiplying by a flag of 1 is exact, by 0 gives +0, so a tap's weight
+// w_y * w_x is the tap form's (w_y * w_x) * flag).
+struct __align__(16) Sample {
+  int s0, s1;
+  float lo, hi;
+};
+
+// A block's sample table in shared memory: both axes' samples, the
+// distinct taps of each axis in order (lists[axis][slot] is the level row
+// or column) and below[axis][32] their count.
+struct Table {
+  Sample samples[2][kMaxAxis / 2];             // x, y
+  int lists[2][kMaxAxis];
+  unsigned int bits[2][kMaxSide / 32];         // tap bitmaps
+  int below[2][kMaxSide / 32 + 1];             // distinct below a word
+};
+
+__device__ __forceinline__ int rank_below(const unsigned int* bits,
+                                          const int* below, int x) {
+  return below[x / 32] + __popc(bits[x / 32] & ((1u << (x % 32)) - 1u));
+}
+
+// Fill `tb` for the n samples of each axis of a ROI's bins (the y axis:
+// the samples of output rows [rb, re) only), all threads of the block:
+// threads [0, n) take the x samples, the next (re - rb) s the y samples;
+// each marks its taps in the axis's bitmap of the level's rows (columns),
+// a warp's scan of the popcounts ranks them, and each sample's taps get
+// their slots. Four barriers; ends on one.
+__device__ __forceinline__ void sample_table(Table& tb, const Bins& bn, int h,
+                                             int w, int n, int rb, int re,
+                                             int s) {
+  const int tid = threadIdx.x;
+  if (tid < 2 * kMaxSide / 32) tb.bits[tid / 32][tid % 32] = 0u;
+  const int axis = tid < n ? 0 : 1;
+  const int i = axis == 0 ? tid : tid - n + rb * s;
+  const bool sampler = tid < n + (re - rb) * s;
+  Axis a;
+  __syncthreads();
+  if (sampler) {
+    a = axis == 0 ? sample_axis(sample_coord(bn.x1, bn.bin_w, i, s), w)
+                  : sample_axis(sample_coord(bn.y1, bn.bin_h, i, s), h);
+    const float okf = a.ok ? 1.0f : 0.0f;
+    tb.samples[axis][i].lo = __fmul_rn(a.lo, okf);
+    tb.samples[axis][i].hi = __fmul_rn(a.hi, okf);
+    atomicOr(&tb.bits[axis][a.i0 / 32], 1u << (a.i0 % 32));
+    atomicOr(&tb.bits[axis][a.i1 / 32], 1u << (a.i1 % 32));
+  }
+  __syncthreads();
+  if (tid < 64) {                              // warp 0: x, warp 1: y
+    const int ax = tid / 32, lane = tid % 32;
+    const int c = __popc(tb.bits[ax][lane]);
+    int incl = c;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    tb.below[ax][lane] = incl - c;
+    if (lane == 31) tb.below[ax][32] = incl;
+  }
+  __syncthreads();
+  // each tap's slot: its rank among the axis's distinct taps
+  if (sampler) {
+    const int r0 = rank_below(tb.bits[axis], tb.below[axis], a.i0);
+    const int r1 = rank_below(tb.bits[axis], tb.below[axis], a.i1);
+    tb.samples[axis][i].s0 = r0;
+    tb.samples[axis][i].s1 = r1;
+    tb.lists[axis][r0] = a.i0;
+    tb.lists[axis][r1] = a.i1;
   }
   __syncthreads();
 }
@@ -225,20 +287,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// One sample of an axis: the slots of its two taps among the axis's
-// sorted distinct taps, and their weights times the in-range flag
-// (multiplying by a flag of 1 is exact, by 0 gives +0: the weights'
-// products are sample_table's bits).
-struct __align__(16) Sample {
-  int s0, s1;
-  float lo, hi;
-};
-
-__device__ __forceinline__ int rank_below(const unsigned int* bits,
-                                          const int* below, int x) {
-  return below[x / 32] + __popc(bits[x / 32] & ((1u << (x % 32)) - 1u));
-}
-
 // One block per (ROI, 128-byte channel slab, part of the output rows);
 // the staged tap grid in dynamic shared memory, grid_cap positions of
 // kChunks 16-byte vectors. Thread t owns vector t % kChunks of the slab
@@ -254,10 +302,7 @@ roi_align_kernel(Levels lv, const float* __restrict__ boxes,
                  int channels, int out_size, int s_arg, int parts,
                  int grid_cap, int* __restrict__ stats) {
   extern __shared__ uint4 grid[];
-  __shared__ Sample samples[2][kMaxAxis / 2];        // x, y
-  __shared__ int lists[2][kMaxAxis];                 // distinct taps
-  __shared__ unsigned int bits[2][kMaxSide / 32];    // tap bitmaps
-  __shared__ int below[2][kMaxSide / 32 + 1];        // distinct below a word
+  __shared__ Table tb;
   __shared__ int row_lo[kMaxAxis / 2], row_hi[kMaxAxis / 2];
   __shared__ int band_end[kMaxAxis / 2], band_lo[kMaxAxis / 2];
   __shared__ int band_rows[kMaxAxis / 2];
@@ -267,7 +312,6 @@ roi_align_kernel(Levels lv, const float* __restrict__ boxes,
   constexpr int kSlab = kSlabBytes / (int)sizeof(T);
   constexpr int kLanes = kThreads / kChunks;
   const int tid = threadIdx.x;
-  if (tid < 2 * kMaxSide / 32) bits[tid / 32][tid % 32] = 0u;
   const int s = kS > 0 ? kS : s_arg;
   const int slabs = (channels + kSlab - 1) / kSlab;
   const int roi = blockIdx.x / (slabs * parts);
@@ -292,52 +336,13 @@ roi_align_kernel(Levels lv, const float* __restrict__ boxes,
     }
   const int n = out_size * s;                  // samples an axis
 
-  // the sample table, once per axis (threads [0, n): the x samples, then
-  // the y samples of this part's rows); its taps marked in the axis's
-  // bitmap
-  const Bins bn = roi_bins(boxes, roi, stride, out_size);
-  const int axis = tid < n ? 0 : 1;
-  const int i = axis == 0 ? tid : tid - n + rb * s;
-  const bool sampler = tid < n + (re - rb) * s;
-  Axis a;
-  __syncthreads();
-  if (sampler) {
-    a = axis == 0 ? sample_axis(sample_coord(bn.x1, bn.bin_w, i, s), w)
-                  : sample_axis(sample_coord(bn.y1, bn.bin_h, i, s), h);
-    const float okf = a.ok ? 1.0f : 0.0f;
-    samples[axis][i].lo = __fmul_rn(a.lo, okf);
-    samples[axis][i].hi = __fmul_rn(a.hi, okf);
-    atomicOr(&bits[axis][a.i0 / 32], 1u << (a.i0 % 32));
-    atomicOr(&bits[axis][a.i1 / 32], 1u << (a.i1 % 32));
-  }
-  __syncthreads();
-  if (tid < 64) {                              // warp 0: x, warp 1: y
-    const int ax = tid / 32, lane = tid % 32;
-    const int c = __popc(bits[ax][lane]);
-    int incl = c;
-#pragma unroll
-    for (int d = 1; d < 32; d *= 2) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += up;
-    }
-    below[ax][lane] = incl - c;
-    if (lane == 31) below[ax][32] = incl;
-  }
-  __syncthreads();
-  // each tap's slot: its rank among the axis's distinct taps
-  if (sampler) {
-    const int r0 = rank_below(bits[axis], below[axis], a.i0);
-    const int r1 = rank_below(bits[axis], below[axis], a.i1);
-    samples[axis][i].s0 = r0;
-    samples[axis][i].s1 = r1;
-    lists[axis][r0] = a.i0;
-    lists[axis][r1] = a.i1;
-  }
-  __syncthreads();
-  const int nx = below[0][32];
-  const int ny = below[1][32];
-  const Sample* xs = samples[0];
-  const Sample* ys = samples[1];
+  // the sample table, once per axis (the y axis: this part's rows)
+  sample_table(tb, roi_bins(boxes, roi, stride, out_size), h, w, n, rb, re,
+               s);
+  const int nx = tb.below[0][32];
+  const int ny = tb.below[1][32];
+  const Sample* xs = tb.samples[0];
+  const Sample* ys = tb.samples[1];
 
   // bands of output rows: the slots are sorted and the samples monotone,
   // so a band's tap rows are the slot range of its samples, at most 2 s
@@ -384,8 +389,8 @@ roi_align_kernel(Levels lv, const float* __restrict__ boxes,
   const int q = tid % kChunks;                 // this thread's vector
   const int lane = tid / kChunks;
   const bool active = q < nvec;
-  const int* xlist = lists[0];
-  const int* ylist = lists[1];
+  const int* xlist = tb.lists[0];
+  const int* ylist = tb.lists[1];
   const float inv = 1.0f / (float)(s * s);
   int r0 = rb, staged = 0, largest = 0;
   for (int band = 0; band < bands; ++band) {
@@ -468,45 +473,164 @@ roi_align_kernel(Levels lv, const float* __restrict__ boxes,
 
 // --------------------------------------------------------------- backward
 
-// The transpose: lv.data[l] is level l's f32 gradient buffer. One block
-// per (ROI, output row); each thread owns two adjacent channels.
-template <typename T>
-__global__ void roi_align_backward_kernel(Levels lv,
-                                          const float* __restrict__ boxes,
-                                          const int* __restrict__ level_ids,
-                                          const T* __restrict__ grad_out,
-                                          int channels, int out_size, int s) {
-  __shared__ int off[kMaxSamples][4];
-  __shared__ float wgt[kMaxSamples][4];
-  const int roi = blockIdx.x / out_size;
-  const int ph = blockIdx.x - roi * out_size;
-  const int lvl = level_ids[roi];
-  float* __restrict__ g = static_cast<float*>(const_cast<void*>(lv.data[lvl]));
-  sample_table(boxes, roi, ph, lv.height[lvl], lv.width[lvl],
-               lv.stride[lvl], out_size, s, off, wgt);
+// One (sample, tap) of an axis as seen from the tap's slot: the output
+// cell (row or column) of the sample and the tap's weight.
+struct Entry {
+  int cell;
+  float w;
+};
 
-  const int row_samples = out_size * s;
-  const float ss = (float)(s * s);
-  const T* row_grad =
-      grad_out + ((long long)roi * out_size + ph) * out_size * channels;
-  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
-    for (int pw = 0; pw < out_size; ++pw) {
-      const float2 go = load2(row_grad + (long long)pw * channels + c);
-      const float g0 = __fdiv_rn(go.x, ss);       // the mean's transpose
-      const float g1 = __fdiv_rn(go.y, ss);
-      for (int iy = 0; iy < s; ++iy) {
-        for (int ix = 0; ix < s; ++ix) {
-          const int k = iy * row_samples + pw * s + ix;
+// The transpose: lv.data[l] is level l's f32 gradient buffer. One block
+// per (ROI, 128-channel slab); thread t owns float4s q = t % kBwdOwners and
+// q + kBwdOwners of the slab (so 16 threads load 256 contiguous bytes) and
+// every kBwdLanes-th grid position from t / kBwdOwners.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+roi_align_backward_kernel(Levels lv, const float* __restrict__ boxes,
+                          const int* __restrict__ level_ids,
+                          const T* __restrict__ grad_out, int channels,
+                          int out_size, int s) {
+  extern __shared__ float4 staged[];           // [S * S][kBwdVecs]
+  __shared__ Table tb;
+  __shared__ int first[2][kMaxAxis + 1];       // per slot: count, then start
+  __shared__ Entry entries[2][kMaxAxis];       // sorted by slot
+  constexpr int kVec = Vec<T>::kN;
+  constexpr int kInVecs = kBwdSlab / kVec;     // grad_out vectors a cell
+  const int tid = threadIdx.x;
+  const int slabs = (channels + kBwdSlab - 1) / kBwdSlab;
+  const int roi = blockIdx.x / slabs;
+  const int c0 = (blockIdx.x - roi * slabs) * kBwdSlab;
+  const int span = min(kBwdSlab, channels - c0);
+  const int lvl = level_ids[roi];
+  float* g = nullptr;
+  int h = 1, w = 1;
+  float stride = 1.0f;
 #pragma unroll
-          for (int tap = 0; tap < 4; ++tap) {
-            const float wt = wgt[k][tap];
-            if (wt == 0.0f) continue;
-            float* dst = g + (long long)off[k][tap] * channels + c;
-            atomicAdd(dst, __fmul_rn(g0, wt));
-            atomicAdd(dst + 1, __fmul_rn(g1, wt));
-          }
+  for (int l = 0; l < kMaxLevels; ++l)
+    if (l == lvl) {
+      g = static_cast<float*>(const_cast<void*>(lv.data[l]));
+      h = lv.height[l];
+      w = lv.width[l];
+      stride = lv.stride[l];
+    }
+  for (int e = tid; e < 2 * (kMaxAxis + 1); e += blockDim.x)
+    (&first[0][0])[e] = 0;
+  // the slab of grad_out, read once with 16-byte loads and divided by s^2
+  // (the mean's transpose) once an element; by a power of two the
+  // division is the multiplication by its exact inverse, the same number
+  const int cells = out_size * out_size;
+  const float ss = (float)(s * s);
+  const bool pow2 = (s & (s - 1)) == 0;
+  const float inv = 1.0f / ss;
+#pragma unroll 4
+  for (int e = tid; e < cells * kInVecs; e += blockDim.x) {
+    const int cell = e / kInVecs;
+    const int v = e - cell * kInVecs;
+    if (v * kVec < span) {
+      float f[kVec];
+      Vec<T>::widen(__ldg(reinterpret_cast<const uint4*>(
+                        grad_out + ((long long)roi * cells + cell) * channels +
+                        c0 + v * kVec)),
+                    f);
+      float* dst = reinterpret_cast<float*>(staged + cell * kBwdVecs) +
+                   v * kVec;
+#pragma unroll
+      for (int q = 0; q < kVec; ++q)
+        dst[q] = pow2 ? __fmul_rn(f[q], inv) : __fdiv_rn(f[q], ss);
+    }
+  }
+  const int n = out_size * s;
+  sample_table(tb, roi_bins(boxes, roi, stride, out_size), h, w, n, 0,
+               out_size, s);
+
+  // each axis's 2 n (sample, tap) entries, sorted by slot: a count per
+  // slot, a warp's exclusive scan of the counts, then each entry's rank
+  // among its slot's entries (in entry order, so the order is fixed)
+  const int per_axis = 2 * n;
+  const bool entry = tid < 2 * per_axis;
+  const int axis = tid < per_axis ? 0 : 1;
+  const int e = tid - axis * per_axis;
+  int slot = 0;
+  if (entry) {
+    const Sample sm = tb.samples[axis][e >> 1];
+    slot = (e & 1) ? sm.s1 : sm.s0;
+    atomicAdd(&first[axis][slot], 1);
+  }
+  __syncthreads();
+  if (tid < 64) {                              // warp 0: x, warp 1: y
+    const int ax = tid / 32, lane = tid % 32;
+    constexpr int kPer = kMaxAxis / 32;
+    int v[kPer], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      v[j] = first[ax][kPer * lane + j];
+      sum += v[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    int start = incl - sum;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      first[ax][kPer * lane + j] = start;
+      start += v[j];
+    }
+    if (lane == 31) first[ax][kMaxAxis] = incl;
+  }
+  __syncthreads();
+  if (entry) {
+    int before = 0;
+    for (int f = 0; f < e; ++f) {
+      const Sample o = tb.samples[axis][f >> 1];
+      before += ((f & 1) ? o.s1 : o.s0) == slot;
+    }
+    const Sample sm = tb.samples[axis][e >> 1];
+    entries[axis][first[axis][slot] + before] =
+        Entry{(e >> 1) / s, (e & 1) ? sm.hi : sm.lo};
+  }
+  __syncthreads();
+
+  // position (Y, X) of the grid takes the taps of Y's y-entries times X's
+  // x-entries, each (grad / s^2) * (w_y * w_x), summed in registers; a
+  // position touched with a nonzero weight is flushed once
+  const int q = tid % kBwdOwners;
+  if (4 * q >= span) return;                  // no barrier follows
+  const bool second = 4 * (q + kBwdOwners) < span;
+  const int nx = tb.below[0][32];
+  const int ny = tb.below[1][32];
+  for (int p = tid / kBwdOwners; p < nx * ny; p += kBwdLanes) {
+    const int py = p / nx;
+    const int px = p - py * nx;
+    float4 acc[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                     make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+    bool touched = false;
+    for (int a = first[1][py]; a < first[1][py + 1]; ++a) {
+      const Entry ey = entries[1][a];
+      const float4* row = staged + ey.cell * out_size * kBwdVecs + q;
+      for (int b = first[0][px]; b < first[0][px + 1]; ++b) {
+        const Entry ex = entries[0][b];
+        const float wt = __fmul_rn(ey.w, ex.w);
+        if (wt == 0.0f) continue;
+        touched = true;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float4 gv = row[ex.cell * kBwdVecs + h2 * kBwdOwners];
+          acc[h2].x = __fadd_rn(acc[h2].x, __fmul_rn(gv.x, wt));
+          acc[h2].y = __fadd_rn(acc[h2].y, __fmul_rn(gv.y, wt));
+          acc[h2].z = __fadd_rn(acc[h2].z, __fmul_rn(gv.z, wt));
+          acc[h2].w = __fadd_rn(acc[h2].w, __fmul_rn(gv.w, wt));
         }
       }
+    }
+    if (touched) {
+      float4* dst = reinterpret_cast<float4*>(
+          g + ((long long)tb.lists[1][py] * w + tb.lists[0][px]) * channels +
+          c0) + q;
+      atomicAdd(dst, acc[0]);
+      if (second) atomicAdd(dst + kBwdOwners, acc[1]);
     }
   }
 }
@@ -523,17 +647,18 @@ Levels make_levels(const void* const* data, const int* heights,
   return lv;
 }
 
-bool bad_geometry(int num_levels, int channels, int out_size,
-                  int sampling_ratio) {
-  return num_levels < 1 || num_levels > kMaxLevels || channels % 2 != 0 ||
-         out_size < 1 || sampling_ratio < 1 ||
-         out_size * sampling_ratio * sampling_ratio > kMaxSamples;
-}
-
-int threads_for(int channels) {
-  int threads = channels / 2;
-  if (threads > 256) threads = 256;
-  return ((threads + 31) / 32) * 32;
+// what both kernels take: up to kMaxLevels levels of sides <= kMaxSide,
+// 16-byte vectors of channels, at most kMaxAxis / 2 samples an axis
+bool bad_geometry(int num_levels, const int* heights, const int* widths,
+                  int channels, int out_size, int sampling_ratio) {
+  if (num_levels < 1 || num_levels > kMaxLevels || channels % 8 != 0 ||
+      out_size < 1 || sampling_ratio < 1 ||
+      out_size * sampling_ratio * sampling_ratio > kMaxSamples ||
+      2 * out_size * sampling_ratio > kMaxAxis)
+    return true;
+  for (int l = 0; l < num_levels; ++l)
+    if (heights[l] > kMaxSide || widths[l] > kMaxSide) return true;
+  return false;
 }
 
 template <typename T>
@@ -587,6 +712,28 @@ int launch_forward(const Levels& lv, const float* boxes, const int* level_ids,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_backward(const Levels& lv, const float* boxes,
+                    const int* level_ids, const T* grad_out, int num_rois,
+                    int channels, int out_size, int s, cudaStream_t stream) {
+  // the staged slab of grad_out: S^2 x 256 bytes; opt in above the
+  // default, once for each size (before any graph capture)
+  const int bytes = out_size * out_size * kBwdSlab * (int)sizeof(float);
+  static int allowed = 0;
+  if (bytes > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)roi_align_backward_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed = bytes;
+  }
+  const unsigned int blocks =
+      (unsigned int)num_rois * ((channels + kBwdSlab - 1) / kBwdSlab);
+  roi_align_backward_kernel<T><<<blocks, kBwdThreads, bytes, stream>>>(
+      lv, boxes, level_ids, grad_out, channels, out_size, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // levels, heights, widths, strides: host arrays of num_levels entries;
@@ -600,12 +747,9 @@ extern "C" int roi_align_launch(const void* const* levels, const int* heights,
                                 int num_rois, int channels, int out_size,
                                 int sampling_ratio, int is_bf16,
                                 void* stats, void* stream) {
-  if (bad_geometry(num_levels, channels, out_size, sampling_ratio) ||
-      channels % 8 != 0 || 2 * out_size * sampling_ratio > kMaxAxis)
+  if (bad_geometry(num_levels, heights, widths, channels, out_size,
+                   sampling_ratio))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < num_levels; ++l)
-    if (heights[l] > kMaxSide || widths[l] > kMaxSide)
-      return (int)cudaErrorInvalidValue;
   if (num_rois == 0 || channels == 0) return 0;
   const Levels lv = make_levels(levels, heights, widths, strides, num_levels);
   cudaStream_t s = (cudaStream_t)stream;
@@ -620,26 +764,26 @@ extern "C" int roi_align_launch(const void* const* levels, const int* heights,
 }
 
 // grads, heights, widths, strides: host arrays of num_levels entries; each
-// grads[l] is a zeroed f32 [H_l, W_l, C] device buffer.
+// grads[l] is a zeroed f32 [H_l, W_l, C] device buffer, 16-byte aligned.
 extern "C" int roi_align_backward_launch(
     void* const* grads, const int* heights, const int* widths,
     const int* strides, int num_levels, const void* boxes,
     const void* level_ids, const void* grad_out, int num_rois, int channels,
     int out_size, int sampling_ratio, int is_bf16, void* stream) {
-  if (bad_geometry(num_levels, channels, out_size, sampling_ratio))
+  if (bad_geometry(num_levels, heights, widths, channels, out_size,
+                   sampling_ratio) ||
+      out_size * out_size * kBwdSlab * (int)sizeof(float) > kMaxGradBytes)
     return (int)cudaErrorInvalidValue;
   if (num_rois == 0 || channels == 0) return 0;
   const Levels lv = make_levels(grads, heights, widths, strides, num_levels);
-  const int threads = threads_for(channels);
-  const unsigned int blocks = (unsigned int)num_rois * out_size;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    roi_align_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
+    return launch_backward<__nv_bfloat16>(
         lv, (const float*)boxes, (const int*)level_ids,
-        (const __nv_bfloat16*)grad_out, channels, out_size, sampling_ratio);
-  else
-    roi_align_backward_kernel<float><<<blocks, threads, 0, st>>>(
-        lv, (const float*)boxes, (const int*)level_ids,
-        (const float*)grad_out, channels, out_size, sampling_ratio);
-  return (int)cudaGetLastError();
+        (const __nv_bfloat16*)grad_out, num_rois, channels, out_size,
+        sampling_ratio, st);
+  return launch_backward<float>(lv, (const float*)boxes,
+                                (const int*)level_ids,
+                                (const float*)grad_out, num_rois, channels,
+                                out_size, sampling_ratio, st);
 }

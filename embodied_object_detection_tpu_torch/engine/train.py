@@ -24,6 +24,7 @@ import torch
 
 from ..config import DetectorConfig
 from ..models.detector import EmbodiedDetector
+from ..ops.memory_ops import check_proj_indices
 from ..parallel.train_step import (TrainBatch, TrainState, batch_to_device,
                                    make_train_step)
 from .checkpoint import (PeriodicCheckpointer, latest_checkpoint,
@@ -143,7 +144,8 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
     """Train `model` in place on its device for `max_iter` (default
     `solver.max_iter`) iterations. `batch_fn(it, rng, dp) -> TrainBatch`
     of numpy arrays replaces sampling chunks from `dataset` (which may
-    then be None). Each metrics line holds the window's median losses,
+    then be None); either way a batch holding a cell id outside [0,
+    memory.max_cells) raises. Each metrics line holds the window's median losses,
     the learning rate, and the mean seconds a step spent waiting for its
     batch (`data_time`) and in the step up to its host read (`time`).
     Returns the final TrainState."""
@@ -180,6 +182,8 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
             batch = chunks_to_train_batch(
                 [dataset[int(i)] for i in idx], cfg, frames_per_chunk, r,
                 pad_to_multiple=dp, pad_to_total=pad_total_frames)
+        # the batched memory read's contract, for batches of either source
+        check_proj_indices(batch.proj_indices, cfg.memory.max_cells)
         return batch_to_device(batch, "cpu", pin=pin)
 
     window: List[Dict[str, float]] = []

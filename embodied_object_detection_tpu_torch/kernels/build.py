@@ -55,13 +55,16 @@ ENTRY_POINTS = {
                   (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                    _P)),
     # (masks, boxes, out, n, m, height, width, x_stride, threshold,
-    #  pixel_major, stream)
+    #  pixel_major, valid, observed, tile counts (the last three null, or
+    #  the exact write's flags), stream)
     "mask_paste": ("mask_paste_launch",
-                   (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
-    # (masks, valid, proj, observed scratch, row_count scratch, seg_idx,
-    #  aug, height, width, n, subsample, stream)
+                   (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P)),
+    # (masks, valid, proj, observed, counts, seg_idx, aug, height, width,
+    #  n, subsample, count_cols, flags_given (else observed and counts are
+    #  scratch for the first pass), stream)
     "write_select": ("write_select_launch",
-                     (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                     (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P)),
     # (host arrays: f32 level gradients, heights, widths, strides;
     #  num_levels, boxes, level_ids, grad_out, num_rois, channels,
     #  out_size, sampling_ratio, is_bf16, stream)

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..config import DetectorConfig, check_slice_config
-from ..ops.mask_paste import paste_masks
+from ..ops.mask_paste import paste_masks, paste_masks_observed
 from ..ops.memory_ops import (MemoryWriteResult, check_proj_indices,
                               memory_read, memory_write, obs_visibility_host)
 from ..ops.nms import multiclass_nms, sort_desc
@@ -275,13 +275,15 @@ class EmbodiedDetector(nn.Module):
                                                               wboxes))
         s = cfg.memory.pixel_subsample
         if cfg.memory.exact_write_subsample:
-            masks = paste_masks(mask_probs, wboxes, h, w,
-                                cfg.memory.mask_thresh, pixel_major=True)
+            # the paste also writes the write's observed flags and counts
+            masks, observed, counts = paste_masks_observed(
+                mask_probs, wboxes, wvalid, h, w, cfg.memory.mask_thresh)
             write = memory_write(wfeats, masks, wvalid, proj_indices,
                                  num_cells=cfg.memory.max_cells,
                                  subsample=s, exact_subsample=True,
                                  obs_visibility=obs_visibility,
-                                 pixel_major=True)
+                                 pixel_major=True, observed=observed,
+                                 row_counts=counts)
         else:
             masks = paste_masks(mask_probs, wboxes, h, w,
                                 cfg.memory.mask_thresh, x_stride=s)

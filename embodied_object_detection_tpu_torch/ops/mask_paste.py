@@ -12,14 +12,20 @@ On a CUDA tensor `paste_masks` launches `csrc/mask_paste.cu`, a direct
 2 x 2-tap evaluation per output element with the same hat weights; on a
 CPU tensor it takes the plain version, the two batched products. The two
 sum the four taps in another order, so a value within f32 rounding of the
-threshold may land on the other side of it.
+threshold may land on the other side of it. `paste_masks_observed` is the
+exact memory write's form: the same paste, pixel-major, with the write's
+observed flags and per-row counts written by the same kernel.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..kernels import build
+
+TILE_COLS = 32        # the paste kernel's tile width: one count a tile row
 
 
 def _hat_weights(src: torch.Tensor, m: int) -> torch.Tensor:
@@ -54,16 +60,11 @@ def paste_masks_plain(masks: torch.Tensor, boxes: torch.Tensor, height: int,
     return out.permute(1, 2, 0).contiguous() if pixel_major else out
 
 
-def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
-                width: int, threshold: float = 0.5, x_stride: int = 1,
-                pixel_major: bool = False) -> torch.Tensor:
-    """masks [N, M, M] probabilities, boxes [N, 4] xyxy ->
-    [N, H, W//x_stride] (or [H, W//x_stride, N] with pixel_major);
-    booleans `>= threshold` when threshold >= 0, else the f32 values.
-    The kernel on the card, the plain version on a CPU tensor."""
-    if not build.on_card(masks):
-        return paste_masks_plain(masks, boxes, height, width, threshold,
-                                 x_stride, pixel_major)
+def _paste_launch(masks, boxes, height, width, threshold, x_stride,
+                  pixel_major, valid=None):
+    """Check the inputs of the paste kernel and launch it; with `valid`
+    also its observed-flag epilogue. Returns (out, observed, counts), the
+    last two None without `valid`."""
     masks = masks.float().contiguous()
     n, m, m2 = masks.shape
     if m != m2 or boxes.dtype != torch.float32 or boxes.shape != (n, 4) \
@@ -75,19 +76,77 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
     if x_stride < 1 or height < 0 or width < 0:
         raise ValueError(f"paste_masks: x_stride must be >= 1 and the image "
                          f"size >= 0, got {x_stride}, {height}x{width}")
+    if valid is not None and (valid.dtype != torch.bool or
+                              valid.shape != (n,) or
+                              not valid.is_contiguous() or
+                              valid.device != masks.device):
+        raise ValueError(f"paste_masks_observed: valid must be contiguous "
+                         f"bool [{n}] on {masks.device}, got {valid.dtype} "
+                         f"{tuple(valid.shape)} on {valid.device}")
     launch = build.load("mask_paste")
     out_w = -(-width // x_stride)
     shape = (height, out_w, n) if pixel_major else (n, height, out_w)
     out = torch.empty(shape, dtype=torch.bool if threshold >= 0
                       else torch.float32, device=masks.device)
+    observed = counts = None
+    if valid is not None:
+        # every flag and count is written by the kernel; with no masks
+        # there is nothing to launch and nothing observed
+        make = torch.zeros if n == 0 else torch.empty
+        observed = make((height, out_w), dtype=torch.bool,
+                        device=masks.device)
+        counts = make((height, -(-out_w // TILE_COLS)), dtype=torch.int32,
+                      device=masks.device)
     if out.numel() == 0:
-        return out
+        return out, observed, counts
     build.check_launch(
         launch(masks.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, m,
                height, width, x_stride, float(threshold), int(pixel_major),
+               0 if valid is None else valid.data_ptr(),
+               0 if valid is None else observed.data_ptr(),
+               0 if valid is None else counts.data_ptr(),
                build.stream_handle()), "mask_paste")
     paste_masks.launches += 1
-    return out
+    return out, observed, counts
+
+
+def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
+                width: int, threshold: float = 0.5, x_stride: int = 1,
+                pixel_major: bool = False) -> torch.Tensor:
+    """masks [N, M, M] probabilities, boxes [N, 4] xyxy ->
+    [N, H, W//x_stride] (or [H, W//x_stride, N] with pixel_major);
+    booleans `>= threshold` when threshold >= 0, else the f32 values.
+    The kernel on the card, the plain version on a CPU tensor."""
+    if not build.on_card(masks):
+        return paste_masks_plain(masks, boxes, height, width, threshold,
+                                 x_stride, pixel_major)
+    return _paste_launch(masks, boxes, height, width, threshold, x_stride,
+                         pixel_major)[0]
 
 
 paste_masks.launches = 0
+
+
+def paste_masks_observed(masks: torch.Tensor, boxes: torch.Tensor,
+                         valid: torch.Tensor, height: int, width: int,
+                         threshold: float = 0.5
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The exact memory write's paste: `paste_masks(..., pixel_major=True)`
+    and the write's observed flags in one pass. masks [N, M, M], boxes
+    [N, 4], valid [N] bool -> (masks [H, W, N] bool, observed [H, W] bool
+    = any_n(masks & valid), counts [H, K] int32, row y summing to row y's
+    observed pixels). On the card the paste kernel writes the flags and
+    one count per (row, 32-column tile), K = ceil(W / 32), as it stores
+    the masks (counted as one `paste_masks` launch); on a CPU tensor the
+    plain paste, its flags and K = 1."""
+    if threshold < 0:
+        raise ValueError(f"paste_masks_observed: the flags need boolean "
+                         f"masks (threshold >= 0), got {threshold}")
+    if not build.on_card(masks):
+        out = paste_masks_plain(masks, boxes, height, width, threshold,
+                                pixel_major=True)
+        observed = (out & valid).any(dim=-1)
+        return out, observed, observed.sum(dim=1, keepdim=True,
+                                           dtype=torch.int32)
+    return _paste_launch(masks, boxes, height, width, threshold, 1, True,
+                         valid)

@@ -176,21 +176,28 @@ def pyramid_pool(ego: torch.Tensor, num_levels: int
 
 
 def write_select_plain(masks_pm: torch.Tensor, det_valid: torch.Tensor,
-                       proj_indices: torch.Tensor, subsample: int
+                       proj_indices: torch.Tensor, subsample: int,
+                       observed: Optional[torch.Tensor] = None,
+                       row_counts: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the exact write's selection: a per-row
     inclusive cumsum of the observed flags, the row starts as an exclusive
     cumsum of the row counts, every `subsample`-th pixel of the row-major
-    compacted observed set found by `searchsorted`, and its mask row."""
+    compacted observed set found by `searchsorted`, and its mask row.
+    `observed` [H, W] and `row_counts` [H, K] (each row summing to the
+    row's observed pixels) are taken as given when passed, as the kernel
+    takes the mask paste's."""
     h, w, n = masks_pm.shape
     device = masks_pm.device
     masks_pm = masks_pm & det_valid[None, None, :]              # [H, W, N]
     s = subsample
     j_cap = -(-w // s)                                          # slots per row
-    observed = masks_pm.any(dim=-1)                             # [H, W]
+    if observed is None:
+        observed = masks_pm.any(dim=-1)                         # [H, W]
     incl = torch.cumsum(observed.long(), dim=1)                 # [H, W]
     row_count = incl[:, -1]
-    row_start = torch.cumsum(row_count, dim=0) - row_count      # exclusive
+    counted = row_count if row_counts is None else row_counts.long().sum(1)
+    row_start = torch.cumsum(counted, dim=0) - counted          # exclusive
     t0 = torch.remainder(-row_start, s)         # first selected local rank
     targets = t0[:, None] + s * torch.arange(j_cap, device=device)[None]
     slot_valid = targets < row_count[:, None]                   # [H, J]
@@ -209,19 +216,27 @@ def write_select_plain(masks_pm: torch.Tensor, det_valid: torch.Tensor,
 
 
 def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
-                 proj_indices: torch.Tensor, subsample: int
+                 proj_indices: torch.Tensor, subsample: int,
+                 observed: Optional[torch.Tensor] = None,
+                 row_counts: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The exact write's pixel selection: masks_pm [H, W, N] bool
     (pixel-major), det_valid [N] bool, proj_indices [H, W] int32 ->
     (seg_idx [H * J] int32, -1 for an empty slot; aug [H * J, N + 1] f32,
     each selected pixel's mask weights 1/c over its c covering valid masks
     and a count of 1 on lane N), J = ceil(W / subsample) slots a row.
-    The rows feed the segment-sum as they are. The row-scan kernel on the
-    card (`csrc/write_select.cu`), the plain version on a CPU tensor;
+    The rows feed the segment-sum as they are. `observed` [H, W] bool and
+    `row_counts` [H, K] int32, the flags and counts `paste_masks_observed`
+    wrote with the masks, spare the kernel its first pass, which reads
+    every mask byte to find them. The row-scan kernel on the card
+    (`csrc/write_select.cu`), the plain version on a CPU tensor;
     bit-exact to each other."""
+    if (observed is None) != (row_counts is None):
+        raise ValueError("write_select: pass observed and row_counts "
+                         "together, or neither")
     if not build.on_card(masks_pm):
         return write_select_plain(masks_pm, det_valid, proj_indices,
-                                  subsample)
+                                  subsample, observed, row_counts)
     h, w, n = masks_pm.shape
     if masks_pm.dtype != torch.bool or not masks_pm.is_contiguous():
         raise ValueError(f"write_select: masks must be contiguous bool "
@@ -237,8 +252,20 @@ def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
         raise ValueError(f"write_select: proj_indices must be contiguous "
                          f"int32 [{h}, {w}], got {proj_indices.dtype} "
                          f"{tuple(proj_indices.shape)}")
-    if det_valid.device != masks_pm.device or \
-            proj_indices.device != masks_pm.device:
+    if observed is not None and (
+            observed.dtype != torch.bool or observed.shape != (h, w) or
+            not observed.is_contiguous() or
+            row_counts.dtype != torch.int32 or row_counts.dim() != 2 or
+            row_counts.shape[0] != h or row_counts.shape[1] < 1 or
+            not row_counts.is_contiguous()):
+        raise ValueError(f"write_select: observed must be contiguous bool "
+                         f"[{h}, {w}] and row_counts contiguous int32 "
+                         f"[{h}, K], got {observed.dtype} "
+                         f"{tuple(observed.shape)} and {row_counts.dtype} "
+                         f"{tuple(row_counts.shape)}")
+    inputs = [det_valid, proj_indices] + \
+        ([] if observed is None else [observed, row_counts])
+    if any(t.device != masks_pm.device for t in inputs):
         raise ValueError("write_select: inputs lie on different devices")
     if subsample < 1:
         raise ValueError(f"write_select: subsample must be >= 1, got "
@@ -250,13 +277,16 @@ def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
     aug = torch.empty((h * j_cap, n + 1), dtype=torch.float32, device=device)
     if h * w == 0:
         return seg_idx, aug
-    observed = torch.empty((h, w), dtype=torch.uint8, device=device)
-    row_count = torch.empty((h,), dtype=torch.int32, device=device)
+    given = observed is not None
+    if not given:       # scratch for the first pass
+        observed = torch.empty((h, w), dtype=torch.bool, device=device)
+        row_counts = torch.empty((h, 1), dtype=torch.int32, device=device)
     build.check_launch(
         launch(masks_pm.data_ptr(), det_valid.data_ptr(),
                proj_indices.data_ptr(), observed.data_ptr(),
-               row_count.data_ptr(), seg_idx.data_ptr(), aug.data_ptr(), h,
-               w, n, subsample, build.stream_handle()), "write_select")
+               row_counts.data_ptr(), seg_idx.data_ptr(), aug.data_ptr(), h,
+               w, n, subsample, row_counts.shape[1], int(given),
+               build.stream_handle()), "write_select")
     write_select.launches += 1
     return seg_idx, aug
 
@@ -276,7 +306,10 @@ def memory_write(det_features: torch.Tensor, det_masks: torch.Tensor,
                  exact_subsample: bool = True,
                  obs_proj_indices: Optional[torch.Tensor] = None,
                  obs_visibility: Optional[torch.Tensor] = None,
-                 pixel_major: bool = False) -> MemoryWriteResult:
+                 pixel_major: bool = False,
+                 observed: Optional[torch.Tensor] = None,
+                 row_counts: Optional[torch.Tensor] = None
+                 ) -> MemoryWriteResult:
     """Scatter detection features into map cells.
 
     det_features [N, D] (50 * l2-normalised CLIP features), det_masks
@@ -292,7 +325,9 @@ def memory_write(det_features: torch.Tensor, det_masks: torch.Tensor,
     segment-sum; the [cells, N] x [N, D] product follows in f32.
     `obs_update` is 1 for every cell id in the frame: the host-computed
     `obs_visibility` when given, else a device scatter over
-    `obs_proj_indices` (default `proj_indices`).
+    `obs_proj_indices` (default `proj_indices`). On the exact path,
+    `observed` and `row_counts` from `paste_masks_observed` go to
+    `write_select` as they are.
     """
     if pixel_major:
         h, w, n = det_masks.shape
@@ -302,10 +337,12 @@ def memory_write(det_features: torch.Tensor, det_masks: torch.Tensor,
 
     if exact_subsample:
         masks_pm = det_masks if pixel_major else det_masks.permute(1, 2, 0)
+        flags = {} if observed is None else dict(observed=observed,
+                                                 row_counts=row_counts)
         seg_idx, aug = write_select(masks_pm.contiguous(),
                                     det_valid.contiguous(),
                                     proj_indices.to(torch.int32).contiguous(),
-                                    subsample)
+                                    subsample, **flags)
     else:
         masks = det_masks.permute(2, 0, 1) if pixel_major else det_masks
         masks_f = (masks & det_valid[:, None, None]).reshape(n, h * w).float()

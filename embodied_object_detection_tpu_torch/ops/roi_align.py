@@ -15,9 +15,10 @@ type, each ROI's tap grid staged in shared memory. The JAX default
 intermediate in a bf16 config (ARCHITECTURE.md
 divergence 3b), so on the card `impl` has no effect. Under autograd the
 card's call is `RoiAlignFunction`, whose backward launches the second
-kernel of `csrc/roi_align.cu`: the tap form's transpose, f32 atomics into
-one f32 buffer a level, cast once to the levels' type. Boxes take no
-gradient (the JAX package stops it). On a CPU tensor `impl` picks the
+kernel of `csrc/roi_align.cu`: the tap form's transpose over the same
+staged tap grid, each distinct position's sum added once with float4
+atomics into one f32 buffer a level, cast once to the levels' type. Boxes
+take no gradient (the JAX package stops it). On a CPU tensor `impl` picks the
 plain form, differentiated by torch autograd:
 
   impl="v4"  separable hat-weight matmuls (the JAX default): per level,
@@ -255,16 +256,20 @@ def roi_align_backward_cuda(grad_out: torch.Tensor, shapes,
                             dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
     """The tap form's transpose on the card (`csrc/roi_align.cu`):
     grad_out [R, S, S, C] bf16 or f32 -> the gradient of each [H_l, W_l,
-    C] level of `shapes`, accumulated in f32 with atomics and cast once to
-    `dtype`."""
+    C] level of `shapes`, accumulated in f32 and cast once to `dtype`.
+    Each block sums a ROI's contributions to each distinct position of its
+    tap grid in registers, then adds them to the level with one float4
+    atomic per position and 4 channels."""
     r, size, _, c = grad_out.shape
-    if grad_out.dtype not in (torch.bfloat16, torch.float32) or c % 2 or \
+    if grad_out.dtype not in (torch.bfloat16, torch.float32) or c % 8 or \
             grad_out.shape != (r, size, size, c) or \
-            not grad_out.is_contiguous() or len(shapes) > 4:
+            not grad_out.is_contiguous() or len(shapes) > 4 or \
+            any(max(hw) > 1024 for hw in shapes):
         raise ValueError(f"roi_align_backward: grad_out must be contiguous "
-                         f"bf16 or f32 [R, S, S, C] with an even C over up to "
-                         f"4 levels, got {grad_out.dtype} "
-                         f"{tuple(grad_out.shape)} over {len(shapes)}")
+                         f"bf16 or f32 [R, S, S, C] with C % 8 == 0 over up "
+                         f"to 4 levels of sides <= 1024, got "
+                         f"{grad_out.dtype} {tuple(grad_out.shape)} over "
+                         f"{[tuple(hw) for hw in shapes]}")
     if boxes.dtype != torch.float32 or boxes.shape != (r, 4) or \
             not boxes.is_contiguous() or boxes.device != grad_out.device:
         raise ValueError(f"roi_align_backward: boxes must be contiguous "
@@ -276,11 +281,16 @@ def roi_align_backward_cuda(grad_out: torch.Tensor, shapes,
         raise ValueError(f"roi_align_backward: level ids must be contiguous "
                          f"int32 [{r}], got {lvl_of_roi.dtype} "
                          f"{tuple(lvl_of_roi.shape)}")
-    if size * sampling_ratio ** 2 > 256:
+    if size * sampling_ratio ** 2 > 256 or size * sampling_ratio > 64 or \
+            size > 20:
         raise ValueError(f"roi_align_backward: output_size * "
-                         f"sampling_ratio^2 must be <= 256, got {size} and "
-                         f"{sampling_ratio}")
+                         f"sampling_ratio^2 must be <= 256, output_size * "
+                         f"sampling_ratio <= 64 and output_size <= 20 (its "
+                         f"gradient slab is staged in shared memory), got "
+                         f"{size} and {sampling_ratio}")
     launch = build.load("roi_align_backward")
+    if grad_out.data_ptr() % 16:
+        grad_out = grad_out.clone()     # the kernel reads 16-byte vectors
     grads = [torch.zeros((h, w, c), dtype=torch.float32,
                          device=grad_out.device) for h, w in shapes]
     if r:

@@ -171,81 +171,171 @@ def test_write_select_kernel_vs_plain(subsample):
     assert int((seg >= 0).sum()) > 1000
 
 
-def _contributions(levels, boxes, lvl, grad, strides, size):
-    """(count [P], abs_sum [P, C]) over the flattened levels' positions:
-    how many nonzero tap contributions land on each, and the sum of their
-    magnitudes, from the plain tap form on the CPU."""
-    rows, wgt = roi_align.roi_align_taps([f.shape[:2] for f in levels], boxes,
-                                         strides, size, 2, lvl)
-    sizes = [f.shape[0] * f.shape[1] for f in levels]
-    count = torch.zeros(sum(sizes)).index_add_(
-        0, rows.reshape(-1), (wgt.reshape(-1) != 0).float())
-    leaves = [f.detach().float().cpu().requires_grad_(True) for f in levels]
-    out = roi_align._roi_align_taps(leaves, boxes, strides, size, 2, lvl)
-    abs_sum = torch.autograd.grad(out, leaves, grad.abs().float().cpu())
-    return count, torch.cat([a.reshape(-1, a.shape[-1]) for a in abs_sum])
-
-
 def _flat(grads):
     return torch.cat([g.float().cpu().reshape(-1, g.shape[-1])
                       for g in grads])
 
 
-@pytest.mark.parametrize("r", [512, 64])
-def test_roi_align_backward_kernel_vs_plain(r):
-    """Kernel 4b against torch autograd of the plain v1 on the CPU, in
-    f32, within contributions x 2^-24 x sum|contribution| per element
-    (f32 atomics sum in any order). In bf16 against the same f32 autograd
-    of the bf16-rounded gradient: the kernel accumulates in f32 and casts
-    once, so within 2^-8 |ref| + (1 + 2^-8) contributions x 2^-24 x
-    sum|contribution|; and against the card's plain v1 autograd, which
-    rounds each contribution and each partial sum to bf16: within
-    (contributions + 1) x 2^-8 x sum|contribution|."""
-    _need_card()
-    rng = np.random.RandomState(23)
-    strides = (8, 16, 32)
-    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
-              for h, w in ((60, 80), (30, 40), (15, 20))]
-    side = np.exp(rng.uniform(np.log(16), np.log(900), r))
-    cx, cy = rng.uniform(-40, 680, r), rng.uniform(-40, 520, r)
-    boxes = torch.from_numpy(np.stack(
-        [cx - side / 2, cy - side / 2, cx + side / 2, cy + side / 2],
-        1).astype(np.float32))
-    lvl = (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
-    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32))
-    shapes = [f.shape[:2] for f in levels]
-    count, abs_sum = _contributions(levels, boxes, lvl, grad, strides, 7)
+def _exact_contributions(levels, boxes, lvl, grad, strides, size):
+    """(count [P], exact [P, C], magnitude [P, C]) over the flattened
+    levels' positions: the nonzero tap contributions (grad / s^2) * w of
+    the plain tap form on the CPU, each the f32 product the kernel forms,
+    their sum and the sum of their magnitudes taken exactly (f64)."""
+    rows, wgt = roi_align.roi_align_taps([f.shape[:2] for f in levels],
+                                         boxes, strides, size, 2, lvl)
+    total = sum(f.shape[0] * f.shape[1] for f in levels)
+    c = grad.shape[-1]
+    g = grad.float().cpu() / 4.0
+    count = torch.zeros(total).index_add_(0, rows.reshape(-1),
+                                          (wgt.reshape(-1) != 0).float())
+    exact = torch.zeros((total, c), dtype=torch.float64)
+    mag = torch.zeros((total, c), dtype=torch.float64)
+    for i in range(0, boxes.shape[0], 32):
+        prod = (g[i:i + 32, :, None, :, None, None, :] *
+                wgt[i:i + 32, ..., None]).reshape(-1, c).double()
+        exact.index_add_(0, rows[i:i + 32].reshape(-1), prod)
+        mag.index_add_(0, rows[i:i + 32].reshape(-1), prod.abs())
+    return count, exact, mag
 
-    got = roi_align.roi_align_backward_cuda(
+
+def _check_backward(levels, boxes, grad, strict_plain):
+    """Kernel 4b in f32 within contributions x 2^-24 x sum|contribution|
+    per element of the exact sum of the plain tap form's f32
+    contributions: summed in any order in f32, n contributions stay within
+    (n - 1) 2^-24 sum|c| of it. With `strict_plain` also of torch
+    autograd of the plain v1 on the CPU, itself an f32 sum in another
+    order (two such orders may differ by up to twice the exact sum's
+    bound, which the ROIs of the edge cases reach). In bf16 within 2^-8
+    |ref| + (1 + 2^-8) contributions x 2^-24 x sum|contribution| of the
+    exact sum of the bf16-rounded gradient's contributions (the kernel
+    sums in f32 and rounds once); and against the card's plain v1
+    autograd, which rounds each contribution and each partial sum to
+    bf16: within (contributions + 1) x 2^-8 x sum|contribution|."""
+    strides = (8, 16, 32)
+    lvl = (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
+    shapes = [f.shape[:2] for f in levels]
+    count, exact, mag = _exact_contributions(levels, boxes, lvl, grad,
+                                             strides, 7)
+    bound = count[:, None].double() * 2.0 ** -24 * mag
+
+    got = _flat(roi_align.roi_align_backward_cuda(
         grad.cuda(), shapes, boxes.cuda(), lvl.cuda(), strides, 2,
-        torch.float32)
-    leaves = [f.clone().requires_grad_(True) for f in levels]
-    want = torch.autograd.grad(
-        roi_align._roi_align_taps(leaves, boxes, strides, 7, 2, lvl),
-        leaves, grad)
-    bound = count[:, None] * 2.0 ** -24 * abs_sum
-    assert bool(((_flat(got) - _flat(want)).abs() <= bound).all())
+        torch.float32))
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    if strict_plain:
+        leaves = [f.clone().requires_grad_(True) for f in levels]
+        want = _flat(torch.autograd.grad(
+            roi_align._roi_align_taps(leaves, boxes, strides, 7, 2, lvl),
+            leaves, grad))
+        assert bool(((got - want).abs().double() <= bound).all())
 
     # bf16, the training path's types
     dev16 = [f.cuda().to(torch.bfloat16).requires_grad_(True)
              for f in levels]
     g16 = grad.cuda().to(torch.bfloat16)
-    got16 = roi_align.roi_align_backward_cuda(
-        g16, shapes, boxes.cuda(), lvl.cuda(), strides, 2, torch.bfloat16)
+    got16 = _flat(roi_align.roi_align_backward_cuda(
+        g16, shapes, boxes.cuda(), lvl.cuda(), strides, 2,
+        torch.bfloat16)).double()
     out = roi_align._roi_align_taps(dev16, boxes.cuda(), strides, 7, 2,
                                     lvl.cuda())
-    want16 = torch.autograd.grad(out, dev16, g16.float())
+    want16 = _flat(torch.autograd.grad(out, dev16, g16.float())).double()
     torch.cuda.synchronize()
-    _, abs16 = _contributions(dev16, boxes, lvl, g16, strides, 7)
-    leaves = [f.clone().requires_grad_(True) for f in levels]
-    ref16 = _flat(torch.autograd.grad(
-        roi_align._roi_align_taps(leaves, boxes, strides, 7, 2, lvl),
-        leaves, g16.float().cpu()))
-    tight = 2.0 ** -8 * ref16.abs() + \
-        (1 + 2.0 ** -8) * count[:, None] * 2.0 ** -24 * abs16
-    assert bool(((_flat(got16) - ref16).abs() <= tight).all())
-    tol16 = (count[:, None] + 1) * 2.0 ** -8 * abs16
-    assert bool(((_flat(got16) - _flat(want16)).abs() <= tol16).all())
+    _, exact16, mag16 = _exact_contributions(levels, boxes, lvl, g16,
+                                             strides, 7)
+    tight = 2.0 ** -8 * exact16.abs() + \
+        (1 + 2.0 ** -8) * count[:, None].double() * 2.0 ** -24 * mag16
+    assert bool(((got16 - exact16).abs() <= tight).all())
+    tol16 = (count[:, None].double() + 1) * 2.0 ** -8 * mag16
+    assert bool(((got16 - want16).abs() <= tol16).all())
+
+
+def _random_rois(rng, r):
+    side = np.exp(rng.uniform(np.log(16), np.log(900), r))
+    cx, cy = rng.uniform(-40, 680, r), rng.uniform(-40, 520, r)
+    return np.stack([cx - side / 2, cy - side / 2, cx + side / 2,
+                     cy + side / 2], 1)
+
+
+@pytest.mark.parametrize("r", [512, 64])
+def test_roi_align_backward_kernel_vs_plain(r):
+    """Kernel 4b at the training shape (R = 512, 7 x 7 x 256) and at 64
+    ROIs, within the bounds of `_check_backward`."""
+    _need_card()
+    rng = np.random.RandomState(23)
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              for h, w in ((60, 80), (30, 40), (15, 20))]
+    boxes = torch.from_numpy(_random_rois(rng, r).astype(np.float32))
+    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32))
+    _check_backward(levels, boxes, grad, strict_plain=True)
+
+
+@pytest.mark.parametrize("case", sorted(ROI_EDGES))
+def test_roi_align_backward_kernel_edge_cases(case):
+    """ROIs under one level pixel (all their taps on 1-4 positions), over
+    a whole level (the grid the forward takes in bands), beyond the image
+    and wide, ahead of 64 random ROIs, within the bounds of
+    `_check_backward`."""
+    _need_card()
+    rng = np.random.RandomState(24)
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              for h, w in ((60, 80), (30, 40), (15, 20))]
+    edge, _ = ROI_EDGES[case]
+    boxes = torch.from_numpy(np.concatenate(
+        [np.array(edge), _random_rois(rng, 64)]).astype(np.float32))
+    grad = torch.from_numpy(
+        rng.randn(len(boxes), 7, 7, 256).astype(np.float32))
+    _check_backward(levels, boxes, grad, strict_plain=False)
+
+
+@pytest.mark.parametrize("n,threshold", [(100, 0.5), (99, 0.5), (130, 0.5),
+                                         (100, 0.0)])
+def test_fused_paste_select_vs_plain(n, threshold):
+    """The exact write's path: the paste with its flag epilogue, then the
+    selection on its flags, against the plain paste, its flags and the
+    plain selection. Masks within the paste's flip bound; flags, per-tile
+    counts, ids and rows equal in every element to the plain chain on the
+    kernel's masks (and on the plain paste's when no value flipped). Mask
+    0 is all ones over rows 114-125, no valid mask reaches rows 300-311."""
+    _need_card()
+    rng = np.random.RandomState(25)
+    h, w = 480, 640
+    probs = rng.rand(n, 28, 28).astype(np.float32)
+    x0, y0 = rng.uniform(-60, 600, n), rng.uniform(-60, 440, n)
+    boxes = np.stack([x0, y0, x0 + rng.uniform(4, 400, n),
+                      y0 + rng.uniform(4, 300, n)], 1).astype(np.float32)
+    probs[0] = 1.0
+    boxes[0] = [-3.0, 110.0, 645.0, 130.0]
+    near = (boxes[:, 1] < 332) & (boxes[:, 3] > 280)
+    valid = (rng.rand(n) > 0.2) & ~near
+    valid[0] = True
+    probs, boxes = torch.from_numpy(probs).cuda(), torch.from_numpy(boxes).cuda()
+    valid = torch.from_numpy(valid).cuda()
+    proj = torch.from_numpy(
+        rng.randint(0, 8192, (h, w)).astype(np.int32)).cuda()
+    masks, observed, counts = mask_paste.paste_masks_observed(
+        probs, boxes, valid, h, w, threshold)
+    seg, aug = memory_ops.write_select(masks, valid, proj, 8, observed,
+                                       counts)
+    plain = mask_paste.paste_masks_plain(probs, boxes, h, w, threshold,
+                                         pixel_major=True)
+    torch.cuda.synchronize()
+    flipped = masks != plain
+    assert int(flipped.sum()) <= max(1, plain.numel() // 10000)
+    refs = [masks] if bool(flipped.any()) else [masks, plain]
+    for ref in refs:
+        want_obs = (ref & valid).any(dim=-1)
+        want_counts = want_obs.reshape(h, w // 32, 32).sum(
+            -1, dtype=torch.int32)
+        seg_p, aug_p = memory_ops.write_select_plain(ref, valid, proj, 8)
+        assert torch.equal(observed, want_obs)
+        assert torch.equal(counts, want_counts)
+        assert torch.equal(seg, seg_p)
+        assert torch.equal(aug, aug_p)
+    if threshold > 0:
+        assert bool(observed[114:126].all())
+        assert not bool(observed[300:312].any())
+    else:
+        assert bool(observed.all())
 
 
 def test_memory_read_kernel_vs_plain():
