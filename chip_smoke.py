@@ -11,8 +11,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions
   2. build every kernel from csrc/, one nvcc per source, all at once
   3. the segment-sum kernel against its plain version at the memory
-     write's shapes, with out-of-range ids and a one-cell worst case
-  4. the memory-read kernel against its plain version at the read's shapes
+     write's shapes, with out-of-range ids, on random ids, coherent ids
+     (16 x 16-pixel squares share a cell, so runs of rows and the rows of
+     neighbouring image rows share cells) and a one-cell worst case
+  4. the memory-read kernel against its plain version at the read's
+     shapes, on random and coherent ids
   4a. the NMS kernels against the plain fixpoint: proposal NMS (1024
      candidates, class-agnostic, t = 0.9, and t = 0 with the ml_nms
      bypass) and the multiclass NMS (2048 candidates of 20 classes,
@@ -62,10 +65,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      frame must not synchronise with the host); kernel launch counts are
      zeroed just before the counted run and read just after it, and each
      kernel must have launched its expected count per frame
-  6. the card against the plain CPU path on a small config
+  5b. the episode modes at the same config: the longterm protocol, the
+     pipelined runner, the batched runner (B = 2 streams, one starting
+     from a carried memory) and the semantic_gt baseline on a class
+     table; each once under the sync debug mode "warn" and once under
+     "error" with its launches counted (semantic_gt: no write kernel, the
+     table unchanged bit for bit)
+  6. the card against the plain CPU path on a small config; 6b the same
+     under the longterm protocol over 3 frames
   7. each kernel's device time beside its plain version, the PyTorch
      library call where one exists (the memory reads: one
      F.embedding_bag(mean) on a table prepared beforehand), and its bound;
+     the segment-sum and the memory read also on coherent ids;
      the ROIAlign forward also at the training shape (R = 512, 7 x 7); the
      mask paste with its flag epilogue (the JSON entry) and without it,
      the selection on the paste's flags (the JSON entry) and the two-pass
@@ -121,6 +132,12 @@ LAUNCHES_PER_STEP = {"memory_read_batched": 1, "nms": TRAIN_FRAMES,
                      "roi_align_backward": 3 * TRAIN_FRAMES}
 STRIDES = (8, 16, 32)
 LEVEL_SHAPES = ((60, 80), (30, 40), (15, 20))     # p3-p5 at 480x640
+COHERENT_BLOCK = 16     # pixels a side of the squares that share a cell
+# launches a frame with an external GT memory: no write, so no write NMS,
+# mask pooler, paste, selection or segment-sum
+LAUNCHES_PER_FRAME_EXTERNAL = {"segment_sum": 0, "memory_read": 1, "nms": 2,
+                               "roi_align": 3, "mask_paste": 0,
+                               "write_select": 0}
 
 
 def smi(query: str) -> str:
@@ -223,10 +240,23 @@ def build_kernels():
              f"compiled, {len(build.ENTRY_POINTS)} entry points)")
 
 
-def segment_sum_inputs(rng, one_cell=False):
+def coherent_proj(rng, h=480, w=640, cells=8192, block=COHERENT_BLOCK):
+    """Cell ids where each block x block square of pixels shares a cell
+    (the blocks' cells drawn without repeats), as a real projection's
+    neighbouring pixels share their floor cell."""
+    by, bx = -(-h // block), -(-w // block)
+    cell = rng.permutation(cells)[:by * bx].reshape(by, bx)
+    return np.ascontiguousarray(np.repeat(np.repeat(cell, block, 0), block,
+                                          1)[:h, :w]).astype(np.int32)
+
+
+def segment_sum_inputs(rng, ids="random"):
     """Weights-plus-count rows like the memory write's: each selected pixel
     is covered by 1-3 of the 100 masks (weight 1/c each) and carries a
-    count of 1; unselected slots carry id -1."""
+    count of 1; unselected slots carry id -1. `ids`: "random" cells,
+    "coherent" (slot j of image row y is pixel (y, 8j) of a
+    `coherent_proj`, so runs of slots and the slots of neighbouring image
+    rows share cells) or "one_cell"."""
     rows, n, cells = 480 * 80, 100, 8192
     w = np.zeros((rows, n + 1), np.float32)
     cover = rng.randint(1, 4, rows)
@@ -235,8 +265,12 @@ def segment_sum_inputs(rng, one_cell=False):
         r = np.flatnonzero(cover == c)
         w[r[:, None], lanes[r, :c]] = 1.0 / c
     w[:, n] = 1.0
-    idx = (np.zeros(rows) + 5 if one_cell
-           else rng.randint(0, cells, rows)).astype(np.int32)
+    if ids == "one_cell":
+        idx = np.full(rows, 5, np.int32)
+    elif ids == "coherent":
+        idx = coherent_proj(rng)[:, ::8].reshape(-1).copy()
+    else:
+        idx = rng.randint(0, cells, rows).astype(np.int32)
     idx[rng.rand(rows) < 0.1] = -1
     idx[rng.rand(rows) < 0.02] = cells + 7
     return (torch.from_numpy(w).cuda(), torch.from_numpy(idx).cuda(), cells)
@@ -245,8 +279,8 @@ def segment_sum_inputs(rng, one_cell=False):
 def check_segment_sum(rng):
     from embodied_object_detection_tpu_torch.ops import segment_sum as ss
     worst = 0.0
-    for one_cell in (False, True):
-        w, idx, cells = segment_sum_inputs(rng, one_cell)
+    for ids in ("random", "coherent", "one_cell"):
+        w, idx, cells = segment_sum_inputs(rng, ids)
         got = ss.segment_sum(w, idx, cells)
         want = ss.segment_sum_plain(w, idx, cells)
         torch.cuda.synchronize()
@@ -255,16 +289,20 @@ def check_segment_sum(rng):
         abs_sum = ss.segment_sum_plain(w.abs(), idx, cells)
         bound = rows_in_cell[:, None] * 2.0 ** -24 * abs_sum + 1e-7
         err = (got - want).abs()
-        if not bool((err <= bound).all()):
+        if got.shape != want.shape or not bool((err <= bound).all()):
             raise AssertionError(f"segment_sum disagrees: max err "
-                                 f"{float(err.max())} (one_cell={one_cell})")
+                                 f"{float(err.max())} ({ids} ids)")
         if not torch.equal(got[:, -1], rows_in_cell.float()):
-            raise AssertionError("segment_sum count lane is not exact")
+            raise AssertionError(f"segment_sum count lane is not exact "
+                                 f"({ids} ids)")
         worst = max(worst, float(err.max()))
-        print(f"  one_cell={one_cell}: max |kernel - plain| = "
-              f"{float(err.max()):.3e}, count lane exact")
-    phase(3, "segment_sum agrees with its plain version (tolerance: rows "
-             "in the cell * 2^-24 * sum|w| per entry; count lane exact)")
+        runs = int((idx[1:] != idx[:-1]).sum()) + 1
+        print(f"  {ids} ids ({runs} runs of equal ids in {idx.numel()} "
+              f"rows): max |kernel - plain| = {float(err.max()):.3e}, "
+              f"count lane exact")
+    phase(3, "segment_sum agrees with its plain version on random, coherent "
+             "and one-cell ids (tolerance: rows in the cell * 2^-24 * "
+             "sum|w| per entry; count lane exact)")
     return worst
 
 
@@ -281,14 +319,17 @@ def memory_read_inputs(rng):
 def check_memory_read(rng):
     from embodied_object_detection_tpu_torch.ops import memory_ops
     feats, obs, proj = memory_read_inputs(rng)
-    got = memory_ops.memory_read(feats, obs, proj)
-    want = memory_ops.memory_read_plain(feats, obs, proj)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    phase(4, f"memory_read agrees with its plain version: max err "
-             f"{err:.3e} (tolerance rtol 1e-6, atol 1e-6)")
-    return err
+    errs = []
+    for p in (proj, torch.from_numpy(coherent_proj(rng)).cuda()):
+        got = memory_ops.memory_read(feats, obs, p)
+        want = memory_ops.memory_read_plain(feats, obs, p)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    phase(4, f"memory_read agrees with its plain version on random and "
+             f"coherent ids: max err {errs[0]:.3e} and {errs[1]:.3e} "
+             f"(tolerance rtol 1e-6, atol 1e-6)")
+    return max(errs)
 
 
 NMS_CASES = (
@@ -969,29 +1010,9 @@ def run_main_path(profile_dir):
     init = MemoryState.zeros(cells, dim, "cuda")
     run = make_episode_runner(model, cfg)
 
-    t0 = time.perf_counter()
-    syncs = sync_sites(lambda: run(frames, zs, init))
-    print(f"  warm-up chunk: {time.perf_counter() - t0:.2f} s")
-    print(f"  synchronising calls in the warm-up chunk (sync debug mode "
-          f"'warn'): {sum(syncs.values())}")
-    for site, n in syncs.items():
-        print(f"    {n} x {site}")
-    if syncs:
-        raise AssertionError("the frame synchronises with the host")
-
-    zero_counters()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = run(frames, zs, init)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    counted_s = time.perf_counter() - t0
-    launches = read_counters()
-    print(f"  launches in the main-path run (sync debug mode 'error', no "
-          f"error): {launches}")
-
+    out, counted_s, launches = counted_run(
+        "default", lambda: run(frames, zs, init), LAUNCHES_PER_FRAME,
+        T_FRAMES)
     chunk_s = [counted_s]
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1008,20 +1029,8 @@ def run_main_path(profile_dir):
     print(f"  batched trunk alone: "
           f"{(time.perf_counter() - t0) / T_FRAMES * 1e3:.2f} ms/frame")
 
+    check_episode("default", out, (T_FRAMES,), cfg)
     det = out.detections
-    shapes = {"boxes": (T_FRAMES, cfg.roi.detections_per_image, 4),
-              "scores": (T_FRAMES, cfg.roi.detections_per_image),
-              "features": (cells, dim)}
-    got_shapes = {"boxes": tuple(det.boxes.shape),
-                  "scores": tuple(det.scores.shape),
-                  "features": tuple(out.memory.features.shape)}
-    if got_shapes != shapes:
-        raise AssertionError(f"shapes {got_shapes} != {shapes}")
-    for name, t in (("boxes", det.boxes), ("scores", det.scores),
-                    ("memory", out.memory.features),
-                    ("obs", out.memory.obs_count)):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite {name}")
     any_det = out.any_detection.tolist()
     n_det = det.valid.sum(dim=1).tolist()
     print(f"  detections per frame: {n_det}; frames that wrote: {any_det}")
@@ -1032,11 +1041,6 @@ def run_main_path(profile_dir):
                                         frames.proj_indices[1])
     if not float(ego1.abs().max()) > 0:
         raise AssertionError("frame 1 read an all-zero memory")
-    for name, expected in LAUNCHES_PER_FRAME.items():
-        if launches[name] != expected * T_FRAMES:
-            raise AssertionError(
-                f"{name} launched {launches[name]} times in {T_FRAMES} "
-                f"frames, expected {expected} a frame")
     print(f"  memory after the chunk: {int((out.memory.obs_count > 0).sum())}"
           f" cells observed, max |feature| "
           f"{float(out.memory.features.abs().max()):.3f}; frame 1 read "
@@ -1049,6 +1053,156 @@ def run_main_path(profile_dir):
              f"sync: {min(per_frame):.2f} ms/frame (best chunk), launches a "
              f"frame {LAUNCHES_PER_FRAME}, frame 0 wrote, frame 1 read it")
     return launches, per_frame
+
+
+def counted_run(name, fn, per_frame, frames):
+    """Run fn() once under the sync debug mode "warn" (any synchronising
+    call fails), then once under "error" with the launch counts zeroed
+    just before and read just after; each kernel must have launched its
+    count a frame. Returns the counted run's result, its seconds and its
+    launches."""
+    t0 = time.perf_counter()
+    syncs = sync_sites(fn)
+    print(f"  {name}: warm-up run {time.perf_counter() - t0:.2f} s, "
+          f"{sum(syncs.values())} synchronising calls (sync debug mode "
+          f"'warn')")
+    if syncs:
+        for site, n in syncs.items():
+            print(f"    {n} x {site}")
+        raise AssertionError(f"{name}: the frames synchronise with the host")
+    zero_counters()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    expected = {k: per_frame.get(k, 0) * frames for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expected}")
+    print(f"  {name}: {frames} frames, no host sync (sync debug mode "
+          f"'error'), launches {launches}, {secs / frames * 1e3:.2f} "
+          f"ms/frame")
+    return out, secs, launches
+
+
+def check_episode(name, out, lead, cfg):
+    """An episode's shapes ([*lead, detections, ...] and the memory's, one
+    a stream) and finite values."""
+    det = out.detections
+    n = cfg.roi.detections_per_image
+    shapes = {"boxes": lead + (n, 4), "scores": lead + (n,),
+              "features": lead[:-1] + (cfg.memory.max_cells,
+                                       cfg.memory.memory_dim)}
+    got = {"boxes": tuple(det.boxes.shape),
+           "scores": tuple(det.scores.shape),
+           "features": tuple(out.memory.features.shape)}
+    if got != shapes:
+        raise AssertionError(f"{name}: shapes {got} != {shapes}")
+    for part, t in (("boxes", det.boxes), ("scores", det.scores),
+                    ("memory", out.memory.features),
+                    ("obs", out.memory.obs_count)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite {part}")
+
+
+def run_episode_modes():
+    """Phase 5b: the longterm protocol, an external GT memory, the batched
+    and the pipelined runners at the default config (480x640, bf16), each
+    under the sync debug mode "error" with its launches counted."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.engine.eval import (
+        external_memory_state)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        EmbodiedDetector, build_detector, frame_inputs,
+        make_batched_episode_runner, make_episode_runner,
+        make_pipelined_episode_runner)
+    from embodied_object_detection_tpu_torch.structures import MemoryState
+
+    base = DetectorConfig()
+    cfg = base.replace(memory=dataclasses.replace(base.memory,
+                                                  test_type="longterm"))
+    model = build_detector(cfg, seed=0, device="cuda")
+    h, w = cfg.input.height, cfg.input.width
+    cells, dim = cfg.memory.max_cells, cfg.memory.memory_dim
+    rng = np.random.RandomState(5)
+    b, t_max = 2, T_FRAMES
+    images = rng.randint(0, 255, (b, t_max, h, w, 3)).astype(np.float32)
+    projs = np.stack([np.stack([coherent_proj(rng) for _ in range(t_max)])
+                      for _ in range(b)])
+    # stream 0 starts from a reset, stream 1 from the memory it is given;
+    # frames 1 and 3 read the snapshot of frames 0 and 2
+    resets = np.zeros((b, t_max), bool)
+    resets[0, 0] = True
+    starts = np.zeros((b, t_max), bool)
+    starts[:, ::2] = True
+    batch = frame_inputs(images, projs, resets, cells, "cuda",
+                         episode_start=starts)
+    frames = batch._replace(**{k: None if v is None else v[0]
+                               for k, v in batch._asdict().items()})
+    zs = torch.from_numpy(rng.randn(cfg.roi.zs_weight_dim,
+                                    cfg.roi.num_classes + 1)
+                          .astype(np.float32)).cuda()
+    init = MemoryState.zeros(cells, dim, "cuda")
+
+    run = make_episode_runner(model, cfg)
+    single, _, _ = counted_run("longterm", lambda: run(frames, zs, init),
+                            LAUNCHES_PER_FRAME, t_max)
+    check_episode("longterm", single, (t_max,), cfg)
+    if not bool(single.any_detection[0]):
+        raise AssertionError("longterm: frame 0 wrote nothing")
+
+    trunk_fn, scan_fn = make_pipelined_episode_runner(model, cfg)
+    piped, _, _ = counted_run(
+        "pipelined runner (longterm)",
+        lambda: scan_fn(frames, zs, init, trunk_fn(frames.image)),
+        LAUNCHES_PER_FRAME, t_max)
+    check_episode("pipelined", piped, (t_max,), cfg)
+    # frame 0 reads the same zeros in both runs (later frames read
+    # memories whose float atomics summed in another order)
+    v_s, v_p = single.detections.valid[0], piped.detections.valid[0]
+    if int(v_s.sum()) != int(v_p.sum()):
+        raise AssertionError("pipelined: frame 0's detections differ")
+    torch.testing.assert_close(
+        piped.detections.scores[0][v_p].sort().values,
+        single.detections.scores[0][v_s].sort().values, rtol=1e-3,
+        atol=1e-4)
+
+    batched = make_batched_episode_runner(model, cfg)
+    mems = MemoryState(*(torch.stack(x) for x in zip(init, single.memory)))
+    out, _, _ = counted_run("batched runner (B = 2, longterm)",
+                         lambda: batched(batch, zs, mems),
+                         LAUNCHES_PER_FRAME, b * t_max)
+    check_episode("batched", out, (b, t_max), cfg)
+
+    sem_cfg = base.replace(memory=dataclasses.replace(
+        base.memory, memory_type="semantic_gt"))
+    sem = EmbodiedDetector(sem_cfg).to("cuda").eval()
+    sem.load_state_dict(model.state_dict())
+    table = rng.randn(cfg.roi.num_classes + 1, dim).astype(np.float32)
+    table[0] = 0.0                      # the class table's zero row 0
+    # the pixels' ids index the class table
+    sem_frames = frames._replace(
+        proj_indices=frames.proj_indices % table.shape[0])
+    table = external_memory_state(table, sem_cfg, device="cuda")
+    kept = MemoryState(*(x.clone() for x in table))
+    ext, _, _ = counted_run("semantic_gt",
+                         lambda: make_episode_runner(sem, sem_cfg)(
+                             sem_frames, zs, table),
+                         LAUNCHES_PER_FRAME_EXTERNAL, t_max)
+    check_episode("semantic_gt", ext, (t_max,), sem_cfg)
+    for state in (table, ext.memory, ext.first_memory):
+        if not (torch.equal(state.features, kept.features) and
+                torch.equal(state.obs_count, kept.obs_count)):
+            raise AssertionError("semantic_gt: the table changed")
+    phase("5b", f"episode modes at 480x640 with no host sync: longterm, "
+                f"the pipelined runner, the batched runner (B = {b}) and "
+                f"semantic_gt (the table unchanged, no write kernel "
+                f"launched), launches a frame as counted")
 
 
 def kernel_name(key):
@@ -1110,7 +1264,9 @@ def profile_run(fn, out_dir, tag, units, unit):
           f"{1 - busy / span:.3f} under the profiler)")
 
 
-def check_against_cpu():
+def check_against_cpu(test_type="default"):
+    """Phase 6 (test_type "default", 2 frames) and 6b ("longterm", 3
+    frames: frame 1 reads frame 0's snapshot, frame 2 starts an episode)."""
     from embodied_object_detection_tpu_torch.config import DetectorConfig
     from embodied_object_detection_tpu_torch.models import detector
     from embodied_object_detection_tpu_torch.ops import mask_paste
@@ -1125,11 +1281,15 @@ def check_against_cpu():
                                       post_nms_topk_test=16),
         roi=dataclasses.replace(cfg.roi, detections_per_image=16,
                                 num_classes=5),
-        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=8))
+        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=8,
+                                   test_type=test_type))
+    frames_n = 2 if test_type == "default" else 3
+    resets = np.array([True] + [False] * (frames_n - 1))
+    starts = np.array([True, False, True][:frames_n])
     rng = np.random.RandomState(1)
     h, w = cfg.input.height, cfg.input.width
-    images = rng.randint(0, 255, (2, h, w, 3)).astype(np.float32)
-    projs = rng.randint(0, 64, (2, h, w)).astype(np.int32)
+    images = rng.randint(0, 255, (frames_n, h, w, 3)).astype(np.float32)
+    projs = rng.randint(0, 64, (frames_n, h, w)).astype(np.int32)
     zs = rng.randn(512, 6).astype(np.float32)
     zs[:, -1] = 0.0
     zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
@@ -1149,8 +1309,8 @@ def check_against_cpu():
         for dev in ("cpu", "cuda"):
             detector.paste_masks_observed = recording(dev)
             model = detector.build_detector(cfg, seed=3, device=dev)
-            frames = detector.frame_inputs(images, projs,
-                                           np.array([True, False]), 64, dev)
+            frames = detector.frame_inputs(images, projs, resets, 64, dev,
+                                           episode_start=starts)
             outs[dev] = detector.make_episode_runner(model, cfg)(
                 frames, torch.from_numpy(zs).to(dev),
                 MemoryState.zeros(64, 512, dev))
@@ -1159,7 +1319,7 @@ def check_against_cpu():
     cpu, card = outs["cpu"], outs["cuda"]
     if not torch.equal(cpu.any_detection, card.any_detection.cpu()):
         raise AssertionError("the card and the CPU disagree on writes")
-    for t in range(2):
+    for t in range(frames_n):
         v_c, v_g = cpu.detections.valid[t], card.detections.valid[t].cpu()
         if int(v_c.sum()) != int(v_g.sum()):
             raise AssertionError(f"frame {t}: detection counts differ")
@@ -1180,7 +1340,7 @@ def check_against_cpu():
                 raise AssertionError(f"{n} pasted pixels differ between the "
                                      f"card and the CPU (near 0.5: {near})")
         flips += n
-    if len(pasted["cuda"]) != 2 or len(pasted["cpu"]) != 2:
+    if len(pasted["cuda"]) != frames_n or len(pasted["cpu"]) != frames_n:
         raise AssertionError("expected one paste a frame on each device")
     if flips == 0:
         torch.testing.assert_close(card.memory.features.cpu(),
@@ -1195,10 +1355,11 @@ def check_against_cpu():
         print(f"  {memory}")
     if not torch.equal(card.memory.obs_count.cpu(), cpu.memory.obs_count):
         raise AssertionError("observation counts differ")
-    phase(6, "small config (64x96, f32): the card matches the plain CPU path "
-             f"over 2 frames (scores rtol 1e-4, {flips} pasted pixels "
-             f"flipped, {memory}, "
-             f"{int(cpu.detections.valid.sum())} detections)")
+    phase(6 if test_type == "default" else "6b",
+          f"small config (64x96, f32, test_type {test_type!r}): the card "
+          f"matches the plain CPU path over {frames_n} frames (scores rtol "
+          f"1e-4, {flips} pasted pixels flipped, {memory}, "
+          f"{int(cpu.detections.valid.sum())} detections)")
 
 
 def run_train_path(profile_dir):
@@ -1404,47 +1565,71 @@ def time_kernels(rng, launches, train_launches, errs):
     from embodied_object_detection_tpu_torch.ops import memory_ops
     from embodied_object_detection_tpu_torch.ops import segment_sum as ss
 
-    w, idx, cells = segment_sum_inputs(rng)
-    rows, lanes = w.shape
-    routed = torch.where((idx >= 0) & (idx < cells), idx.long(),
-                         torch.full_like(idx, cells).long())
-    ms = graph_ms(lambda: ss.segment_sum(w, idx, cells))
-    plain_ms = graph_ms(lambda: ss.segment_sum_plain(w, idx, cells))
-    lib_ms = graph_ms(lambda: torch.zeros((cells + 1, lanes),
-                                          device="cuda").index_add_(
-                                              0, routed, w))
-    added = int(((w != 0) & ((idx >= 0) & (idx < cells))[:, None]).sum())
-    b_ms, b_by = bound_ms(rows * lanes * 4 + rows * 4 + cells * lanes * 4,
-                          added)
-    seg = {"name": "segment_sum", "route": "cuda",
-           "source": "embodied_object_detection_tpu_torch/csrc/segment_sum.cu",
-           "replaces": "embodied_object_detection_tpu/ops/pallas_scatter.py:60",
-           "launches": launches["segment_sum"],
-           "max_abs_err": errs["segment_sum"],
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": lib_ms}
+    seg = None
+    for ids in ("random", "coherent"):
+        w, idx, cells = segment_sum_inputs(rng, ids)
+        rows, lanes = w.shape
+        keep = (idx >= 0) & (idx < cells)
+        routed = torch.where(keep, idx.long(),
+                             torch.full_like(idx, cells).long())
+        ms = graph_ms(lambda: ss.segment_sum(w, idx, cells))
+        plain_ms = graph_ms(lambda: ss.segment_sum_plain(w, idx, cells))
+        lib_ms = graph_ms(lambda: torch.zeros((cells + 1, lanes),
+                                              device="cuda").index_add_(
+                                                  0, routed, w))
+        # the rows with an id in range must be read, the others need not
+        live = int(keep.sum())
+        added = int(((w != 0) & keep[:, None]).sum())
+        b_ms, b_by = bound_ms(live * lanes * 4 + rows * 4 +
+                              cells * lanes * 4, added)
+        print(f"  segment_sum, {ids} ids ({live} of {rows} rows in range): "
+              f"{ms * 1e3:.2f} us kernel, {plain_ms * 1e3:.2f} us plain, "
+              f"{lib_ms * 1e3:.2f} us index_add_, bound {b_ms * 1e3:.2f} us "
+              f"({b_by})")
+        if seg is None:       # the JSON entry: random ids
+            seg = {"name": "segment_sum", "route": "cuda",
+                   "source": "embodied_object_detection_tpu_torch/csrc/"
+                             "segment_sum.cu",
+                   "replaces": "embodied_object_detection_tpu/ops/"
+                               "pallas_scatter.py:60",
+                   "launches": launches["segment_sum"],
+                   "max_abs_err": errs["segment_sum"],
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": lib_ms}
 
-    feats, obs, proj = memory_read_inputs(rng)
-    ms = graph_ms(lambda: memory_ops.memory_read(feats, obs, proj))
-    plain_ms = graph_ms(lambda: memory_ops.memory_read_plain(feats, obs,
-                                                             proj))
-    lib_ms = read_yardstick(feats[None], obs[None], proj[None],
-                            memory_ops.memory_read(feats, obs, proj)[None],
-                            "memory_read")
-    h, wd = proj.shape
-    d = feats.shape[1]
-    rows_read = int(torch.unique(proj).numel())
-    out_elems = (h // 4) * (wd // 4) * d
-    b_ms, b_by = bound_ms(rows_read * d * 4 + obs.numel() * 4 +
-                          proj.numel() * 4 + out_elems * 4,
-                          out_elems * (16 * 2 + 1))
-    read = {"name": "memory_read", "route": "cuda",
-            "source": "embodied_object_detection_tpu_torch/csrc/memory_read.cu",
-            "replaces": "embodied_object_detection_tpu/ops/memory_ops.py:43",
-            "launches": launches["memory_read"],
-            "max_abs_err": errs["memory_read"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+    read = None
+    for ids in ("random", "coherent"):
+        feats, obs, proj = memory_read_inputs(rng)
+        if ids == "coherent":
+            proj = torch.from_numpy(coherent_proj(rng)).cuda()
+        ms = graph_ms(lambda: memory_ops.memory_read(feats, obs, proj))
+        plain_ms = graph_ms(lambda: memory_ops.memory_read_plain(feats, obs,
+                                                                 proj))
+        lib_ms = read_yardstick(feats[None], obs[None], proj[None],
+                                memory_ops.memory_read(feats, obs,
+                                                       proj)[None],
+                                f"memory_read ({ids} ids)")
+        h, wd = proj.shape
+        d = feats.shape[1]
+        rows_read = int(torch.unique(proj).numel())
+        out_elems = (h // 4) * (wd // 4) * d
+        b_ms, b_by = bound_ms(rows_read * d * 4 + obs.numel() * 4 +
+                              proj.numel() * 4 + out_elems * 4,
+                              out_elems * (16 * 2 + 1))
+        print(f"  memory_read, {ids} ids ({rows_read} cells read): "
+              f"{ms * 1e3:.2f} us kernel, {plain_ms * 1e3:.2f} us plain, "
+              f"{lib_ms * 1e3:.2f} us embedding_bag, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})")
+        if read is None:      # the JSON entry: random ids
+            read = {"name": "memory_read", "route": "cuda",
+                    "source": "embodied_object_detection_tpu_torch/csrc/"
+                              "memory_read.cu",
+                    "replaces": "embodied_object_detection_tpu/ops/"
+                                "memory_ops.py:43",
+                    "launches": launches["memory_read"],
+                    "max_abs_err": errs["memory_read"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms}
     kernels = [seg, read] + time_nms(rng, launches, errs) + \
         time_roi_align(rng, launches, errs) + \
         time_roi_align_backward(rng, train_launches, errs) + \
@@ -1748,7 +1933,9 @@ def main() -> int:
             "memory_read_batched": check_memory_read_batched(rng),
             "roi_align_backward": check_roi_align_backward(rng)}
     launches, _ = run_main_path(args.profile)
+    run_episode_modes()
     check_against_cpu()
+    check_against_cpu("longterm")
     train_launches, _, _ = run_train_path(args.profile)
     check_train_against_cpu()
     kernels = time_kernels(rng, launches, train_launches, errs)

@@ -6,7 +6,8 @@ frame and the training step read (backbone, CenterNet, ROI heads, memory,
 input, solver and the top-level `DetectorConfig`). Names and defaults are
 the same, so a config built for one package can be rebuilt field by field
 for the other. Mesh and other model settings come with the port of those
-paths; `check_slice_config` raises on settings the port does not run.
+paths; `check_slice_config` raises on settings the port does not run and
+on an unknown episode protocol.
 """
 
 from __future__ import annotations
@@ -100,10 +101,15 @@ class ROIHeadsConfig:
 @dataclass(frozen=True)
 class MemoryConfig:
     """Spatial feature memory read/write."""
+    # "implicit_memory": the recurrent memory the frames write; the GT-memory
+    # baselines "semantic_gt" / "map_gt" / "explicit_map": a fixed external
+    # table, read through the same path and never reset or written
     memory_type: str = "implicit_memory"
     feat_fusion: str = "sum"
     map_feature_weight: float = 5.0
     cls_score_thresh: float = 0.3
+    # "default"/"episodic": each frame reads the live memory; "longterm":
+    # the read memory is snapshotted at episode starts only
     test_type: str = "default"
     memory_dim: int = 512
     max_cells: int = 8192
@@ -183,15 +189,12 @@ class DetectorConfig:
 
 def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
     """Raise on settings this port does not implement yet, rather than
-    silently running another path."""
-    if cfg.memory.test_type != "default":
-        raise NotImplementedError(
-            f"memory.test_type={cfg.memory.test_type!r}: the torch port runs "
-            "only 'default'")
-    if cfg.memory.external_memory():
-        raise NotImplementedError(
-            f"memory.memory_type={cfg.memory.memory_type!r}: external GT "
-            "memories are not ported yet")
+    silently running another path, and on a `memory.test_type` that is no
+    protocol at all (a typo must not select another one)."""
+    if cfg.memory.test_type not in ("default", "episodic", "longterm"):
+        raise ValueError(
+            f"memory.test_type={cfg.memory.test_type!r} is not one of "
+            "'default'/'episodic'/'longterm' (ref: detic/config.py:74)")
     if cfg.roi.align_impl not in ("v1", "v4"):
         raise NotImplementedError(
             f"roi.align_impl={cfg.roi.align_impl!r}: the port has v1 and v4")

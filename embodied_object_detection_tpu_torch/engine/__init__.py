@@ -1,1 +1,2 @@
-"""Training engine: solver, checkpoints and the training loop."""
+"""Engine: solver, checkpoints, the training loop and the evaluation
+engine's external GT-memory table."""

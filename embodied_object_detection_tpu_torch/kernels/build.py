@@ -38,9 +38,9 @@ _F = ctypes.c_float
 # kernel name -> (C symbol, argtypes); every pointer and the stream is void*.
 # A kernel's source is csrc/<name>.cu unless SOURCES names another.
 ENTRY_POINTS = {
-    # (w, idx, out, rows, lanes, num_cells, stream)
+    # (w, idx, out, rows, lanes, padded out lanes, num_cells, stream)
     "segment_sum": ("segment_sum_launch",
-                    (_P, _P, _P, ctypes.c_longlong, _I, _I, _P)),
+                    (_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P)),
     # (features, obs_count, proj, bf16 table scratch, out, dim, height,
     #  width, pool, batch, cells, stream)
     "memory_read": ("memory_read_launch",

@@ -7,17 +7,21 @@ Counterpart of the JAX package's `models/detector.py`. One frame is
 
 (ResNet-50 -> memory-fused FPN -> CenterNet proposals -> 3-stage cascade
 -> multiclass NMS -> write-row selection -> mask head -> mask paste ->
-memory write), and `make_episode_runner` drives it over a chunk of frames
-with the memory carried (test_type "default"). `frame_train` gives the
-losses of one frame that reads a precomputed memory. Public tensors keep
-the JAX package's channels-last layout. Everything runs on the card unless
-the caller asks for the CPU.
+memory write). `make_episode_runner` drives it over a chunk of frames with
+the memory carried, under every episode protocol (test_type "default",
+"episodic", "longterm") and with the external GT-memory tables;
+`make_pipelined_episode_runner` splits the chunk into its trunk and its
+frame loop, and `make_batched_episode_runner` runs B scene streams, each
+with its own memory. `frame_train` gives the losses of one frame that
+reads a precomputed memory. Public tensors keep the JAX package's
+channels-last layout. Everything runs on the card unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +51,17 @@ def grad_scale(x: torch.Tensor, s: float) -> torch.Tensor:
 
 
 class FrameInputs(NamedTuple):
-    """One frame, or a chunk of T frames with a leading [T] axis."""
+    """One frame, or a chunk of T frames with a leading [T] axis (and B
+    scene streams with a leading [B, T] for the batched runner)."""
     image: torch.Tensor           # [H, W, 3] float32 RGB, 0..255
     proj_indices: torch.Tensor    # [H, W] int32 map-cell id per pixel
     outlier_mask: torch.Tensor    # [H, W] bool
     obs_visibility: torch.Tensor  # [max_cells] float32, host-computed
     memory_reset: torch.Tensor    # [] bool: reset memory before this frame
+    # [] bool: first frame of an episode, where the longterm protocol
+    # snapshots its read memory; None for the protocols that read the live
+    # memory (longterm raises without it)
+    episode_start: Optional[torch.Tensor] = None
     frame_valid: Optional[torch.Tensor] = None   # [] bool; None = all valid
 
 
@@ -133,7 +142,8 @@ class EmbodiedDetector(nn.Module):
             cfg.roi.score_thresh_test, cfg.roi.nms_thresh_test,
             cfg.roi.detections_per_image)
 
-        if cfg.memory.write_memory:
+        # an external GT-memory table is never written
+        if cfg.memory.write_memory and not cfg.memory.external_memory():
             write, wboxes, wvalid = self._memory_write(
                 proposals, cascade, (p3, p4, p5), proj_indices,
                 obs_visibility)
@@ -300,45 +310,178 @@ def _where_state(pred: torch.Tensor, a: MemoryState,
     return MemoryState(*(torch.where(pred, x, y) for x, y in zip(a, b)))
 
 
-def make_episode_runner(model: EmbodiedDetector, cfg: DetectorConfig):
+def _frame(frames: FrameInputs, *at) -> FrameInputs:
+    """Frame `at` of a chunk ([t]) or of a batch of streams ([b, t])."""
+    return FrameInputs(*(None if x is None else x[at] for x in frames))
+
+
+class _Stream(NamedTuple):
+    """One scene stream's carry through a chunk."""
+    live: MemoryState      # the memory the frames write
+    read: MemoryState      # the memory the frames read
+    first: MemoryState     # the live memory right after the chunk's frame 0
+
+
+def _stream_step(model: EmbodiedDetector, cfg: DetectorConfig,
+                 frame: FrameInputs, zs_weight: torch.Tensor,
+                 carry: _Stream, zeros: MemoryState, t: int,
+                 backbone_feats: Optional[tuple]
+                 ) -> Tuple[_Stream, FrameOutputs]:
+    """One frame of one stream: reset, choose the read memory by the
+    protocol, run the frame, carry its write."""
+    live, read = carry.live, carry.read
+    external = cfg.memory.external_memory()
+    if external:
+        read = live                     # a fixed table: no reset, no write
+    else:
+        # padding frames must not reset either (producers that pad by
+        # repeating a reset-bearing frame would wipe the carry)
+        do_reset = frame.memory_reset if frame.frame_valid is None \
+            else frame.memory_reset & frame.frame_valid
+        live = _where_state(do_reset, zeros, live)
+        if cfg.memory.test_type == "longterm":
+            read = _where_state(frame.episode_start, live,
+                                _where_state(do_reset, zeros, read))
+        else:                           # default, episodic
+            read = live
+    out = model.frame_step(frame.image, zs_weight, read.features,
+                           read.obs_count, frame.proj_indices,
+                           frame.outlier_mask, frame.obs_visibility,
+                           backbone_feats=backbone_feats)
+    if not external:
+        updated = MemoryState(live.features + out.write.features_update,
+                              live.obs_count + out.write.obs_update)
+        live = updated if frame.frame_valid is None else \
+            _where_state(frame.frame_valid, updated, live)
+    return _Stream(live, read, live if t == 0 else carry.first), out
+
+
+def _check_frames(cfg: DetectorConfig, frames: FrameInputs) -> None:
+    if cfg.memory.test_type == "longterm" and frames.episode_start is None \
+            and not cfg.memory.external_memory():
+        raise ValueError("memory.test_type='longterm' snapshots the read "
+                         "memory at episode starts: pass episode_start")
+
+
+def _zeros(memory: MemoryState) -> MemoryState:
+    return MemoryState(*(torch.zeros_like(x) for x in memory))
+
+
+def _episode_outputs(dets: List[Detections], any_det: List[torch.Tensor],
+                     carry: _Stream) -> EpisodeOutputs:
+    return EpisodeOutputs(
+        detections=Detections(*(torch.stack(x) for x in zip(*dets))),
+        memory=carry.live, any_detection=torch.stack(any_det),
+        first_memory=carry.first)
+
+
+def make_episode_runner(model: EmbodiedDetector, cfg: DetectorConfig,
+                        precompute_backbone=True):
     """An episode function (frames [T, ...], zs_weight, init_memory) ->
-    EpisodeOutputs for test_type "default": the read memory is the live
-    memory of every frame, a frame with `memory_reset` starts from zeros,
-    padding frames (frame_valid False) neither reset nor write, and the
-    trunk runs batched over the chunk before the serial frame loop."""
+    EpisodeOutputs, the JAX package's runner as a loop over frames:
+    - a frame with `memory_reset` starts from zeros, and padding frames
+      (frame_valid False) neither reset nor write;
+    - test_type "default" / "episodic": each frame reads the live memory;
+    - "longterm": the read memory is snapshotted only where
+      `episode_start` holds, so within an episode the frames read a frozen
+      memory while the live memory accumulates (resets zero both);
+    - an external GT-memory type: the table is never reset or written, and
+      `first_memory` is the table.
+    `precompute_backbone`: True runs the trunk batched over the chunk
+    before the serial frame loop, False inside each frame, "external"
+    returns an episode function that takes the trunk's (C3, C4, C5) over
+    the chunk as a fourth argument (`make_pipelined_episode_runner`)."""
+    check_slice_config(cfg)
+    if precompute_backbone not in (True, False, "external"):
+        raise ValueError(f"precompute_backbone={precompute_backbone!r}: "
+                         "True, False or 'external'")
+
+    @torch.no_grad()
+    def episode(frames: FrameInputs, zs_weight: torch.Tensor,
+                init_memory: MemoryState,
+                backbone_feats: Optional[tuple] = None) -> EpisodeOutputs:
+        _check_frames(cfg, frames)
+        if precompute_backbone == "external":
+            if backbone_feats is None:
+                raise ValueError("this episode function takes the trunk's "
+                                 "features over the chunk")
+            feats = backbone_feats
+        elif precompute_backbone:
+            feats = model.backbone_raw(frames.image)
+        else:
+            feats = None
+        zeros = _zeros(init_memory)
+        carry = _Stream(init_memory, init_memory, init_memory)
+        dets, any_det = [], []
+        for t in range(frames.image.shape[0]):
+            carry, out = _stream_step(
+                model, cfg, _frame(frames, t), zs_weight, carry, zeros, t,
+                None if feats is None else tuple(f[t] for f in feats))
+            dets.append(out.detections)
+            any_det.append(out.write.any_detection)
+        return _episode_outputs(dets, any_det, carry)
+
+    if precompute_backbone == "external":
+        return episode
+
+    def episode3(frames: FrameInputs, zs_weight: torch.Tensor,
+                 init_memory: MemoryState) -> EpisodeOutputs:
+        return episode(frames, zs_weight, init_memory)
+    return episode3
+
+
+def make_pipelined_episode_runner(model: EmbodiedDetector,
+                                  cfg: DetectorConfig):
+    """The episode split in two: (trunk_fn(images [T, H, W, 3]) -> (C3,
+    C4, C5), scan_fn(frames, zs_weight, memory, feats) -> EpisodeOutputs),
+    so that a caller can issue chunk k+1's trunk before chunk k's frame
+    loop. Numerically the single runner: only the order of issue moves."""
+    scan_fn = make_episode_runner(model, cfg, precompute_backbone="external")
+
+    @torch.no_grad()
+    def trunk_fn(images: torch.Tensor) -> tuple:
+        return model.backbone_raw(images)
+
+    return trunk_fn, scan_fn
+
+
+def make_batched_episode_runner(model: EmbodiedDetector, cfg: DetectorConfig):
+    """B independent scene streams: (frames [B, T, ...], zs_weight,
+    init_memory [B, ...]) -> EpisodeOutputs with a leading [B]. The trunk
+    runs once over the B * T frames; then, frame by frame, each stream
+    runs in turn with its own memory, under the single runner's
+    semantics."""
     check_slice_config(cfg)
 
     @torch.no_grad()
     def episode(frames: FrameInputs, zs_weight: torch.Tensor,
                 init_memory: MemoryState) -> EpisodeOutputs:
-        t_max = frames.image.shape[0]
-        zeros = MemoryState(torch.zeros_like(init_memory.features),
-                            torch.zeros_like(init_memory.obs_count))
-        feats = model.backbone_raw(frames.image)
-        live = first = init_memory
-        dets, any_det = [], []
+        _check_frames(cfg, frames)
+        b, t_max = frames.image.shape[:2]
+        feats = model.backbone_raw(frames.image.flatten(0, 1))
+        feats = tuple(f.unflatten(0, (b, t_max)) for f in feats)
+        inits = [MemoryState(*(x[i] for x in init_memory)) for i in range(b)]
+        zeros = _zeros(inits[0])
+        carries = [_Stream(m, m, m) for m in inits]
+        dets = [[] for _ in range(b)]
+        any_det = [[] for _ in range(b)]
         for t in range(t_max):
-            do_reset = frames.memory_reset[t]
-            if frames.frame_valid is not None:
-                do_reset = do_reset & frames.frame_valid[t]
-            live = _where_state(do_reset, zeros, live)
-            out = model.frame_step(
-                frames.image[t], zs_weight, live.features, live.obs_count,
-                frames.proj_indices[t], frames.outlier_mask[t],
-                frames.obs_visibility[t],
-                backbone_feats=tuple(f[t] for f in feats))
-            updated = MemoryState(live.features + out.write.features_update,
-                                  live.obs_count + out.write.obs_update)
-            live = updated if frames.frame_valid is None else \
-                _where_state(frames.frame_valid[t], updated, live)
-            if t == 0:
-                first = live
-            dets.append(out.detections)
-            any_det.append(out.write.any_detection)
+            for i in range(b):
+                carries[i], out = _stream_step(
+                    model, cfg, _frame(frames, i, t), zs_weight, carries[i],
+                    zeros, t, tuple(f[i, t] for f in feats))
+                dets[i].append(out.detections)
+                any_det[i].append(out.write.any_detection)
+        outs = [_episode_outputs(d, a, c)
+                for d, a, c in zip(dets, any_det, carries)]
         return EpisodeOutputs(
-            detections=Detections(*(torch.stack(x) for x in zip(*dets))),
-            memory=live, any_detection=torch.stack(any_det),
-            first_memory=first)
+            detections=Detections(*(torch.stack(x) for x in zip(
+                *(o.detections for o in outs)))),
+            memory=MemoryState(*(torch.stack(x) for x in zip(
+                *(o.memory for o in outs)))),
+            any_detection=torch.stack([o.any_detection for o in outs]),
+            first_memory=MemoryState(*(torch.stack(x) for x in zip(
+                *(o.first_memory for o in outs)))))
 
     return episode
 
@@ -346,13 +489,16 @@ def make_episode_runner(model: EmbodiedDetector, cfg: DetectorConfig):
 def frame_inputs(images: np.ndarray, proj_indices: np.ndarray,
                  memory_reset: np.ndarray, max_cells: int,
                  device: "torch.device | str",
-                 frame_valid: Optional[np.ndarray] = None) -> FrameInputs:
+                 frame_valid: Optional[np.ndarray] = None,
+                 episode_start: Optional[np.ndarray] = None) -> FrameInputs:
     """Host boundary: check the cell ids, compute the cell visibility on
-    the host, and move a chunk [T, ...] of frames to the device."""
+    the host, and move a chunk [T, ...] of frames (or B streams of them,
+    [B, T, ...]) to the device."""
     check_proj_indices(proj_indices, max_cells)
 
     def to(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        return None if a is None else torch.as_tensor(
+            np.asarray(a), dtype=dtype, device=device)
 
     return FrameInputs(
         image=to(images, torch.float32),
@@ -362,8 +508,8 @@ def frame_inputs(images: np.ndarray, proj_indices: np.ndarray,
         obs_visibility=to(obs_visibility_host(proj_indices, max_cells),
                           torch.float32),
         memory_reset=to(memory_reset, torch.bool),
-        frame_valid=None if frame_valid is None
-        else to(frame_valid, torch.bool))
+        episode_start=to(episode_start, torch.bool),
+        frame_valid=to(frame_valid, torch.bool))
 
 
 def resolve_device(device: "torch.device | str" = "cuda") -> torch.device:

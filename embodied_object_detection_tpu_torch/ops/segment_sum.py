@@ -10,8 +10,15 @@ Replaces `ops/pallas_scatter.py:scatter_sum_pallas` (the segment-sum that
 `ops/memory_ops.py:246` computes with `jax.ops.segment_sum` on the JAX
 default path). On a CUDA tensor the wrapper launches the hand-written
 kernel `csrc/segment_sum.cu` (bytes-bound; its header says why and what
-the design does about it); on a CPU tensor it takes the plain PyTorch
-version below. Both accumulate in f32.
+the design does about it: a warp per group of rows, run sums in
+registers, one float4 atomic per run and 4 columns); on a CPU tensor it
+takes the plain PyTorch version below. Both accumulate in f32.
+
+On the card the sums land in a zero-filled [num_cells, K'] buffer, K'
+the multiple of 4 at or above K, so that every vector atomic is 16-byte
+aligned; the result is its [:, :K] view (row stride K'), which
+`memory_write`'s `acc[:, :-1] @ features` and `acc[:, -1]` read as they
+are.
 """
 
 from __future__ import annotations
@@ -50,13 +57,14 @@ def segment_sum(w: torch.Tensor, idx: torch.Tensor,
         raise ValueError("segment_sum: w and idx lie on different devices")
     rows, lanes = w.shape
     launch = build.load("segment_sum")
-    out = torch.zeros((num_cells, lanes), dtype=torch.float32,
+    padded = -(-lanes // 4) * 4
+    out = torch.zeros((num_cells, padded), dtype=torch.float32,
                       device=w.device)
     build.check_launch(
         launch(w.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, lanes,
-               num_cells, build.stream_handle()), "segment_sum")
+               padded, num_cells, build.stream_handle()), "segment_sum")
     segment_sum.launches += 1
-    return out
+    return out[:, :lanes]
 
 
 segment_sum.launches = 0

@@ -22,32 +22,51 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
 
 
-@pytest.mark.parametrize("one_cell", [False, True])
-def test_segment_sum_kernel_vs_plain(one_cell):
+def _coherent_ids(rng, rows, cells, run=4):
+    """Cell ids where runs of `run` neighbouring rows share a cell, and
+    every 40th run repeats the cell of the run 40 before it (the rows of
+    one image row of pixel blocks, then the next image row)."""
+    runs = -(-rows // run)
+    ids = rng.randint(0, cells, runs)
+    ids[40:] = np.where(rng.rand(runs - 40) < 0.5, ids[:-40], ids[40:])
+    return np.repeat(ids, run)[:rows].astype(np.int32)
+
+
+@pytest.mark.parametrize("ids,lanes", [
+    ("random", 101), ("one_cell", 101), ("coherent", 101),
+    ("random", 100), ("coherent", 100), ("coherent", 7), ("random", 257)])
+def test_segment_sum_kernel_vs_plain(ids, lanes):
+    """Random, one-cell and coherent ids (runs of rows on one cell), K % 4
+    in {0, 1, 3} and a K past one 128-column sweep; every 7th row dropped
+    as an empty slot (id -1) and others beyond the cells."""
     _need_card()
     rng = np.random.RandomState(16)
-    rows, lanes, cells = 38400, 101, 8192
+    rows, cells = 38400, 8192
     w = rng.rand(rows, lanes).astype(np.float32)
     w[rng.rand(rows, lanes) < 0.7] = 0.0
-    idx = rng.randint(0, cells, rows).astype(np.int32)
-    if one_cell:
-        idx[:] = 5                                   # worst contention
+    w[:, -1] = 1.0                                   # a count lane
+    if ids == "one_cell":
+        idx = np.full(rows, 5, np.int32)             # worst contention
+    elif ids == "coherent":
+        idx = _coherent_ids(rng, rows, cells)
+    else:
+        idx = rng.randint(0, cells, rows).astype(np.int32)
     idx[::7] = -1
     idx[3::11] = cells + 3
+    w[::7] = np.nan                  # an empty slot's weights reach no sum
     w_d, idx_d = torch.from_numpy(w).cuda(), torch.from_numpy(idx).cuda()
     got = segment_sum.segment_sum(w_d, idx_d, cells)
     want = segment_sum.segment_sum_plain(w_d, idx_d, cells)
     torch.cuda.synchronize()
-    # atomics sum in any order: |err| <= rows in the cell * 2^-24 * sum|w|
+    assert got.shape == (cells, lanes)
+    # sums in any order: |err| <= rows in the cell * 2^-24 * sum|w|
     keep = (idx_d >= 0) & (idx_d < cells)
     rows_in_cell = torch.bincount(idx_d[keep].long(), minlength=cells)
     abs_sum = segment_sum.segment_sum_plain(w_d.abs(), idx_d, cells)
     bound = rows_in_cell[:, None] * 2.0 ** -24 * abs_sum + 1e-7
     assert bool(((got - want).abs() <= bound).all())
     # an integer-valued lane (the write's pixel count) is exact
-    ones = torch.ones((rows, 1), device="cuda")
-    count = segment_sum.segment_sum(ones, idx_d, cells)[:, 0]
-    assert torch.equal(count, rows_in_cell.float())
+    assert torch.equal(got[:, -1], rows_in_cell.float())
 
 
 def test_memory_read_batched_kernel_vs_single_reads():
