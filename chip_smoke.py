@@ -73,6 +73,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      table unchanged bit for bit)
   6. the card against the plain CPU path on a small config; 6b the same
      under the longterm protocol over 3 frames
+  10. the evaluation engine (`engine.eval.evaluate_dataset`) at the
+     default config over 8 in-memory chunks of 20 synthetic frames (2
+     scenes x 4 chunks, a 110 x 57-cell map, every 5th frame scored):
+     32 images, overall and quartile AP (random weights), the data /
+     compute / eval seconds a chunk and frames/s, which evaluator ran
+     (the native C++ core or numpy), each kernel's launches a frame
+     (counts zeroed just before the run, read just after; equal to phase
+     5's), and the host syncs of the run under the sync debug mode "warn"
+     (the chunk end and the scored detections' copy, none in a frame);
+     then the runner alone over the engine's timed chunks, their inputs
+     on the card, beside the engine's compute a frame
+  10b. the same protocol at the 64x96 f32 miniature (2 scenes x 2
+     chunks x 10 frames) on the card and on the CPU, for the image-only
+     preset "pretrained" and for "implicit_object_memory" under the exact
+     and the strided write, with the mask logits shifted by +2 on both
+     (so that few pasted pixels sit at 0.5) and each CPU chunk started
+     from the card's memory: equal images and quartiles; each scored
+     image's detections unless a mask-paste flip (within 1e-5 of 0.5, or
+     between the two devices' inputs) precedes it in its chunk (a
+     chunk's first frame within phase 6's tolerances, a later one within
+     the frame tests' episode tolerance, rtol 1e-3); the memories of each
+     chunk without a flip within 1e-3 of each cell's norm; overall AP
+     within 0.1 points where every image was held; images that read a
+     memory their scene wrote among those held; and `semmap_classes` of
+     the last chunk's first memory equal on both devices but for
+     near-tied logits
   7. each kernel's device time beside its plain version, the PyTorch
      library call where one exists (the memory reads: one
      F.embedding_bag(mean) on a table prepared beforehand), and its bound;
@@ -90,9 +116,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   9. one training step at the 64x96 f32 miniature on the card against
      the same step on the CPU: losses, gradients and updated parameters
 
-With --profile, phases 5 and 8 also print each port kernel's device
-time a call in the profiled chunk and step, and the chunk's mask paste +
-write selection a frame.
+With --profile, phases 5, 8 and 10 also print each port kernel's device
+time a call in the profiled chunk, step and engine run (10: the engine
+over its first 2 chunks), the mask paste + write selection a frame, and
+the device's busy time a frame.
 
 It then prints one JSON line of kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a card, or without the rest of
@@ -110,6 +137,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1264,26 +1292,116 @@ def profile_run(fn, out_dir, tag, units, unit):
           f"{1 - busy / span:.3f} under the profiler)")
 
 
+def miniature(cfg, frames):
+    """The 64x96 f32 miniature of a config that phases 6, 6b and 10b run
+    on the card and on the CPU."""
+    return cfg.replace(
+        compute_dtype="float32",
+        backbone=dataclasses.replace(cfg.backbone, depths=(1, 1, 1, 1)),
+        input=dataclasses.replace(cfg.input, height=64, width=96,
+                                  max_sequence_length=frames),
+        centernet=dataclasses.replace(cfg.centernet, pre_nms_topk_test=64,
+                                      post_nms_topk_test=16),
+        roi=dataclasses.replace(cfg.roi, detections_per_image=16,
+                                num_classes=5),
+        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=8))
+
+
+class PasteCall(NamedTuple):
+    """One mask paste of the memory write, on the CPU."""
+    masks: torch.Tensor
+    boxes: torch.Tensor
+    out: torch.Tensor      # the pasted bool masks
+    valid: object          # the write rows' flags (exact write), else None
+    layout: dict           # the keywords of `paste_masks_plain`
+
+
+class PasteRecorder:
+    """Records every mask paste the memory write makes, one a frame: the
+    exact write's `paste_masks_observed` and the strided write's
+    `paste_masks`."""
+
+    def __enter__(self):
+        from embodied_object_detection_tpu_torch.models import detector
+        self.detector = detector
+        self.saved = observed, strided = (detector.paste_masks_observed,
+                                          detector.paste_masks)
+        self.calls = []
+
+        def spy_observed(masks, boxes, valid, *args):
+            out = observed(masks, boxes, valid, *args)
+            self.calls.append(PasteCall(masks.cpu(), boxes.cpu(),
+                                        out[0].cpu(), valid.cpu(),
+                                        dict(pixel_major=True)))
+            return out
+
+        def spy_strided(masks, boxes, *args, x_stride=1):
+            out = strided(masks, boxes, *args, x_stride=x_stride)
+            self.calls.append(PasteCall(masks.cpu(), boxes.cpu(), out.cpu(),
+                                        None, dict(x_stride=x_stride)))
+            return out
+        detector.paste_masks_observed = spy_observed
+        detector.paste_masks = spy_strided
+        return self
+
+    def __exit__(self, *exc):
+        self.detector.paste_masks_observed, self.detector.paste_masks = \
+            self.saved
+
+
+def paste_flips(cpu: PasteCall, card: PasteCall, h: int, w: int):
+    """The pixels one frame's write paste differs on between the CPU and
+    the card, as (rounding, input) counts; any other difference raises.
+    A rounding flip lies within 1e-5 of the 0.5 threshold in the plain
+    paste of the CPU's masks and boxes (the two devices' sums differ in
+    their last bits); at most one pixel in 10 000 may be one. An input
+    flip lies between the devices' inputs: the plain paste of each
+    device's own masks and boxes puts it on that device's side, and the
+    inputs agree (boxes within 1e-2 px, the frame tests' box tolerance;
+    mask probabilities within 1e-4), as at a box edge that crosses 0.5
+    between two pixel centres."""
+    from embodied_object_detection_tpu_torch.ops import mask_paste
+
+    if (cpu.valid is None) != (card.valid is None) or (
+            cpu.valid is not None and not torch.equal(cpu.valid,
+                                                      card.valid)):
+        raise AssertionError("the write rows differ between the card and "
+                             "the CPU")
+    flipped = cpu.out != card.out
+    n = int(flipped.sum())
+    if not n:
+        return 0, 0
+    vals = [mask_paste.paste_masks_plain(c.masks, c.boxes, h, w, -1.0,
+                                         **c.layout) for c in (cpu, card)]
+    rounding = flipped & ((vals[0] - 0.5).abs() < 1e-5)
+    box_gap = float((cpu.boxes - card.boxes).abs().max())
+    mask_gap = float((cpu.masks - card.masks).abs().max())
+    inputs = flipped & ~rounding & ((vals[0] >= 0.5) == cpu.out) & \
+        ((vals[1] >= 0.5) == card.out)
+    if box_gap > 1e-2 or mask_gap > 1e-4:
+        inputs = torch.zeros_like(inputs)
+    n_round, n_input = int(rounding.sum()), int(inputs.sum())
+    if n_round + n_input != n or n_round > max(1, cpu.out.numel() // 10000):
+        gap = float((vals[0][flipped] - 0.5).abs().max())
+        raise AssertionError(
+            f"{n} pasted pixels differ between the card and the CPU "
+            f"({n_round} within 1e-5 of 0.5, {n_input} between the inputs; "
+            f"up to {gap:.2e} from 0.5; inputs apart by {box_gap:.2e} px "
+            f"and {mask_gap:.2e})")
+    return n_round, n_input
+
+
 def check_against_cpu(test_type="default"):
     """Phase 6 (test_type "default", 2 frames) and 6b ("longterm", 3
     frames: frame 1 reads frame 0's snapshot, frame 2 starts an episode)."""
     from embodied_object_detection_tpu_torch.config import DetectorConfig
     from embodied_object_detection_tpu_torch.models import detector
-    from embodied_object_detection_tpu_torch.ops import mask_paste
     from embodied_object_detection_tpu_torch.structures import MemoryState
 
-    cfg = DetectorConfig()
-    cfg = cfg.replace(
-        compute_dtype="float32",
-        backbone=dataclasses.replace(cfg.backbone, depths=(1, 1, 1, 1)),
-        input=dataclasses.replace(cfg.input, height=64, width=96),
-        centernet=dataclasses.replace(cfg.centernet, pre_nms_topk_test=64,
-                                      post_nms_topk_test=16),
-        roi=dataclasses.replace(cfg.roi, detections_per_image=16,
-                                num_classes=5),
-        memory=dataclasses.replace(cfg.memory, max_cells=64, write_topk=8,
-                                   test_type=test_type))
     frames_n = 2 if test_type == "default" else 3
+    cfg = DetectorConfig()
+    cfg = miniature(cfg.replace(memory=dataclasses.replace(
+        cfg.memory, test_type=test_type)), frames_n)
     resets = np.array([True] + [False] * (frames_n - 1))
     starts = np.array([True, False, True][:frames_n])
     rng = np.random.RandomState(1)
@@ -1294,28 +1412,16 @@ def check_against_cpu(test_type="default"):
     zs[:, -1] = 0.0
     zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
     # record every paste on both devices, to count threshold flips
-    pasted = {"cpu": [], "cuda": []}
-    paste = detector.paste_masks_observed
-
-    def recording(dev):
-        def spy(masks, boxes, *args, **kwargs):
-            out = paste(masks, boxes, *args, **kwargs)
-            pasted[dev].append((masks, boxes, out[0]))
-            return out
-        return spy
-
-    outs = {}
-    try:
-        for dev in ("cpu", "cuda"):
-            detector.paste_masks_observed = recording(dev)
+    outs, pasted = {}, {}
+    for dev in ("cpu", "cuda"):
+        with PasteRecorder() as rec:
             model = detector.build_detector(cfg, seed=3, device=dev)
             frames = detector.frame_inputs(images, projs, resets, 64, dev,
                                            episode_start=starts)
             outs[dev] = detector.make_episode_runner(model, cfg)(
                 frames, torch.from_numpy(zs).to(dev),
                 MemoryState.zeros(64, 512, dev))
-    finally:
-        detector.paste_masks_observed = paste
+        pasted[dev] = rec.calls
     cpu, card = outs["cpu"], outs["cuda"]
     if not torch.equal(cpu.any_detection, card.any_detection.cpu()):
         raise AssertionError("the card and the CPU disagree on writes")
@@ -1327,21 +1433,10 @@ def check_against_cpu(test_type="default"):
         s_g = card.detections.scores[t].cpu()[v_g].sort(
             descending=True).values
         torch.testing.assert_close(s_g, s_c, rtol=1e-4, atol=1e-5)
-    flips = 0
-    for (m_c, b_c, out_c), (_, _, out_g) in zip(pasted["cpu"],
-                                                 pasted["cuda"]):
-        flipped = out_g.cpu() != out_c
-        n = int(flipped.sum())
-        if n:
-            vals = mask_paste.paste_masks_plain(m_c, b_c, h, w, -1.0,
-                                                pixel_major=True)
-            near = bool(((vals[flipped] - 0.5).abs() < 1e-5).all())
-            if n > max(1, out_c.numel() // 10000) or not near:
-                raise AssertionError(f"{n} pasted pixels differ between the "
-                                     f"card and the CPU (near 0.5: {near})")
-        flips += n
     if len(pasted["cuda"]) != frames_n or len(pasted["cpu"]) != frames_n:
         raise AssertionError("expected one paste a frame on each device")
+    flips = sum(sum(paste_flips(c, g, h, w))
+                for c, g in zip(pasted["cpu"], pasted["cuda"]))
     if flips == 0:
         torch.testing.assert_close(card.memory.features.cpu(),
                                    cpu.memory.features, rtol=1e-3, atol=1e-3)
@@ -1351,7 +1446,7 @@ def check_against_cpu(test_type="default"):
         # and shifts the every-8th selection after it: the memories are not
         # comparable at 1e-3, and the phase says so
         memory = (f"memory NOT compared: {flips} pasted pixels flipped at "
-                  "0.5 (within the flip bound, all within 1e-5 of 0.5)")
+                  "0.5 (within the flip bound)")
         print(f"  {memory}")
     if not torch.equal(card.memory.obs_count.cpu(), cpu.memory.obs_count):
         raise AssertionError("observation counts differ")
@@ -1360,6 +1455,393 @@ def check_against_cpu(test_type="default"):
           f"matches the plain CPU path over {frames_n} frames (scores rtol "
           f"1e-4, {flips} pasted pixels flipped, {memory}, "
           f"{int(cpu.detections.valid.sum())} detections)")
+
+
+EVAL_SCENES, EVAL_CHUNKS, EVAL_FRAMES = 2, 4, 20
+# the largest reference map, 110 x 57 cells (the JAX package's
+# MemoryConfig.max_cells comment)
+EVAL_MAP = (57, 110)
+
+
+class Recorder:
+    """Spies on the evaluation engine: each chunk's starting memory and the
+    runner's output, and each scored image's detections, as
+    `evaluate_dataset` makes them. With `starts`, chunk i starts from
+    `starts[i]` in place of the memory the engine carries."""
+
+    def __init__(self, starts=None):
+        from embodied_object_detection_tpu_torch.engine import eval as ev
+        self.ev, self.starts = ev, starts
+        self.chunks = []
+        self.dets = {}
+
+    def __enter__(self):
+        from embodied_object_detection_tpu_torch.structures import (
+            MemoryState)
+        ev, rec = self.ev, self
+        self.saved = (ev.make_episode_runner, ev.COCOEvaluator)
+
+        def runner(model, cfg):
+            run = rec.saved[0](model, cfg)
+
+            def recorded(frames, zs, memory):
+                if rec.starts is not None:
+                    memory = MemoryState(*(
+                        x.to(memory.features.device)
+                        for x in rec.starts[len(rec.chunks)]))
+                out = run(frames, zs, memory)
+                rec.chunks.append((memory, out))
+                return out
+            return recorded
+
+        class Evaluator(ev.COCOEvaluator):
+            def add_detections(self, image_id, boxes, scores, classes):
+                rec.dets[image_id] = (np.asarray(boxes), np.asarray(scores),
+                                      np.asarray(classes))
+                super().add_detections(image_id, boxes, scores, classes)
+
+        ev.make_episode_runner, ev.COCOEvaluator = runner, Evaluator
+        return self
+
+    def __exit__(self, *exc):
+        self.ev.make_episode_runner, self.ev.COCOEvaluator = self.saved
+
+
+def runner_alone(model, cfg, ds, zs):
+    """ms a frame of the runner alone over the engine's timed chunks (after
+    its 5 warm-up chunks), their inputs on the card beforehand, after one
+    untimed chunk."""
+    from embodied_object_detection_tpu_torch.engine.eval import (
+        frames_to_device, host_frame_inputs)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        make_episode_runner)
+    from embodied_object_detection_tpu_torch.structures import MemoryState
+
+    timed = range(min(5, len(ds) - 1), len(ds))
+    runner = make_episode_runner(model, cfg)
+    inputs = [frames_to_device(host_frame_inputs(ds[i], cfg.memory.max_cells,
+                                                 pin=True), "cuda")
+              for i in [timed[0], *timed]]
+    memory = MemoryState.zeros(cfg.memory.max_cells, cfg.memory.memory_dim,
+                               "cuda")
+    zs = torch.from_numpy(zs).cuda()
+    ms = []
+    for frames_in in inputs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        memory = runner(frames_in, zs, memory).memory
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / EVAL_FRAMES * 1e3)
+    return ms[1:]
+
+
+def run_eval_engine(profile_dir):
+    """Phase 10: `engine.eval.evaluate_dataset` at the default config over
+    8 in-memory chunks of synthetic episodes (h5py is not needed): the
+    timing split, the evaluator's path, launches a frame, host syncs; then
+    the runner alone over the engine's timed chunks, already on the card,
+    for the chunk's compute without the engine."""
+    from embodied_object_detection_tpu_torch import native
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.data.synthetic import (
+        SyntheticEpisodes)
+    from embodied_object_detection_tpu_torch.demo.predictor import (
+        load_zs_weight_npy)
+    from embodied_object_detection_tpu_torch.engine.eval import (
+        evaluate_dataset)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+
+    cfg = DetectorConfig()
+    model = build_detector(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    ds = SyntheticEpisodes(max_sequence_length=EVAL_FRAMES,
+                           max_gt=cfg.input.max_gt_boxes,
+                           num_scenes=EVAL_SCENES,
+                           chunks_per_scene=EVAL_CHUNKS, frames=EVAL_FRAMES,
+                           height=cfg.input.height, width=cfg.input.width,
+                           map_h=EVAL_MAP[0], map_w=EVAL_MAP[1], seed=0)
+    print(f"  {len(ds)} chunks of {EVAL_FRAMES} frames made from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s ({ds.num_cells} cells a scene)")
+    zs = load_zs_weight_npy(str(REPO / "embodied_object_detection_tpu_torch"
+                                / "data" / "metadata" / "mp3d_clip.npy"))
+    core = native.load_eval_core()
+    result = {}
+
+    def run():
+        result["res"] = evaluate_dataset(model, cfg, ds, zs, verbose=False,
+                                         num_workers=2)
+
+    alone_before = runner_alone(model, cfg, ds, zs)
+    zero_counters()
+    syncs = sync_sites(run)
+    launches = read_counters()
+    res = result["res"]
+    frames = len(ds) * EVAL_FRAMES
+    expected = {k: LAUNCHES_PER_FRAME.get(k, 0) * frames for k in launches}
+    per_frame = {k: v / frames for k, v in launches.items() if v}
+    print(f"  launches over the run ({frames} frames): {launches}; a frame "
+          f"{per_frame}")
+    if launches != expected:
+        raise AssertionError(f"phase 10: launches {launches}, expected "
+                             f"{expected} (phase 5's counts a frame)")
+    print(f"  host syncs over the run (set-up and {len(ds)} loop "
+          f"iterations, sync debug mode 'warn'): {sum(syncs.values())}")
+    for site, n in syncs.items():
+        print(f"    {n} x {site}")
+    inside = [site for site in syncs if "detector.py" in site or
+              "_ops.py" in site or "eval.py" not in site]
+    if inside or sum(syncs.values()) > 2 * len(ds):
+        raise AssertionError(f"phase 10: host syncs outside the chunk end "
+                             f"and the detection copy: {inside or syncs}")
+    if res.num_images != frames // cfg.input.score_every:
+        raise AssertionError(f"phase 10: {res.num_images} images scored, "
+                             f"expected {frames // cfg.input.score_every}")
+    aps = [res.overall] + [q for q in res.quartiles if q]
+    if any(math.isinf(v) for d in aps for v in d.values()):
+        raise AssertionError(f"phase 10: infinite AP in {res.overall}")
+    t = res.timing
+    alone = alone_before + runner_alone(model, cfg, ds, zs)
+    engine_ms = t["compute_s_per_chunk"] / EVAL_FRAMES * 1e3
+    alone_ms = sum(alone) / len(alone)
+    print(f"  the runner alone over the timed chunks, before and after the "
+          f"engine: {', '.join(f'{x:.2f}' for x in alone)} ms/frame (mean "
+          f"{alone_ms:.2f}); the engine's compute {engine_ms:.2f} ms/frame "
+          f"(mean over the same chunks), {engine_ms / alone_ms - 1:+.1%}")
+    if profile_dir:
+        profile_run(lambda: evaluate_dataset(model, cfg, [ds[0], ds[1]], zs,
+                                             verbose=False, num_workers=2),
+                    Path(profile_dir), "engine", 2 * EVAL_FRAMES, "frame")
+    print(f"  evaluator: {'native C++ core' if core else 'numpy'}")
+    print(f"  AP overall {res.overall['AP']:.4f}, AP50 "
+          f"{res.overall['AP50']:.4f}; quartiles "
+          f"{[round(q.get('AP', float('nan')), 4) for q in res.quartiles]}"
+          f" (random weights); {res.num_images} images")
+    print(f"  timing: {json.dumps(t)}")
+    phase(10, f"eval engine at 480x640 over {len(ds)} chunks of "
+              f"{EVAL_FRAMES} frames ({res.num_images} images scored, "
+              f"{'native' if core else 'numpy'} evaluator): data "
+              f"{t['data_s_per_chunk'] * 1e3:.1f} ms, compute "
+              f"{t['compute_s_per_chunk'] * 1e3:.1f} ms, eval "
+              f"{t['eval_s_per_chunk'] * 1e3:.1f} ms a chunk, "
+              f"{t['frames_per_s']:.2f} frames/s over the timed chunks; "
+              f"the runner alone {alone_ms:.2f} ms/frame")
+
+
+def cell_gap(got, want):
+    """The largest distance between two memories' cell features, each over
+    the norm of the cell's features in `want` (a running sum over frames
+    and pixels, whose small elements are differences of large terms); 0
+    where both cells are empty, inf where only `want`'s is."""
+    diff = (got - want).norm(dim=-1)
+    norm = want.norm(dim=-1)
+    gap = torch.where(norm > 0, diff / norm.clamp(min=1e-30),
+                      torch.where(diff > 0, float("inf"), 0.0))
+    return float(gap.max())
+
+
+# phase 10b's shift of the miniature's mask logits. The seeded predictor's
+# logits lie near 0, so every pasted pixel sits near the 0.5 threshold and
+# rounds to either side on the two devices; shifted by +2 (a probability
+# of ~0.88 inside a box) only a box's edge crosses it
+MASK_LOGIT_SHIFT = 2.0
+
+# phase 10b's cases: (name, golden preset, exact write subsample)
+ENGINE_CASES = (("pretrained", "pretrained", True),
+                ("implicit exact", "implicit_object_memory", True),
+                ("implicit strided", "implicit_object_memory", False))
+
+
+def eval_engine_against_cpu():
+    """Phase 10b: the protocol at the 64x96 f32 miniature on the card and
+    on the CPU, from the same weights and chunks: an image-only golden
+    preset, implicit_object_memory, and its strided write.
+
+    The mask predictor's bias is shifted by MASK_LOGIT_SHIFT on both
+    devices, so that the write's pastes rarely land on the 0.5 threshold,
+    and each CPU chunk starts from the memory its card chunk started from
+    (so every chunk's first frame reads the same memory on both). Within a
+    chunk, a pasted pixel that still lands on either side (`paste_flips`:
+    within 1e-5 of 0.5, or between the two devices' inputs) moves a
+    feature, or the every-8th selection of the compacted observed pixels
+    after it, to other cells: the frames after it read memories that part
+    beyond phase 6's tolerances. So each scored image is held to them
+    unless it comes after such a flip in its chunk (counted), each chunk
+    with no flip holds its memories (after frame 0 and at its end, each
+    cell's features within 1e-3 of its norm, counts equal), and the AP is
+    held within 0.1 points where every image was held. A preset that
+    reads the memory must hold images that read a memory its scene wrote.
+
+    A chunk's first frame reads the same memory on both devices and is
+    held to phase 6's tolerances (scores rtol 1e-4, atol 1e-5); a later
+    frame reads memories the two devices wrote, summed in other orders,
+    and the f32 drift grows with the frames (on an H100, scores ~1.5e-4
+    apart after 5 frames with no flip), so it is held to the episode tolerance
+    of tests/test_torch_frame.py (rtol 1e-3, atol 1e-4). Over a chunk
+    the memories' small elements drift past phase 6's 1e-3 elementwise
+    bound, hence the bound on each cell's norm: every written feature
+    has norm 50 (the normalised CLIP feature times the temperature), so
+    one feature moved by a flip shifts a cell that summed k features by
+    at least 1/k of its norm. At the shift the written boxes cover the 64x96
+    image, so the exact write's every-8th compacted pixel is the strided
+    grid's: the compaction of a partial observed set is held by phases 4d
+    and 6."""
+    from embodied_object_detection_tpu_torch.config import parity_config
+    from embodied_object_detection_tpu_torch.data.synthetic import (
+        SyntheticEpisodes)
+    from embodied_object_detection_tpu_torch.engine.eval import (
+        evaluate_dataset)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.ops.memory_ops import (
+        semmap_classes)
+
+    frames, chunks_per_scene = 10, 2
+    ds = SyntheticEpisodes(max_sequence_length=frames, num_scenes=2,
+                           chunks_per_scene=chunks_per_scene, frames=frames,
+                           height=64, width=96, map_h=8, map_w=8, seed=1)
+    rng = np.random.RandomState(1)
+    zs = rng.randn(512, 6).astype(np.float32)
+    zs[:, -1] = 0.0
+    zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
+    summary = []
+    for name, preset, exact in ENGINE_CASES:
+        cfg = miniature(parity_config(preset), frames)
+        cfg = cfg.replace(memory=dataclasses.replace(
+            cfg.memory, exact_write_subsample=exact))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_detector(cfg, seed=3, device=dev)
+            with torch.no_grad():
+                model.roi_heads.mask_head.predictor.bias.add_(
+                    MASK_LOGIT_SHIFT)
+            starts = None if dev == "cuda" else \
+                [m for m, _ in runs["cuda"][1].chunks]
+            with Recorder(starts) as rec, PasteRecorder() as pastes:
+                res = evaluate_dataset(model, cfg, ds, zs, verbose=False,
+                                       num_workers=2)
+            runs[dev] = (res, rec, pastes.calls)
+        (card, rg, pg), (cpu, rc, pc) = runs["cuda"], runs["cpu"]
+        if card.num_images != cpu.num_images or \
+                sorted(rg.dets) != sorted(rc.dets) or \
+                len(pc) != len(ds) * frames or len(pg) != len(pc):
+            raise AssertionError(f"phase 10b {name}: images "
+                                 f"{card.num_images} vs {cpu.num_images}, "
+                                 f"pastes {len(pg)} vs {len(pc)}")
+        if [bool(q) for q in card.quartiles] != \
+                [bool(q) for q in cpu.quartiles]:
+            raise AssertionError(f"phase 10b {name}: quartiles differ")
+        # each chunk's first frame whose write paste differs
+        parted, n_round, n_input = {}, 0, 0
+        for f, (c, g) in enumerate(zip(pc, pg)):
+            r, i = paste_flips(c, g, 64, 96)
+            n_round, n_input = n_round + r, n_input + i
+            if r + i:
+                parted.setdefault(f // frames, f)
+        reads = cfg.memory.reads_memory()
+        held = written = after = late = 0
+        drift = 0.0
+        for im in sorted(rc.dets):
+            chunk, t = divmod(im, frames // cfg.input.score_every)
+            f = chunk * frames + t * cfg.input.score_every
+            if reads and f > parted.get(chunk, f):
+                after += 1
+                continue
+            (_, s_c, _), (_, s_g, _) = rc.dets[im], rg.dets[im]
+            if len(s_c) != len(s_g):
+                raise AssertionError(f"phase 10b {name}: image {im}: "
+                                     f"{len(s_g)} detections on the card, "
+                                     f"{len(s_c)} on the CPU")
+            # a chunk's first frame reads the same memory on both devices;
+            # a later one, memories the two wrote (summed in other orders)
+            s_g, s_c = np.sort(s_g)[::-1], np.sort(s_c)[::-1]
+            if reads and t > 0:
+                np.testing.assert_allclose(s_g, s_c, rtol=1e-3, atol=1e-4)
+                drift = max(drift, float(np.max(
+                    np.abs(s_g - s_c) / np.maximum(np.abs(s_c), 1e-30),
+                    initial=0.0)))
+                late += 1
+            else:
+                np.testing.assert_allclose(s_g, s_c, rtol=1e-4, atol=1e-5)
+            held += 1
+            written += reads and f % (frames * chunks_per_scene) != 0
+        # the write: the memories of each chunk with no flip
+        worst_gap = 0.0
+        for k, ((_, out_g), (_, out_c)) in enumerate(zip(rg.chunks,
+                                                         rc.chunks)):
+            if k % chunks_per_scene == 0 and not float(
+                    out_g.memory.features.abs().max()) > 0:
+                raise AssertionError(f"phase 10b {name}: chunk {k} wrote "
+                                     "nothing to the memory")
+            if k in parted:
+                continue
+            for m_g, m_c in ((out_g.first_memory, out_c.first_memory),
+                             (out_g.memory, out_c.memory)):
+                gap = cell_gap(m_g.features.cpu(), m_c.features)
+                worst_gap = max(worst_gap, gap)
+                if not gap <= 1e-3:
+                    raise AssertionError(f"phase 10b {name}: chunk {k}: a "
+                                         f"cell's features differ by {gap:.2e}"
+                                         " of its norm")
+                if not torch.equal(m_g.obs_count.cpu(), m_c.obs_count):
+                    raise AssertionError(f"phase 10b {name}: chunk {k}: "
+                                         "observation counts differ")
+        if reads and not written:
+            raise AssertionError(f"phase 10b {name}: no image that reads "
+                                 "a memory its scene wrote was held")
+        ap_g, ap_c = card.overall["AP"], cpu.overall["AP"]
+        q_g, q_c = ([round(q.get("AP", float("nan")), 4) for q in r.quartiles]
+                    for r in (card, cpu))
+        print(f"  {name}: overall AP card {ap_g:.4f}, CPU {ap_c:.4f}; "
+              f"quartile AP card {q_g}, CPU {q_c}; {held} images held "
+              f"({held - late} at rtol 1e-4, {late} later in their chunk at "
+              f"rtol 1e-3, largest score gap {drift:.2e}; {written} reading "
+              f"a memory their scene wrote), {after} after a flip in their "
+              f"chunk; flips: {n_round} "
+              f"within 1e-5 of 0.5 and {n_input} between the inputs, first "
+              f"in chunks {parted}; memories held in "
+              f"{len(ds) - len(parted)} of {len(ds)} chunks (cells within "
+              f"{worst_gap:.2e} of their norms)")
+        if after == 0 and not abs(ap_g - ap_c) <= 0.1:
+            raise AssertionError(f"phase 10b {name}: AP {ap_g} vs {ap_c}")
+        summary.append(f"{name} {held}/{held + after} images and "
+                       f"{len(ds) - len(parted)}/{len(ds)} memories held, "
+                       f"AP {ap_g:.4f} vs {ap_c:.4f}")
+        if name == "implicit exact":
+            last_c, last_g = rc.chunks[-1][1], rg.chunks[-1][1]
+    # the last chunk's first-frame memory of the implicit run: the CPU's
+    # memory through semmap_classes on both devices, then the card's own
+    mem = last_c.first_memory
+    zs_t = torch.from_numpy(zs)
+    sm_c = semmap_classes(mem.features, mem.obs_count, zs_t,
+                          cfg.memory.obs_score_thresh)
+    sm_g = semmap_classes(mem.features.cuda(), mem.obs_count.cuda(),
+                          zs_t.cuda(), cfg.memory.obs_score_thresh).cpu()
+    feats = mem.features / mem.features.norm(dim=-1, keepdim=True).clamp(
+        min=1e-12)
+    top2 = torch.topk(50.0 * feats @ zs_t[:, :-1], 2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs()
+    empty = mem.features.abs().amax(dim=-1) == 0     # all logits 0
+    differ = sm_c != sm_g
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"phase 10b: semmap classes differ on "
+                             f"{int((differ & ~near).sum())} cells whose "
+                             "top two logits are not tied")
+    own = last_g.first_memory
+    sm_own = semmap_classes(own.features, own.obs_count, zs_t.cuda(),
+                            cfg.memory.obs_score_thresh).cpu()
+    print(f"  semmap of the last chunk's first memory ({len(sm_c)} cells, "
+          f"{int((sm_c >= 0).sum())} classed): the card equals the CPU on "
+          f"the CPU's memory but for {int(differ.sum())} cells "
+          f"({int((near & ~empty).sum())} written cells with top-two "
+          f"logits within 1e-5, {int(empty.sum())} empty ones); on "
+          f"the card's own memory {int((sm_own != sm_c).sum())} cells "
+          "differ")
+    phase("10b", f"eval protocol at 64x96 f32 over {len(ds)} chunks of "
+                 f"{frames} frames, card against CPU (mask logits +"
+                 f"{MASK_LOGIT_SHIFT}, each CPU chunk from the card's "
+                 f"memory): {'; '.join(summary)}; semmap equal but for "
+                 "tied logits")
 
 
 def run_train_path(profile_dir):
@@ -1907,8 +2389,9 @@ def plain_observed(masks, boxes, valid, h, w):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one eval chunk and one training step "
-                             "into DIR")
+                        help="profile one eval chunk, the eval engine's "
+                             "first 2 chunks and one training step into "
+                             "DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1936,6 +2419,8 @@ def main() -> int:
     run_episode_modes()
     check_against_cpu()
     check_against_cpu("longterm")
+    run_eval_engine(args.profile)
+    eval_engine_against_cpu()
     train_launches, _, _ = run_train_path(args.profile)
     check_train_against_cpu()
     kernels = time_kernels(rng, launches, train_launches, errs)

@@ -14,9 +14,19 @@ counterpart is easy to find:
                              runner, the training losses
   parallel/train_step.py     the batch loss and optimizer step
   engine/                    solver (AdamW groups, schedules, clipping),
-                             checkpoints, the training loop
-  data/synthetic.py          training batches made from a seed
-  convert/from_jax.py        carry the JAX package's parameters across
+                             checkpoints and memory snapshots, the
+                             training loop, the serial evaluation protocol
+                             (engine/eval.py:evaluate_dataset)
+  data/                      the h5 episode dataset and its prefetcher,
+                             synthetic episodes and training batches made
+                             from a seed, the vendored class table
+  evaluation/coco_eval.py    COCO bbox AP on the host
+  native/                    its C++ core (g++ + ctypes, built on first use)
+  convert/                   carry the JAX package's parameters across
+                             (from_jax.py), load detectron2 .pth files
+                             (torch_weights.py)
+  demo/predictor.py          zero-shot classifier weights
+  run.py                     the CLI: --eval-only, --dry-run
   kernels/build.py           nvcc build + ctypes binding of csrc/*.cu
 
 Entry points run on the card ("cuda") unless the caller passes

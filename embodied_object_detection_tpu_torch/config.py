@@ -1,20 +1,25 @@
-"""Config dataclasses read by the recurrent eval frame and the training
-step.
+"""Config dataclasses read by the recurrent eval frame, the training
+step, the evaluation engine and the CLI.
 
-The port's own copy of the JAX package's `config.py` fields that the eval
-frame and the training step read (backbone, CenterNet, ROI heads, memory,
-input, solver and the top-level `DetectorConfig`). Names and defaults are
-the same, so a config built for one package can be rebuilt field by field
-for the other. Mesh and other model settings come with the port of those
-paths; `check_slice_config` raises on settings the port does not run and
-on an unknown episode protocol.
+The port's own copy of the JAX package's `config.py` fields that these
+paths read (backbone, CenterNet, ROI heads, memory, input, solver and the
+top-level `DetectorConfig` with its data paths), with `validate_config`,
+the `--opts` overrides (`apply_opts`) and the four golden presets
+(`parity_config`). Names and defaults are the same, so a config built for
+one package can be rebuilt field by field for the other. The JAX
+package's fields that no path reads (its pinned knobs, `input.format` and
+`memory.memory_feature_weight`) are no fields here: `apply_opts` accepts
+each only at its default (`PINNED_OPTS`). Mesh settings come with the
+port of the sharded paths; `check_slice_config` raises on settings the
+port does not run and on an unknown episode protocol.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -63,6 +68,8 @@ class CenterNetConfig:
 @dataclass(frozen=True)
 class ROIHeadsConfig:
     """3-stage cascade heads + zero-shot classifier + class-agnostic masks."""
+    # "cascade"; "res5" (the single-frame variant) is not ported (raises)
+    head_type: str = "cascade"
     strides: Tuple[int, ...] = (8, 16, 32)
     num_classes: int = 20
     pooler_resolution: int = 7
@@ -108,6 +115,9 @@ class MemoryConfig:
     feat_fusion: str = "sum"
     map_feature_weight: float = 5.0
     cls_score_thresh: float = 0.3
+    # cells of the semmap snapshot below this normalised observation
+    # intensity get class -1 (`ops/memory_ops.py:semmap_classes`)
+    obs_score_thresh: float = 0.4
     # "default"/"episodic": each frame reads the live memory; "longterm":
     # the read memory is snapshotted at episode starts only
     test_type: str = "default"
@@ -121,6 +131,12 @@ class MemoryConfig:
     # observed set (the reference selection); False: observed pixels on a
     # static stride grid
     exact_write_subsample: bool = True
+    # write each chunk's first-frame memory snapshot to
+    # <output_dir>/memory/<sequence>.h5 during evaluation
+    save_semmap: bool = False
+    # class-id space of the memory h5's semmap_gt for map_gt: "smnet",
+    # "lvis" or "auto" (the h5 attribute, else a max-id heuristic)
+    semmap_dialect: str = "auto"
     write_memory: bool = True
 
     def reads_memory(self) -> bool:
@@ -139,6 +155,7 @@ class InputConfig:
     pixel_mean: Tuple[float, ...] = (123.675, 116.280, 103.530)
     pixel_std: Tuple[float, ...] = (58.395, 57.12, 57.375)
     max_sequence_length: int = 20   # frames of an episode chunk
+    score_every: int = 5            # evaluation scores every 5th frame
     max_gt_boxes: int = 64          # padded GT capacity per frame
 
 
@@ -181,6 +198,11 @@ class DetectorConfig:
     solver: SolverConfig = field(default_factory=SolverConfig)
     # backbone / head compute dtype; the fp32 sites stay fp32 regardless
     compute_dtype: str = "bfloat16"
+    # host-side data paths
+    test_data_path: str = "embodied_data/mp3d_example/"
+    train_data_path: str = "embodied_data/mp3d_example/"
+    zeroshot_weight_path: str = "datasets/metadata/mp3d_clip.npy"
+    semmap_path: str = ""
     output_dir: str = "output"
 
     def replace(self, **kw) -> "DetectorConfig":
@@ -191,10 +213,11 @@ def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
     """Raise on settings this port does not implement yet, rather than
     silently running another path, and on a `memory.test_type` that is no
     protocol at all (a typo must not select another one)."""
-    if cfg.memory.test_type not in ("default", "episodic", "longterm"):
-        raise ValueError(
-            f"memory.test_type={cfg.memory.test_type!r} is not one of "
-            "'default'/'episodic'/'longterm' (ref: detic/config.py:74)")
+    validate_config(cfg)
+    if cfg.roi.head_type != "cascade":
+        raise NotImplementedError(
+            f"roi.head_type={cfg.roi.head_type!r}: the port has the cascade "
+            "heads; the res5 variant comes with ROADMAP queue 1 item 12")
     if cfg.roi.align_impl not in ("v1", "v4"):
         raise NotImplementedError(
             f"roi.align_impl={cfg.roi.align_impl!r}: the port has v1 and v4")
@@ -207,3 +230,128 @@ def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
             raise NotImplementedError(
                 f"{knob}=True: the torch port does not implement it yet")
     return cfg
+
+
+def validate_config(cfg: DetectorConfig) -> DetectorConfig:
+    """Raise on an unknown episode protocol: a typo must not select
+    another one. Called from `apply_opts` and `check_slice_config`."""
+    if cfg.memory.test_type not in ("default", "episodic", "longterm"):
+        raise ValueError(
+            f"memory.test_type={cfg.memory.test_type!r} is not one of "
+            "'default'/'episodic'/'longterm' (ref: detic/config.py:74)")
+    return cfg
+
+
+# The reference's knobs that the model hard-wires to one value. The port
+# has no field for them: `--opts` may name one only with that value, and
+# any other raises (a knob that silently does nothing is worse than an
+# absent one). key: (the value, where it is hard-wired)
+PINNED_OPTS: Dict[str, Tuple[Any, str]] = {
+    "centernet.only_proposal": (
+        True, "models/centernet.py builds the proposal-only head (no cls "
+        "tower)"),
+    "centernet.with_agn_hm": (
+        True, "the agnostic heatmap IS the proposal scorer (centernet.py "
+        "decode)"),
+    "centernet.num_cls_convs": (0, "only_proposal mode has no cls tower"),
+    "centernet.num_share_convs": (
+        0, "the tower stack is bbox-only (centernet_head.py defaults)"),
+    "centernet.not_norm_reg": (
+        True, "models/losses.py giou_loss normalizes by num_pos only"),
+    "centernet.loc_loss_type": (
+        "giou", "models/losses.py implements the gIoU location loss"),
+    "backbone.freeze_at": (
+        0, "freezing is solver-level: solver.freeze_backbone/"
+        "unfrozen_layers"),
+    "roi.add_feature_to_prop": (
+        True, "roi_heads always appends the pooled feature to proposals"),
+    "roi.cls_agnostic_bbox_reg": (
+        True, "predictors emit 4 deltas per box (class-agnostic)"),
+    "roi.cls_agnostic_mask": (True, "mask head emits one mask per box"),
+    "roi.mask_weight": (
+        1.0, "the train path has no mask loss (zero on mp3d; detector.py "
+        "frame_train docstring)"),
+    "input.format": (
+        "RGB", "the loaders decode RGB and pixel_mean/std are in RGB "
+        "order"),
+    "memory.memory_feature_weight": (
+        100.0, "the reference stores it and never applies it"),
+}
+
+
+def _coerce(old: Any, raw: str) -> Any:
+    """`raw` as the type of the field's current value `old`; tuples are
+    parsed as Python literals (nested ones too) or split on commas."""
+    if isinstance(old, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(old, int):
+        return int(raw)
+    if isinstance(old, float):
+        return float(raw)
+    if isinstance(old, tuple):
+        try:
+            parsed = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            parsed = None
+        if isinstance(parsed, (tuple, list)):
+            def co(template, v):
+                if isinstance(v, (tuple, list)):
+                    t = template[0] if isinstance(template, tuple) \
+                        and template else (v[0] if v else "")
+                    return tuple(co(t, y) for y in v)
+                t = template[0] if isinstance(template, tuple) \
+                    and template else template
+                return _coerce(t, str(v))
+            elem = old[0] if old else ""
+            return tuple(co(elem, x) for x in parsed)
+        items = [x for x in raw.strip("()[] ").split(",") if x]
+        elem = old[0] if old else ""
+        return tuple(_coerce(elem, x.strip()) for x in items)
+    return raw
+
+
+def apply_opts(cfg: DetectorConfig, opts: Sequence[str]) -> DetectorConfig:
+    """`--opts` overrides: apply_opts(cfg, ["memory.map_feature_weight=5",
+    "roi.num_classes=20"]), then `validate_config`. A key of
+    `PINNED_OPTS` is checked against its value and sets nothing."""
+    updates: Dict[str, Dict[str, Any]] = {}
+    for opt in opts:
+        key, _, raw = opt.partition("=")
+        key = key.strip()
+        if key in PINNED_OPTS:
+            required, where = PINNED_OPTS[key]
+            value = _coerce(required, raw)
+            if value != required:
+                raise NotImplementedError(
+                    f"config {key}={value!r} is not implemented (pinned to "
+                    f"{required!r}: {where})")
+            continue
+        parts = key.split(".")
+        if len(parts) == 1:
+            cfg = dataclasses.replace(
+                cfg, **{parts[0]: _coerce(getattr(cfg, parts[0]), raw)})
+            continue
+        section, fieldname = parts[0], ".".join(parts[1:])
+        old = getattr(getattr(cfg, section), fieldname)
+        updates.setdefault(section, {})[fieldname] = _coerce(old, raw)
+    for section, kv in updates.items():
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
+            getattr(cfg, section), **kv)})
+    return validate_config(cfg)
+
+
+def parity_config(name: str) -> DetectorConfig:
+    """The four golden eval configurations. The three image-only presets
+    differ only in their weights: they read no memory (the reference's FPN
+    merge is gated on implicit_memory) but still write it, with the exact
+    write subsample pinned."""
+    base = DetectorConfig()
+    if name in ("pretrained", "vanilla_training", "detic_finetuned"):
+        return base.replace(memory=dataclasses.replace(
+            base.memory, memory_type="image_only",
+            exact_write_subsample=True))
+    if name == "implicit_object_memory":
+        return base.replace(memory=dataclasses.replace(
+            base.memory, memory_type="implicit_memory", feat_fusion="sum",
+            map_feature_weight=5.0, exact_write_subsample=True))
+    raise ValueError(f"unknown parity config {name!r}")

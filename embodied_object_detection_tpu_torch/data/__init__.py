@@ -1,1 +1,5 @@
-"""Synthetic training data made from a seed."""
+"""Data: the h5 episode dataset, its prefetcher, and synthetic data made
+from a seed."""
+
+from .episode_dataset import EpisodeChunk, EpisodeDataset, sort_episode_files
+from .synthetic import SyntheticEpisodes, generate_synthetic_dataset

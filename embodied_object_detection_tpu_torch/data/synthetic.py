@@ -1,6 +1,24 @@
-"""Synthetic training batches made from a seed, with numpy.
+"""Synthetic data made from a seed, with numpy: training batches, and
+episodes in the reference's on-disk format.
 
-A batch has the shapes of `engine/train.py:chunks_to_train_batch`'s at
+Episodes (the port's copy of the JAX package's `data/synthetic.py`
+generator, the stand-in for the habitat-sim data pipeline, ref:
+Detic/SMNet/build_data.py + build_memory_data.py): scenes of coloured
+rectangles seen by a panning camera, each frame's pixels projected onto a
+map_h x map_w grid of cells that follows the pan.
+`generate_synthetic_dataset` writes them in the reference format, so
+`EpisodeDataset` and the evaluation read them unmodified; the same seed
+gives the same arrays as the JAX package's generator.
+`SyntheticEpisodes` holds them in memory as a dataset, for machines
+without h5py.
+
+  memory_data/<scene>_<k>.h5 : memory_features (zeros), proj_indices
+      [T, H, W, 1], semmap_gt (zeros, class_space "lvis21")
+  sensor_data/<scene>_<k>.h5 : rgb [T, H, W, 3], detection_data (stringified
+      dicts with xywh gt_boxes), segmentation_data (zeros)
+  JPEGImages/*.jpg           : per-frame JPEGs
+
+A training batch has the shapes of `engine/train.py:chunks_to_train_batch`'s at
 the config's widths: random RGB, per-pixel cell ids in [0, cells) drawn
 uniformly (a worst case for the memory read's locality), random memory
 sums and observation counts, up to `max_gt_boxes` random GT boxes with
@@ -11,12 +29,14 @@ meaningful.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import os
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import DetectorConfig
 from ..parallel.train_step import TrainBatch
+from .episode_dataset import EpisodeChunk, assemble_chunk
 
 
 def synthetic_train_batch(cfg: DetectorConfig, rng: np.random.RandomState,
@@ -65,3 +85,141 @@ def synthetic_batch_fn(cfg: DetectorConfig, frames: int,
     def batch_fn(it: int, rng: np.random.RandomState, dp: int) -> TrainBatch:
         return synthetic_train_batch(cfg, rng, frames, valid_frames)
     return batch_fn
+
+
+def _render_frame(rng: np.random.RandomState, h: int, w: int,
+                  objects: List[dict],
+                  pan: float) -> Tuple[np.ndarray, list, list]:
+    """Draw each scene object as a coloured rectangle shifted by the
+    camera pan; returns the image and its visible objects' xywh boxes and
+    classes."""
+    img = np.full((h, w, 3), 60, np.uint8)
+    img += (rng.rand(h, w, 3) * 20).astype(np.uint8)
+    boxes, classes = [], []
+    for obj in objects:
+        x = int(obj["x"] - pan)
+        y = int(obj["y"])
+        bw, bh = obj["w"], obj["h"]
+        x1, y1 = max(0, x), max(0, y)
+        x2, y2 = min(w, x + bw), min(h, y + bh)
+        if x2 - x1 < 8 or y2 - y1 < 8:
+            continue
+        img[y1:y2, x1:x2] = obj["color"]
+        boxes.append([float(x1), float(y1), float(x2 - x1),
+                      float(y2 - y1)])
+        classes.append(int(obj["cls"]))
+    return img, boxes, classes
+
+
+def synthetic_chunks(num_scenes: int = 1, chunks_per_scene: int = 2,
+                     frames: int = 20, height: int = 480, width: int = 640,
+                     map_h: int = 40, map_w: int = 40, seed: int = 0,
+                     class_ids: Optional[List[int]] = None
+                     ) -> Iterator[tuple]:
+    """Yield each chunk as (sequence file name, rgb [T, H, W, 3] uint8,
+    detection records (the reference's stringified dicts), frame file
+    names, proj ids [T, H, W, 1] int64), scenes and chunks in order."""
+    rng = np.random.RandomState(seed)
+    class_ids = class_ids or [0, 2, 3, 4, 5]
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    my = np.clip((ys / height * (map_h - 1)).astype(np.int64), 0, map_h - 1)
+    for s in range(num_scenes):
+        scene = f"scene{s:04d}_lvl0"
+        # static scene objects in an extended panorama
+        objects = []
+        for _ in range(6):
+            objects.append(dict(
+                x=int(rng.rand() * width * 2),
+                y=int(rng.rand() * (height - 120)),
+                w=int(40 + rng.rand() * 120), h=int(40 + rng.rand() * 120),
+                color=rng.randint(90, 255, 3,
+                                  dtype=np.int64).astype(np.uint8),
+                cls=int(class_ids[rng.randint(len(class_ids))])))
+        for k in range(chunks_per_scene):
+            rgbs = np.zeros((frames, height, width, 3), np.uint8)
+            records, names = [], []
+            proj = np.zeros((frames, height, width, 1), np.int64)
+            for i in range(frames):
+                pan = (k * frames + i) * 8.0
+                img, boxes, classes = _render_frame(rng, height, width,
+                                                    objects, pan)
+                rgbs[i] = img
+                fname = f"{scene}_{k}_{i}.jpg"
+                names.append(fname)
+                # the reference writes str(dict) (build_data.py:275-286)
+                records.append(str({"file_name": fname, "image": 0,
+                                    "gt_boxes": boxes,
+                                    "gt_classes": classes}))
+                # pixel -> map cell, following the pan
+                mx = ((xs + pan) / (width * 2) * (map_w - 1)).astype(np.int64)
+                proj[i, ..., 0] = my * map_w + np.clip(mx, 0, map_w - 1)
+            yield f"{scene}_{k}.h5", rgbs, records, names, proj
+
+
+def generate_synthetic_dataset(root: str, num_scenes: int = 1,
+                               chunks_per_scene: int = 2, frames: int = 20,
+                               height: int = 480, width: int = 640,
+                               map_h: int = 40, map_w: int = 40,
+                               seed: int = 0,
+                               class_ids: Optional[List[int]] = None) -> None:
+    """Write `synthetic_chunks(...)` under `root` in the reference
+    format."""
+    import h5py
+    from PIL import Image
+    for sub in ("memory_data", "sensor_data", "JPEGImages"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    num_cells = map_h * map_w
+    for seq, rgbs, records, names, proj in synthetic_chunks(
+            num_scenes, chunks_per_scene, frames, height, width, map_h,
+            map_w, seed, class_ids):
+        for img, fname in zip(rgbs, names):
+            Image.fromarray(img).save(
+                os.path.join(root, "JPEGImages", fname), quality=90)
+        with h5py.File(os.path.join(root, "sensor_data", seq), "w") as f:
+            f.create_dataset("rgb", data=rgbs)
+            f.create_dataset("detection_data",
+                             data=np.array(records, dtype=object),
+                             dtype=h5py.string_dtype())
+            f.create_dataset("segmentation_data",
+                             data=np.zeros((frames, height, width),
+                                           np.int32))
+        with h5py.File(os.path.join(root, "memory_data", seq), "w") as f:
+            f.create_dataset("memory_features",
+                             data=np.zeros((num_cells, 512), np.float32))
+            f.create_dataset("proj_indices", data=proj)
+            d = f.create_dataset("semmap_gt",
+                                 data=np.zeros((num_cells,), np.int32))
+            # lvis-20+1 id space (all void here)
+            d.attrs["class_space"] = "lvis21"
+
+
+class SyntheticEpisodes:
+    """`synthetic_chunks(**kw)` as an in-memory episode dataset: item i
+    is the `EpisodeChunk` that `EpisodeDataset` reads from the files
+    `generate_synthetic_dataset(**kw)` writes, with the h5 `rgb` rows in
+    place of the JPEGs (test_type default or episodic)."""
+
+    def __init__(self, test_type: str = "default",
+                 max_sequence_length: int = 20, max_gt: int = 64, **kw):
+        if test_type not in ("default", "episodic"):
+            raise ValueError(f"test_type={test_type!r}: the in-memory "
+                             "episodes have no longterm doubling")
+        self.test_type = test_type
+        self.max_sequence_length = max_sequence_length
+        self.max_gt = max_gt
+        self.num_cells = kw.get("map_h", 40) * kw.get("map_w", 40)
+        self.chunks = [(seq, rgbs, records,
+                        proj[..., 0].astype(np.int32))
+                       for seq, rgbs, records, _, proj in
+                       synthetic_chunks(**kw)]
+
+    def __len__(self) -> int:
+        return len(self.chunks)
+
+    def __getitem__(self, index: int) -> EpisodeChunk:
+        seq, rgbs, records, proj = self.chunks[index]
+        return assemble_chunk(
+            seq, records[:self.max_sequence_length], rgbs.__getitem__, proj,
+            rgbs.shape[1:3], test_type=self.test_type,
+            max_sequence_length=self.max_sequence_length,
+            max_gt=self.max_gt, num_cells=self.num_cells)

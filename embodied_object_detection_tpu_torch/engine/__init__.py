@@ -1,2 +1,12 @@
 """Engine: solver, checkpoints, the training loop and the evaluation
-engine's external GT-memory table."""
+engine. `evaluate_dataset` and `EvalResults` resolve on first use (the
+evaluation imports the data layer, which imports the training step)."""
+
+__all__ = ["EvalResults", "evaluate_dataset"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from . import eval as _eval
+        return getattr(_eval, name)
+    raise AttributeError(name)

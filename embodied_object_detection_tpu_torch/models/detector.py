@@ -92,7 +92,8 @@ class EmbodiedDetector(nn.Module):
         self.fpn = RecurrentFPN(
             cfg.backbone.in_channels, cfg.backbone.fpn_channels,
             cfg.memory.memory_dim, cfg.memory.feat_fusion,
-            cfg.memory.map_feature_weight, dtype=dtype)
+            cfg.memory.map_feature_weight, dtype=dtype,
+            with_memory=cfg.memory.reads_memory())
         self.centernet = CenterNetHead(
             len(cfg.centernet.strides), cfg.backbone.fpn_channels,
             cfg.centernet.num_box_convs, dtype=dtype)

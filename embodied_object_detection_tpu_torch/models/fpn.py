@@ -5,7 +5,10 @@ Counterpart of the JAX package's `models/fpn.py`: lateral 1x1 + output
 convs, and per-level fusion of the egocentric memory image: 2x2-pooled
 again for each level, a 1x1 `map_merge_projection` in f32 (512 -> 256),
 scaled by `map_feature_weight`, then summed with (`sum`), replacing
-(`mem_only`) or ignored by (`image_only`) the image features.
+(`mem_only`) or ignored by (`image_only`) the image features. A model
+that reads no memory (`memory_type` "image_only" or "") has no
+`map_merge_projection` parameters, as the JAX parameter tree and the
+reference's image-only checkpoints have none.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ class RecurrentFPN(nn.Module):
     def __init__(self, in_channels=(512, 1024, 2048), out_channels: int = 256,
                  memory_dim: int = 512, feat_fusion: str = "sum",
                  map_feature_weight: float = 1.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 with_memory: bool = True):
         super().__init__()
         if feat_fusion not in FUSIONS:
             raise ValueError(f"unknown fusion {feat_fusion!r}")
@@ -39,8 +43,9 @@ class RecurrentFPN(nn.Module):
             self.add_module(f"lateral{i + 1}",
                             nn.Conv2d(ic, oc, 1))
             self.add_module(f"output{i + 1}", nn.Conv2d(oc, oc, 3, 1, 1))
-            self.add_module(f"map_merge_projection{i + 1}",
-                            nn.Conv2d(memory_dim, oc, 1))
+            if with_memory:
+                self.add_module(f"map_merge_projection{i + 1}",
+                                nn.Conv2d(memory_dim, oc, 1))
         self.p6 = nn.Conv2d(oc, oc, 3, 2, 1)
         self.p7 = nn.Conv2d(oc, oc, 3, 2, 1)
 

@@ -11,6 +11,8 @@
              per-detection mask weights into cells (kernel 1,
              `ops/segment_sum.py`) and contract them with the detection
              features in f32
+  * snapshot -- the argmax class of each cell (`semmap_classes`), saved
+             with the memory by the evaluation's `--save-semmap`
 
 Counterpart of the JAX package's `ops/memory_ops.py`, with its host-side
 helpers `obs_visibility_host` and the proj-index guard of
@@ -382,6 +384,36 @@ def memory_write(det_features: torch.Tensor, det_masks: torch.Tensor,
         features_update=torch.where(any_detection, features_update, zero),
         obs_update=torch.where(any_detection, obs_update, zero),
         any_detection=any_detection)
+
+
+def semmap_classes(features: torch.Tensor, obs_count: torch.Tensor,
+                   zs_weight: torch.Tensor, obs_thresh: float,
+                   norm_temperature: float = 50.0) -> torch.Tensor:
+    """Argmax-class snapshot of the memory, the `semmap` the reference
+    saves (ref: visualise_clip_image_features, custom_rcnn.py:938-1017):
+    each cell's l2-normalised feature times `norm_temperature` against the
+    CLIP class columns of `zs_weight` [D, C+1] in f32 (TF32 off; softmax
+    is monotone, so the reference's softmax-then-argmax is the argmax of
+    the logits); cells whose mean |feature|, divided by the observation
+    count where it is above 1 and min-max normalised over the cells, lies
+    below `obs_thresh` get -1. [cells] int32."""
+    c = zs_weight.shape[1] - 1
+    norm = torch.linalg.vector_norm(features, dim=-1, keepdim=True)
+    feats = norm_temperature * features / norm.clamp(min=1e-12)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits = torch.matmul(feats, zs_weight.float())[:, :c]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    cls = torch.argmax(logits, dim=-1).to(torch.int32)
+    intensity = features.abs().mean(dim=-1)
+    intensity = torch.where(obs_count > 1,
+                            intensity / obs_count.clamp(min=1.0), intensity)
+    lo, hi = intensity.min(), intensity.max()
+    intensity = (intensity - lo) / (hi - lo).clamp(min=1e-12)
+    return torch.where(intensity < obs_thresh,
+                       torch.full_like(cls, -1), cls)
 
 
 def obs_visibility_host(proj_indices: np.ndarray,

@@ -52,6 +52,9 @@ def test_port_file_imports_nothing_of_jax(path):
 
 
 def test_import_leaves_jax_unloaded():
+    """Every port module imports without JAX, and without h5py or PIL,
+    which the data layer imports where it reads h5 or JPEG files (the
+    card's machine has neither)."""
     modules = [m.name for m in pkgutil.walk_packages(
         [str(PORT_DIR)], prefix="embodied_object_detection_tpu_torch.")]
     code = ("import importlib, sys\n"
@@ -59,6 +62,9 @@ def test_import_leaves_jax_unloaded():
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
+            "lazy = [m for m in sys.modules if m.split('.')[0] in "
+            "('h5py', 'PIL')]\n"
+            "assert not lazy, lazy\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
