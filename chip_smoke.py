@@ -115,6 +115,43 @@ Phases (each prints its own lines; any failure exits non-zero):
      debug mode "warn" listing any synchronising call
   9. one training step at the 64x96 f32 miniature on the card against
      the same step on the CPU: losses, gradients and updated parameters
+  11. the robot demo's path: the default config with the robot demo's
+     changes (a 200 x 200-cell map, 40 000 cells; one class per proposal)
+     with seeded weights, a 20-frame synthetic RGB-D trajectory in a box
+     room (depth in mm with 0-mm holes, poses that move and turn, noise
+     RGB) through `robot_demo.compute_proj_indices` on the card and
+     `EmbodiedPredictor`: the card's projector equal to the plain CPU
+     projector but at pixels within 1e-4 cells of a rounding boundary
+     (counted), the segment-sum and the read at 40 000 cells against their
+     plain versions (phases 3-4's checks), launches a request as phase 5,
+     the host syncs of a request (the guard's copy of the ids and the
+     detections' copy), ms a request and of the projector, frames/s, the
+     semantic map
+  11b. `EmbodiedPredictor` at the 64x96 f32 miniature on the card against
+     the CPU over 5 frames with a reset (mask logits +2 on both; a frame
+     after a fresh memory within phase 6's tolerances, a later one within
+     the episode tolerance unless a paste flip precedes it); then
+     `make_server` around a full-width predictor: /healthz, 5 /predict at
+     480x640 with cell ids (one resetting), each reply matched one to one
+     by class, box and score (phase 6's tolerances) with the predictor's
+     own detections, called directly on the same frame and the memory the
+     server held before it, and the server's memory after it within the
+     segment-sum's bound of the direct call's (the write's atomics leave
+     the memory's low bits run-dependent, so a direct run from a fresh
+     memory parts from the server's), /set_vocabulary, a malformed body
+     (400); each request's encode, round trip and decode ms
+  11c. the image-only demo at 480x640: `predict_api.Predictor.detect`
+     with the LVIS (1203 classes) and COCO vocabularies, launches a frame
+     (NMS 2, ROIAlign 3, nothing else), `VisualizationDemo(parallel=True)`
+     over 6 frames in order, and the multiclass NMS's kept set on one
+     frame's LVIS cascade scores at score threshold 0 (the full 2048
+     candidates, class ids past the partition's 256 bins) equal to the
+     plain fixpoint's
+  11d. the full-width frame step exported with `torch.export` to
+     build/frame_step.pt2, loaded in a fresh process that imports only the
+     port's `ops` and `serve` packages: detections equal to eager
+     `frame_step`'s, the memory within the segment-sum's bound; export and
+     load seconds
 
 With --profile, phases 5, 8 and 10 also print each port kernel's device
 time a call in the profiled chunk, step and engine run (10: the engine
@@ -278,14 +315,14 @@ def coherent_proj(rng, h=480, w=640, cells=8192, block=COHERENT_BLOCK):
                                           1)[:h, :w]).astype(np.int32)
 
 
-def segment_sum_inputs(rng, ids="random"):
+def segment_sum_inputs(rng, ids="random", cells=8192):
     """Weights-plus-count rows like the memory write's: each selected pixel
     is covered by 1-3 of the 100 masks (weight 1/c each) and carries a
     count of 1; unselected slots carry id -1. `ids`: "random" cells,
     "coherent" (slot j of image row y is pixel (y, 8j) of a
     `coherent_proj`, so runs of slots and the slots of neighbouring image
     rows share cells) or "one_cell"."""
-    rows, n, cells = 480 * 80, 100, 8192
+    rows, n = 480 * 80, 100
     w = np.zeros((rows, n + 1), np.float32)
     cover = rng.randint(1, 4, rows)
     lanes = np.argsort(rng.rand(rows, n), axis=1)[:, :3]   # distinct masks
@@ -296,7 +333,7 @@ def segment_sum_inputs(rng, ids="random"):
     if ids == "one_cell":
         idx = np.full(rows, 5, np.int32)
     elif ids == "coherent":
-        idx = coherent_proj(rng)[:, ::8].reshape(-1).copy()
+        idx = coherent_proj(rng, cells=cells)[:, ::8].reshape(-1).copy()
     else:
         idx = rng.randint(0, cells, rows).astype(np.int32)
     idx[rng.rand(rows) < 0.1] = -1
@@ -304,11 +341,13 @@ def segment_sum_inputs(rng, ids="random"):
     return (torch.from_numpy(w).cuda(), torch.from_numpy(idx).cuda(), cells)
 
 
-def check_segment_sum(rng):
+def check_segment_sum(rng, cells=8192, tag=3):
+    """Phase 3 (and phase 11's check at the robot map's cells, `tag`
+    None: no phase line)."""
     from embodied_object_detection_tpu_torch.ops import segment_sum as ss
     worst = 0.0
     for ids in ("random", "coherent", "one_cell"):
-        w, idx, cells = segment_sum_inputs(rng, ids)
+        w, idx, cells = segment_sum_inputs(rng, ids, cells)
         got = ss.segment_sum(w, idx, cells)
         want = ss.segment_sum_plain(w, idx, cells)
         torch.cuda.synchronize()
@@ -328,35 +367,40 @@ def check_segment_sum(rng):
         print(f"  {ids} ids ({runs} runs of equal ids in {idx.numel()} "
               f"rows): max |kernel - plain| = {float(err.max()):.3e}, "
               f"count lane exact")
-    phase(3, "segment_sum agrees with its plain version on random, coherent "
-             "and one-cell ids (tolerance: rows in the cell * 2^-24 * "
-             "sum|w| per entry; count lane exact)")
+    if tag is not None:
+        phase(tag, "segment_sum agrees with its plain version on random, "
+                   "coherent and one-cell ids (tolerance: rows in the cell * "
+                   "2^-24 * sum|w| per entry; count lane exact)")
     return worst
 
 
-def memory_read_inputs(rng):
+def memory_read_inputs(rng, cells=8192):
     feats = torch.from_numpy(
-        (rng.randn(8192, 512) * 4).astype(np.float32)).cuda()
+        (rng.randn(cells, 512) * 4).astype(np.float32)).cuda()
     obs = torch.from_numpy(
-        rng.choice([0.0, 1.0, 2.0, 5.0], 8192).astype(np.float32)).cuda()
+        rng.choice([0.0, 1.0, 2.0, 5.0], cells).astype(np.float32)).cuda()
     proj = torch.from_numpy(
-        rng.randint(0, 8192, (480, 640)).astype(np.int32)).cuda()
+        rng.randint(0, cells, (480, 640)).astype(np.int32)).cuda()
     return feats, obs, proj
 
 
-def check_memory_read(rng):
+def check_memory_read(rng, cells=8192, tag=4):
+    """Phase 4 (and phase 11's check at the robot map's cells, `tag`
+    None: no phase line)."""
     from embodied_object_detection_tpu_torch.ops import memory_ops
-    feats, obs, proj = memory_read_inputs(rng)
+    feats, obs, proj = memory_read_inputs(rng, cells)
     errs = []
-    for p in (proj, torch.from_numpy(coherent_proj(rng)).cuda()):
+    for p in (proj, torch.from_numpy(coherent_proj(rng,
+                                                   cells=cells)).cuda()):
         got = memory_ops.memory_read(feats, obs, p)
         want = memory_ops.memory_read_plain(feats, obs, p)
         torch.cuda.synchronize()
         errs.append(float((got - want).abs().max()))
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    phase(4, f"memory_read agrees with its plain version on random and "
-             f"coherent ids: max err {errs[0]:.3e} and {errs[1]:.3e} "
-             f"(tolerance rtol 1e-6, atol 1e-6)")
+    if tag is not None:
+        phase(tag, f"memory_read agrees with its plain version on random "
+                   f"and coherent ids: max err {errs[0]:.3e} and "
+                   f"{errs[1]:.3e} (tolerance rtol 1e-6, atol 1e-6)")
     return max(errs)
 
 
@@ -2386,6 +2430,679 @@ def plain_observed(masks, boxes, valid, h, w):
                                        dtype=torch.int32)
 
 
+# ------------------------------------------------------------ serving
+
+ROBOT_FRAMES = 20
+ROBOT_MAP = 200         # cells a side: the robot demo's 40 m at 0.2 m
+# the server's requests: 5 frames, the memory reset before the fourth
+SERVER_FRAMES, SERVER_RESET = 5, 3
+# launches a frame of the image-only demo: proposal and final NMS, three
+# cascade stages; no read, write NMS, mask pooler, paste, selection or
+# segment-sum
+LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 3}
+
+
+def robot_config():
+    """The default config with the robot demo's changes: one class per
+    proposal, a 200 x 200-cell map."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    cfg = DetectorConfig()
+    return cfg.replace(
+        roi=dataclasses.replace(cfg.roi, one_class_per_proposal=True),
+        memory=dataclasses.replace(cfg.memory,
+                                   max_cells=ROBOT_MAP * ROBOT_MAP))
+
+
+def robot_trajectory(rng, frames, h, w, vfov):
+    """A synthetic RGB-D trajectory made from a seed: the camera moves and
+    turns inside a 12 m x 3 m x 10 m box room; depth is the z distance to
+    its walls, floor and ceiling in mm, with 0-mm holes; RGB is noise.
+    Returns (images [T, H, W, 3] uint8, depth [T, H, W] f32 mm, xyzhe
+    [T, 5] f32)."""
+    from embodied_object_detection_tpu_torch.geometry import projector
+    xs, ys = (t.numpy().astype(np.float64) for t in
+              projector.pixel_scales(w, h, vfov, "cpu"))
+    t = np.arange(frames)
+    poses = np.stack([0.15 * t - 1.0, np.full(frames, 1.2), 0.1 * t - 0.5,
+                      0.2 * t, 0.1 * np.sin(0.5 * t)], 1).astype(np.float32)
+    lo = np.array([-6.0, 1.2 - 1.5, -5.0])      # the room's walls
+    hi = np.array([6.0, 1.2 + 1.5, 5.0])
+    depth = np.empty((frames, h, w), np.float32)
+    for f in range(frames):
+        T = projector.transform3d(torch.from_numpy(poses[f:f + 1]))[0]
+        rot = T[:3, :3].double().numpy()
+        ray = np.stack([xs, ys, np.ones_like(xs)], -1) @ rot.T   # z = 1
+        pos = poses[f, :3].astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            hits = np.concatenate([(lo - pos) / ray, (hi - pos) / ray], -1)
+        hits[~(hits > 0)] = np.inf
+        depth[f] = hits.min(-1) * 1000.0
+    depth[rng.rand(*depth.shape) < 0.02] = 0.0
+    depth[:, :40, :60] = 0.0                   # a hole the sensor missed
+    images = rng.randint(0, 255, (frames, h, w, 3)).astype(np.uint8)
+    return images, depth, poses
+
+
+def projector_gap(depth, pose, vfov, got, want):
+    """The pixels where the card's projector and the plain CPU projector
+    part: (pixels apart outside the boundary band, pixels in the band),
+    the band being the pixels whose map coordinate (world x or z over the
+    cell size, from the CPU's world points) lies within 1e-4 cells of a
+    rounding boundary, or whose height lies within 1e-4 m of the z-clip
+    (a comparison the two devices' last bits may decide apart), among the
+    pixels with depth."""
+    from embodied_object_detection_tpu_torch.demo import robot_demo
+    from embodied_object_detection_tpu_torch.geometry import projector
+    T = projector.transform3d(torch.from_numpy(pose[None]))[0]
+    half = ROBOT_MAP * robot_demo.GRID_CELL_M / 2.0
+    world = projector.pixel_to_world(
+        torch.from_numpy(depth), T, vfov, torch.tensor([-half, 0.0, -half]),
+        depth_scaling=robot_demo.DEPTH_SCALING)
+    xz = world[..., [0, 2]].double().numpy() / robot_demo.GRID_CELL_M
+    band = (np.abs(np.abs(xz - np.floor(xz)) - 0.5) < 1e-4).any(-1)
+    # and the pixels whose height lies within 1e-4 m of the z-clip
+    clip = float(pose[1]) + robot_demo.Z_CLIP_M
+    band |= np.abs(world[..., 1].double().numpy() - clip) < 1e-4
+    band &= depth > 0           # a hole is an outlier on both, at cell 0
+    apart = np.zeros(band.shape, bool)
+    for g, c in zip(got, want):
+        apart |= g.cpu().numpy() != c.numpy()
+    return int((apart & ~band).sum()), int(band.sum())
+
+
+def run_robot_path():
+    """Phase 11: the robot demo's path at full width: a 20-frame synthetic
+    RGB-D trajectory through `robot_demo.compute_proj_indices` on the card
+    and `EmbodiedPredictor`, the projector held to the plain CPU
+    projector, the segment-sum and the read at the map's 40 000 cells
+    against their plain versions, launches and host syncs a request."""
+    from embodied_object_detection_tpu_torch.demo import robot_demo
+    from embodied_object_detection_tpu_torch.demo.predictor import (
+        EmbodiedPredictor, load_zs_weight_npy)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+
+    cfg = robot_config()
+    cells = cfg.memory.max_cells
+    h, w = cfg.input.height, cfg.input.width
+    err_s = check_segment_sum(np.random.RandomState(11), cells, None)
+    err_r = check_memory_read(np.random.RandomState(12), cells, None)
+    print(f"  at {cells} cells: segment_sum max |kernel - plain| "
+          f"{err_s:.3e} (within rows x 2^-24 x sum|w|), memory_read "
+          f"{err_r:.3e} (rtol/atol 1e-6)")
+    vfov = math.radians(robot_demo.DEFAULT_VFOV_DEG)
+    images, depth, poses = robot_trajectory(np.random.RandomState(7),
+                                            ROBOT_FRAMES, h, w, vfov)
+    model = build_detector(cfg, seed=0, device="cuda")
+    zs = load_zs_weight_npy(str(REPO / "embodied_object_detection_tpu_torch"
+                                / "data" / "metadata" / "mp3d_clip.npy"))
+    t0 = time.perf_counter()
+    predictor = EmbodiedPredictor(cfg, model=model, zs_weight=zs)
+    print(f"  predictor ready in {time.perf_counter() - t0:.2f} s (kernels "
+          f"built and bound at construction)")
+
+    def project(f, device):
+        return robot_demo.compute_proj_indices(depth[f], poses[f], vfov,
+                                               ROBOT_MAP, device=device)
+
+    apart = band = outliers = 0
+    proj_ms, req_ms = [], []
+    n_det = []
+    zero_counters()
+    for f in range(ROBOT_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, outl = project(f, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dets = predictor(images[f], ids, outl)
+        t2 = time.perf_counter()
+        proj_ms.append((t1 - t0) * 1e3)
+        req_ms.append((t2 - t1) * 1e3)
+        n_det.append(int(dets.valid.sum()))
+        a, b = projector_gap(depth[f], poses[f], vfov, (ids, outl),
+                             project(f, "cpu"))
+        apart, band = apart + a, band + b
+        outliers += int(outl.sum())
+        if not (torch.isfinite(dets.boxes).all() and
+                torch.isfinite(dets.scores).all()):
+            raise AssertionError(f"phase 11 frame {f}: non-finite output")
+    launches = read_counters()
+    expected = {k: LAUNCHES_PER_FRAME.get(k, 0) * ROBOT_FRAMES
+                for k in launches}
+    if launches != expected:
+        raise AssertionError(f"phase 11: launches {launches}, expected "
+                             f"{expected}")
+    if apart:
+        raise AssertionError(f"phase 11: the card's projector parts from "
+                             f"the CPU's at {apart} pixels off the "
+                             f"rounding boundaries")
+    print(f"  projector: ids and outlier masks equal to the plain CPU "
+          f"projector's on {ROBOT_FRAMES} x {h * w} pixels but for {band} "
+          f"pixels within 1e-4 cells of a rounding boundary (not held); "
+          f"{outliers / ROBOT_FRAMES:.0f} outliers a frame (holes, beyond "
+          f"the z-clip)")
+    ids, outl = project(0, "cuda")
+    syncs = sync_sites(lambda: predictor(images[0], ids, outl))
+    print(f"  host syncs of one request (sync debug mode 'warn'): "
+          f"{sum(syncs.values())}")
+    for site, n in syncs.items():
+        print(f"    {n} x {site}")
+    inside = [s for s in syncs if not s.startswith("predictor.py")]
+    if inside or sum(syncs.values()) != 2:
+        raise AssertionError(f"phase 11: expected the guard's copy of the "
+                             f"ids and the detections' copy, got {syncs}")
+    semmap = predictor.semantic_map(ROBOT_MAP, ROBOT_MAP)
+    seen = semmap[semmap >= 0]
+    hist = np.bincount(seen, minlength=20)
+    print(f"  semantic_map {semmap.shape}: {seen.size} cells observed above "
+          f"the intensity threshold, "
+          f"{int((predictor.memory.obs_count > 0).sum())} cells observed, "
+          f"classes {({int(c): int(hist[c]) for c in np.flatnonzero(hist)})}")
+    if not seen.size:
+        raise AssertionError("phase 11: the semantic map is empty")
+    steady = sorted(req_ms[1:])
+    req = steady[len(steady) // 2]
+    prj = sorted(proj_ms[1:])[len(proj_ms) // 2]
+    print(f"  ms a request {', '.join(f'{x:.2f}' for x in req_ms)}; the "
+          f"projector {', '.join(f'{x:.2f}' for x in proj_ms)}")
+    print(f"  detections a frame: {n_det}")
+    phase(11, f"robot path at 480x640, {cells} cells, {ROBOT_FRAMES} frames: "
+              f"median {req:.2f} ms a request + {prj:.2f} ms projector, "
+              f"{1000 / (req + prj):.2f} frames/s; launches a request "
+              f"{LAUNCHES_PER_FRAME}; projector equal but for {band} "
+              f"boundary pixels; host syncs: the ids' guard copy and the "
+              f"detections' copy")
+    return model, cfg, predictor.memory
+
+
+def shift_mask_logits(model):
+    with torch.no_grad():
+        model.roi_heads.mask_head.predictor.bias.add_(MASK_LOGIT_SHIFT)
+
+
+def sorted_scores(dets):
+    v = dets.valid.cpu()
+    return dets.scores.cpu()[v].sort(descending=True).values
+
+
+def hold_scores(name, got, want, fresh):
+    """Equal counts, scores within phase 6's tolerances after a fresh
+    memory, else within the episode tolerance (rtol 1e-3, atol 1e-4)."""
+    g, w = sorted_scores(got), sorted_scores(want)
+    if g.numel() != w.numel():
+        raise AssertionError(f"{name}: {g.numel()} detections vs "
+                             f"{w.numel()}")
+    rtol, atol = (1e-4, 1e-5) if fresh else (1e-3, 1e-4)
+    torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    return float((g - w).abs().max()) if g.numel() else 0.0
+
+
+class WriteSpy:
+    """Keeps the memory write's features and its segment-sum's inputs over
+    one frame, for `bound`: how far two runs of that write may part."""
+
+    def __enter__(self):
+        from embodied_object_detection_tpu_torch.models import detector
+        from embodied_object_detection_tpu_torch.ops import memory_ops
+        self.modules = detector, memory_ops
+        self.saved = seg, write = (memory_ops.segment_sum,
+                                   detector.memory_write)
+        self.seen = {}
+
+        def spy_seg(wt, idx, n):
+            self.seen["seg"] = (wt, idx, n)
+            return seg(wt, idx, n)
+
+        def spy_write(feats, *a, **k):
+            self.seen["feats"] = feats
+            return write(feats, *a, **k)
+        memory_ops.segment_sum, detector.memory_write = spy_seg, spy_write
+        return self
+
+    def __exit__(self, *exc):
+        detector, memory_ops = self.modules
+        memory_ops.segment_sum, detector.memory_write = self.saved
+
+    def bound(self, want_f):
+        """The largest gap, a memory entry, between `want_f` (the memory
+        after the write) and another run of the same write: the
+        segment-sum adds in another order each run."""
+        from embodied_object_detection_tpu_torch.ops.segment_sum import (
+            segment_sum_plain)
+        wt, idx, cells = self.seen["seg"]
+        keep = (idx >= 0) & (idx < cells)
+        rows = torch.bincount(idx[keep].long(), minlength=cells).float()
+        abs_acc = segment_sum_plain(wt.abs(), idx, cells)
+        count = abs_acc[:, -1].clamp(min=1.0)
+        feats = self.seen["feats"].float().abs()
+        # the weights' sums part by at most rows x 2^-24 x sum|w| a lane;
+        # the [cells, N] x [N, D] product of the parted sums rounds apart
+        # by at most (N + 2) x 2^-23 of |acc| @ |features| (N terms, the
+        # division); the addition to the memory by 2^-23 of the result
+        lane_err = rows[:, None] * 2.0 ** -24 * abs_acc[:, :-1]
+        n_terms = abs_acc.shape[1] - 1
+        return (lane_err @ feats) / count[:, None] + \
+            (n_terms + 2) * 2.0 ** -23 * (abs_acc[:, :-1] @ feats) / \
+            count[:, None] + 2.0 ** -23 * want_f.abs()
+
+
+def match_detections(name, reply, want):
+    """Match a reply's detections one to one with `want`'s: the same class,
+    the score within phase 6's tolerances and the box within rtol 1e-3,
+    atol 1e-2. They are matched, not compared by rank: two detections
+    whose scores lie that close may come out in either order."""
+    v = want.valid.cpu()
+    ws, wb = want.scores.cpu()[v], want.boxes.cpu()[v]
+    wc = want.classes.cpu()[v].long()
+    rs = torch.tensor(reply["scores"], dtype=torch.float32)
+    rb = torch.tensor(reply["boxes"], dtype=torch.float32).reshape(-1, 4)
+    rc = torch.tensor(reply["classes"], dtype=torch.long)
+    if rs.numel() != ws.numel() or rc.numel() != rs.numel() or \
+            rb.shape[0] != rs.numel():
+        raise AssertionError(f"{name}: {rs.numel()} scores, {rc.numel()} "
+                             f"classes, {rb.shape[0]} boxes vs "
+                             f"{ws.numel()} detections")
+    rtol, atol = 1e-4, 1e-5
+    free = torch.ones(ws.numel(), dtype=torch.bool)
+    for i in torch.argsort(rs, descending=True, stable=True).tolist():
+        near = (free & (wc == rc[i])
+                & ((ws - rs[i]).abs() <= atol + rtol * ws.abs())
+                & ((wb - rb[i]).abs() <= 1e-2 + 1e-3 * wb.abs()).all(1))
+        j = torch.nonzero(near).flatten()
+        if j.numel() == 0:
+            raise AssertionError(
+                f"{name}: reply detection {i} (class {int(rc[i])}, score "
+                f"{float(rs[i]):.6g}, box {rb[i].tolist()}) has no "
+                f"counterpart among the predictor's own detections")
+        free[j[0]] = False
+
+
+def post_json(url, payload, timeout=120):
+    """(status, reply, encode s, round trip s, decode s) of one POST; the
+    round trip includes the server's decoding of the body."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    body = payload if isinstance(payload, bytes) else \
+        json.dumps(payload).encode()
+    t1 = time.perf_counter()
+    req = urllib.request.Request(url, body, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    t2 = time.perf_counter()
+    reply = json.loads(raw)
+    return code, reply, t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def check_predictor_and_server(robot_model, robot_cfg):
+    """Phase 11b: `EmbodiedPredictor` at the 64x96 f32 miniature on the
+    card against the CPU (5 frames, the memory reset before the fourth),
+    then `make_server` around a full-width predictor, its replies held to
+    the predictor's own detections on the same frames."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.demo.predictor import (
+        EmbodiedPredictor, load_zs_weight_npy)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.serve.server import make_server
+    import threading
+
+    frames = 5
+    cfg = miniature(DetectorConfig(), frames)
+    rng = np.random.RandomState(21)
+    images = rng.randint(0, 255, (frames, 64, 96, 3)).astype(np.uint8)
+    projs = rng.randint(0, 64, (frames, 64, 96)).astype(np.int32)
+    zs = rng.randn(512, 6).astype(np.float32)
+    zs[:, -1] = 0.0
+    zs[:, :-1] /= np.linalg.norm(zs[:, :-1], axis=0, keepdims=True)
+    outs, pasted = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_detector(cfg, seed=3, device=dev)
+        shift_mask_logits(model)
+        pred = EmbodiedPredictor(cfg, model=model, zs_weight=zs, device=dev)
+        with PasteRecorder() as rec:
+            outs[dev] = []
+            for t in range(frames):
+                if t == SERVER_RESET:
+                    pred.reset_memory()
+                outs[dev].append(pred(images[t], projs[t]))
+        pasted[dev] = rec.calls
+    flip_since_reset = False
+    held, skipped, worst = 0, 0, 0.0
+    for t in range(frames):
+        if t == SERVER_RESET:
+            flip_since_reset = False
+        fresh = t in (0, SERVER_RESET)
+        if flip_since_reset:
+            skipped += 1
+        else:
+            worst = max(worst, hold_scores(f"phase 11b frame {t}",
+                                           outs["cuda"][t], outs["cpu"][t],
+                                           fresh))
+            held += 1
+        flip_since_reset |= sum(paste_flips(pasted["cpu"][t],
+                                            pasted["cuda"][t], 64, 96)) > 0
+    print(f"  predictor at 64x96 f32, {frames} frames, reset before frame "
+          f"{SERVER_RESET}: {held} frames held (first after a reset rtol "
+          f"1e-4, later 1e-3), {skipped} after a paste flip not held; "
+          f"largest score gap {worst:.3e}")
+
+    # the server around a full-width predictor; then the predictor called
+    # directly on each request's frame and the memory the server held
+    # before it (its low bits are run-dependent: the write's atomics)
+    h, w = robot_cfg.input.height, robot_cfg.input.width
+    cells = robot_cfg.memory.max_cells
+    rng = np.random.RandomState(22)
+    big = rng.randint(0, 255, (SERVER_FRAMES, h, w, 3)).astype(np.uint8)
+    big_proj = np.stack([coherent_proj(rng, h, w, cells)
+                         for _ in range(SERVER_FRAMES)])
+    mp3d = load_zs_weight_npy(str(REPO / "embodied_object_detection_tpu_torch"
+                                  / "data" / "metadata" / "mp3d_clip.npy"))
+    served = EmbodiedPredictor(robot_cfg, model=robot_model, zs_weight=mp3d)
+    server = make_server(served, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rows, replies, before = [], [], []
+    try:
+        import urllib.request
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                raise AssertionError("phase 11b: /healthz")
+        for t in range(SERVER_FRAMES):
+            body = {"image": big[t].tolist(),
+                    "proj_indices": big_proj[t].tolist()}
+            if t == SERVER_RESET:
+                body["reset_memory"] = True
+            before.append(served.memory)
+            code, reply, enc, rt, dec = post_json(base + "/predict", body)
+            if code != 200:
+                raise AssertionError(f"phase 11b: /predict {t} -> {code} "
+                                     f"{reply}")
+            blob = json.dumps(body)
+            t0 = time.perf_counter()
+            json.loads(blob)
+            body_dec = time.perf_counter() - t0
+            replies.append(reply)
+            rows.append((len(reply["scores"]), enc, rt, dec, body_dec,
+                         len(blob)))
+        after = before[1:] + [served.memory]
+        zs_body = {"zs_weight": mp3d.tolist(), "names": None}
+        code, reply, *_ = post_json(base + "/set_vocabulary", zs_body)
+        if code != 200 or reply != {"num_classes": 20}:
+            raise AssertionError(f"phase 11b: /set_vocabulary -> {code} "
+                                 f"{reply}")
+        code, reply, *_ = post_json(base + "/predict", b"{not json")
+        if code != 400:
+            raise AssertionError(f"phase 11b: a malformed body -> {code} "
+                                 f"{reply}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    direct = EmbodiedPredictor(robot_cfg, model=robot_model, zs_weight=mp3d)
+    direct_ms, bit_equal, mem_err = [], 0, 0.0
+    for t in range(SERVER_FRAMES):
+        name = f"phase 11b /predict {t}"
+        if t == SERVER_RESET:
+            direct.reset_memory()
+        elif t:
+            direct.memory = before[t]
+        with WriteSpy() as spy:
+            t0 = time.perf_counter()
+            want = direct(big[t], big_proj[t])
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        got = want._replace(
+            scores=torch.tensor(replies[t]["scores"], dtype=torch.float32),
+            valid=torch.ones(len(replies[t]["scores"]), dtype=torch.bool))
+        hold_scores(name, got, want, True)
+        match_detections(name, replies[t], want)
+        bit_equal += torch.equal(sorted_scores(got), sorted_scores(want))
+        err = (after[t].features - direct.memory.features).abs()
+        bound = spy.bound(direct.memory.features)
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name}: the server's memory beyond the "
+                                 f"segment-sum's bound: "
+                                 f"{float((err - bound).max()):.3e}")
+        if not torch.equal(after[t].obs_count, direct.memory.obs_count):
+            raise AssertionError(f"{name}: the server's observation counts "
+                                 f"differ")
+        mem_err = max(mem_err, float(err.max()))
+    for t, (n, enc, rt, dec, bdec, size) in enumerate(rows):
+        print(f"  /predict {t}: {n} detections; body {size / 1e6:.1f} MB; "
+              f"client encode {enc * 1e3:.1f} ms, round trip {rt * 1e3:.1f} "
+              f"ms (of which the body's decode alone takes "
+              f"{bdec * 1e3:.1f} ms), reply decode {dec * 1e3:.2f} ms; the "
+              f"predictor called directly {direct_ms[t]:.1f} ms")
+    rt = sorted(r[2] for r in rows[1:])[len(rows[1:]) // 2] * 1e3
+    enc = sorted(r[1] for r in rows[1:])[len(rows[1:]) // 2] * 1e3
+    phase("11b", f"predictor at 64x96 f32 matches the CPU over {frames} "
+                 f"frames with a reset ({held} held, {skipped} after a "
+                 f"paste flip); server at 480x640: /healthz, "
+                 f"{SERVER_FRAMES} /predict (one resetting) equal to the "
+                 f"predictor's own on the memory the server held, within "
+                 f"phase 6's tolerances ({bit_equal} bit-equal scores), the "
+                 f"server's memory within the segment-sum's bound (max err "
+                 f"{mem_err:.3e}), /set_vocabulary 200, a malformed body "
+                 f"400; "
+                 f"median round trip {rt:.0f} ms + {enc:.0f} ms encoding a "
+                 f"request")
+
+
+def check_image_demo():
+    """Phase 11c: the image-only demo at full width: `predict_api`'s
+    `detect` with the LVIS (1203 classes) and COCO vocabularies, launches
+    a frame, `VisualizationDemo(parallel=True)` over 6 frames in order,
+    and the multiclass NMS's kept set on one frame's LVIS cascade scores
+    at score threshold 0 against the plain fixpoint."""
+    from embodied_object_detection_tpu_torch.demo import predict_api
+    from embodied_object_detection_tpu_torch.demo.demo import (
+        VisualizationDemo, resolve_vocabulary)
+    from embodied_object_detection_tpu_torch.models.centernet import (
+        decode_proposals)
+    from embodied_object_detection_tpu_torch.ops import nms
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+
+    rng = np.random.RandomState(31)
+    images = rng.randint(0, 255, (6, 480, 640, 3)).astype(np.uint8)
+    p = predict_api.Predictor()
+    p.setup(cfg=DetectorConfig())
+    for vocab in ("lvis", "coco"):
+        p.detect(images[0], vocabulary=vocab)       # builds, warms up
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        dets = p.detect(images[1], vocabulary=vocab)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counters()
+        expected = {k: LAUNCHES_PER_IMAGE.get(k, 0) for k in launches}
+        if launches != expected:
+            raise AssertionError(f"phase 11c {vocab}: launches {launches}, "
+                                 f"expected {expected}")
+        n = len(p._demo.class_names)
+        cls = np.asarray(dets.classes)[np.asarray(dets.valid)]
+        print(f"  detect, {vocab} ({n} classes): {ms:.1f} ms, "
+              f"{len(cls)} detections above 0.3, classes < {n}: "
+              f"{bool((cls < n).all())}")
+        if not (cls < n).all() or not np.isfinite(dets.scores).all():
+            raise AssertionError(f"phase 11c {vocab}: bad detections")
+
+    # the parallel demo over 6 frames, results in order
+    model, cfg = p._model, p._demo.cfg
+    zs = p._demo.predictor.zs_weight.cpu().numpy()
+    names = p._demo.class_names
+    single = [p.detect(im, vocabulary="coco") for im in images]
+    demo = VisualizationDemo(cfg, zs, names, model=model, parallel=True)
+
+    class Video:
+        def __init__(self):
+            self.i = 0
+
+        def read(self):
+            if self.i == len(images):
+                return False, None
+            self.i += 1
+            return True, np.ascontiguousarray(images[self.i - 1][:, :, ::-1])
+
+    got = []
+    orig = demo._postprocess
+
+    def spy(image_rgb, dets, thresh):
+        got.append(dets)
+        return orig(image_rgb, dets, thresh)
+    demo._postprocess = spy
+    t0 = time.perf_counter()
+    drawn = list(demo.run_on_video(Video(), 0.5))
+    par_s = time.perf_counter() - t0
+    demo.predictor.shutdown()
+    if len(drawn) != len(images) or len(got) != len(images):
+        raise AssertionError("phase 11c: the parallel demo lost frames")
+    for i, (g, s) in enumerate(zip(got, single)):
+        if not np.array_equal(np.asarray(g.valid), np.asarray(s.valid)) or \
+                not np.allclose(np.asarray(g.scores), np.asarray(s.scores),
+                                rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"phase 11c: parallel result {i} is not "
+                                 f"frame {i}'s")
+
+    # the multiclass NMS on one frame's LVIS cascade scores, threshold 0
+    zs_l = torch.from_numpy(resolve_vocabulary("lvis")[0]).cuda()
+    calls = []
+    kernel_keep = nms.nms_keep
+
+    def spy_keep(*args):
+        keep = kernel_keep(*args)
+        calls.append((args, keep))
+        return keep
+    # the op counts its launches on the module's `nms_keep`, the spy here
+    spy_keep.launches = 0
+    with torch.no_grad():
+        image = torch.from_numpy(images[2]).cuda().float()
+        feats = model.fpn(*model.backbone_raw(image), None)
+        hms, regs = model.centernet(feats)
+        props = decode_proposals(hms, regs, model.cfg.centernet)
+        cascade = model.roi_heads.run_cascade(feats[:3], props, zs_l,
+                                              (480, 640))
+        scores = torch.sqrt(cascade.mean_scores *
+                            props.scores[:, None].clamp(min=0.0))
+        nms.nms_keep = spy_keep
+        try:
+            nms.multiclass_nms(cascade.final_boxes, scores, props.valid,
+                               0.0, 0.5, 300)
+        finally:
+            nms.nms_keep = kernel_keep
+    (args, keep), = calls
+    plain = nms.nms_keep_plain(*args)
+    classes, valid = args[1], args[2]
+    if args[0].shape[0] != 2048 or not bool(valid.all()):
+        raise AssertionError(f"phase 11c: {args[0].shape[0]} candidates, "
+                             f"{int(valid.sum())} valid; expected the full "
+                             f"2048 cap")
+    if not torch.equal(keep, plain):
+        raise AssertionError(f"phase 11c: the NMS kept set differs from "
+                             f"the plain fixpoint's on "
+                             f"{int((keep != plain).sum())} candidates")
+    distinct = int(torch.unique(classes).numel())
+    print(f"  multiclass NMS on LVIS cascade scores (threshold 0): 2048 "
+          f"candidates of {distinct} classes, ids up to "
+          f"{int(classes.max())} (the partition has {nms.CLASS_BINS} bins); "
+          f"{int(keep.sum())} kept, equal to the plain fixpoint's")
+    phase("11c", f"image-only demo at 480x640: detect with lvis (1203 "
+                 f"classes) and coco, launches a frame {LAUNCHES_PER_IMAGE}; "
+                 f"the parallel demo's 6 frames in order "
+                 f"({par_s / 6 * 1e3:.1f} ms a frame); the NMS kept set "
+                 f"equal to the plain fixpoint's over {distinct} classes")
+
+
+EXPORT_LOADER = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from embodied_object_detection_tpu_torch import ops, serve
+step = serve.load_frame_step(sys.argv[1])
+loaded = time.perf_counter() - t0
+args = torch.load(sys.argv[2])
+out = step(*[a.cuda() for a in args])
+torch.cuda.synchronize()
+torch.save([o.cpu() for o in out], sys.argv[3])
+bad = [m for m in sys.modules if m.startswith(
+    "embodied_object_detection_tpu_torch.") and m.split(".")[1] not in
+    ("ops", "serve", "kernels", "structures")]
+print(json.dumps({"load_s": loaded, "modules": bad,
+                  "launches": ops.segment_sum.segment_sum.launches}))
+"""
+
+
+def check_export(model, cfg, memory):
+    """Phase 11d: export the full-width frame step, load it in a fresh
+    process that imports only the port's `ops` and `serve` packages, and
+    hold its outputs to eager `frame_step`'s on the same inputs."""
+    from embodied_object_detection_tpu_torch.serve import export
+
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    path = build_dir / "frame_step.pt2"
+    t0 = time.perf_counter()
+    export.save_frame_step(str(path), model, cfg)
+    export_s = time.perf_counter() - t0
+    h, w = cfg.input.height, cfg.input.width
+    rng = np.random.RandomState(41)
+    zs = rng.randn(512, cfg.roi.num_classes + 1).astype(np.float32)
+    zs /= np.linalg.norm(zs, axis=0, keepdims=True)
+    args = [torch.from_numpy(rng.randint(0, 255, (h, w, 3)).astype(
+                np.float32)),
+            torch.from_numpy(zs), memory.features.cpu(),
+            memory.obs_count.cpu(),
+            torch.from_numpy(coherent_proj(rng, h, w, cfg.memory.max_cells)),
+            torch.zeros((h, w), dtype=torch.bool)]
+    torch.save(args, build_dir / "frame_step_inputs.pt")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", EXPORT_LOADER, str(path),
+         str(build_dir / "frame_step_inputs.pt"),
+         str(build_dir / "frame_step_outputs.pt")],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    proc_s = time.perf_counter() - t0
+    if run.returncode:
+        raise AssertionError(f"phase 11d: the loading process failed:\n"
+                             f"{run.stderr[-3000:]}")
+    info = json.loads(run.stdout.strip().splitlines()[-1])
+    if info["modules"] or info["launches"] != 1:
+        raise AssertionError(f"phase 11d: the loader imported {info}")
+    got = torch.load(build_dir / "frame_step_outputs.pt")
+
+    # eager, with the segment-sum's inputs and the write's features kept
+    cuda = [a.cuda() for a in args]
+    with WriteSpy() as spy:
+        out = model.frame_step(*cuda)
+    d = out.detections
+    for name, g, e in zip(("boxes", "scores", "classes", "valid"), got[:4],
+                          d):
+        if not torch.equal(g, e.cpu()):
+            raise AssertionError(f"phase 11d: exported {name} differ from "
+                                 f"eager frame_step's")
+    # the memory: the write's segment-sum adds in another order each run
+    want_f = cuda[2] + out.write.features_update
+    bound = spy.bound(want_f)
+    err = (got[4].cuda() - want_f).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"phase 11d: memory beyond the segment-sum's "
+                             f"bound: {float((err - bound).max()):.3e}")
+    if not torch.equal(got[5].cuda(), cuda[3] + out.write.obs_update):
+        raise AssertionError("phase 11d: observation counts differ")
+    size = path.stat().st_size
+    phase("11d", f"frame step exported to build/frame_step.pt2 "
+                 f"({size / 2**20:.0f} MiB) in {export_s:.1f} s; loaded in "
+                 f"a fresh process importing only ops and serve in "
+                 f"{info['load_s']:.1f} s ({proc_s:.1f} s with the run): "
+                 f"detections equal to eager frame_step's, memory within "
+                 f"the segment-sum's bound (max err {float(err.max()):.3e})")
+    return export_s, info["load_s"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2423,6 +3140,10 @@ def main() -> int:
     eval_engine_against_cpu()
     train_launches, _, _ = run_train_path(args.profile)
     check_train_against_cpu()
+    robot_model, robot_cfg, robot_memory = run_robot_path()
+    check_predictor_and_server(robot_model, robot_cfg)
+    check_image_demo()
+    check_export(robot_model, robot_cfg, robot_memory)
     kernels = time_kernels(rng, launches, train_launches, errs)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

@@ -25,7 +25,15 @@ counterpart is easy to find:
   convert/                   carry the JAX package's parameters across
                              (from_jax.py), load detectron2 .pth files
                              (torch_weights.py)
-  demo/predictor.py          zero-shot classifier weights
+  geometry/projector.py      depth + pose -> map cell ids, on the device
+  demo/                      the streaming predictor with its memory
+                             (EmbodiedPredictor, AsyncPredictor), the
+                             robot and image demos, the cog-style
+                             Predictor, the visualizer; zero-shot
+                             classifier weights
+  serve/                     the HTTP server and the frame step's
+                             torch.export program
+  data/catalog.py            built-in vocabularies (class names, tables)
   run.py                     the CLI: --eval-only, --dry-run
   kernels/build.py           nvcc build + ctypes binding of csrc/*.cu
 

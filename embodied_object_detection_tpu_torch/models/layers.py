@@ -37,11 +37,13 @@ def nhwc(x: torch.Tensor, batched: bool) -> torch.Tensor:
 
 
 def as_dtype(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """`p` in `dtype`: a differentiable cast when autograd records it,
+    """`p` in `dtype`: a differentiable cast when autograd records it or
+    `torch.export` traces it (the exported program casts at each call),
     else a copy cached on `p` until `p` is changed in place or moved."""
     if p.dtype == dtype:
         return p
-    if torch.is_grad_enabled() and p.requires_grad:
+    if (torch.is_grad_enabled() and p.requires_grad) or \
+            torch.compiler.is_compiling():
         return p.to(dtype)
     key = (dtype, p.device, p.data_ptr(), p._version)
     cached = getattr(p, "_cast_cache", None)

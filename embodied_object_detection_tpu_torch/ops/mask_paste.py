@@ -15,6 +15,11 @@ sum the four taps in another order, so a value within f32 rounding of the
 threshold may land on the other side of it. `paste_masks_observed` is the
 exact memory write's form: the same paste, pixel-major, with the write's
 observed flags and per-row counts written by the same kernel.
+
+Both wrappers are custom ops (`eodt::paste_masks`,
+`eodt::paste_masks_observed`; `torch.library`) whose fake implementations
+give their output shapes, so that `serve/export.py` can export a frame
+that calls them.
 """
 
 from __future__ import annotations
@@ -110,13 +115,10 @@ def _paste_launch(masks, boxes, height, width, threshold, x_stride,
     return out, observed, counts
 
 
-def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
-                width: int, threshold: float = 0.5, x_stride: int = 1,
-                pixel_major: bool = False) -> torch.Tensor:
-    """masks [N, M, M] probabilities, boxes [N, 4] xyxy ->
-    [N, H, W//x_stride] (or [H, W//x_stride, N] with pixel_major);
-    booleans `>= threshold` when threshold >= 0, else the f32 values.
-    The kernel on the card, the plain version on a CPU tensor."""
+@torch.library.custom_op("eodt::paste_masks", mutates_args=())
+def _paste_masks_op(masks: torch.Tensor, boxes: torch.Tensor, height: int,
+                    width: int, threshold: float, x_stride: int,
+                    pixel_major: bool) -> torch.Tensor:
     if not build.on_card(masks):
         return paste_masks_plain(masks, boxes, height, width, threshold,
                                  x_stride, pixel_major)
@@ -124,7 +126,51 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
                          pixel_major)[0]
 
 
+@_paste_masks_op.register_fake
+def _(masks, boxes, height, width, threshold, x_stride, pixel_major):
+    n, out_w = masks.shape[0], -(-width // x_stride)
+    shape = (height, out_w, n) if pixel_major else (n, height, out_w)
+    return masks.new_empty(shape, dtype=torch.bool if threshold >= 0
+                           else torch.float32)
+
+
+def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
+                width: int, threshold: float = 0.5, x_stride: int = 1,
+                pixel_major: bool = False) -> torch.Tensor:
+    """masks [N, M, M] probabilities, boxes [N, 4] xyxy ->
+    [N, H, W//x_stride] (or [H, W//x_stride, N] with pixel_major);
+    booleans `>= threshold` when threshold >= 0, else the f32 values.
+    The kernel on the card, the plain version on a CPU tensor."""
+    return _paste_masks_op(masks, boxes, height, width, float(threshold),
+                           x_stride, pixel_major)
+
+
 paste_masks.launches = 0
+
+
+@torch.library.custom_op("eodt::paste_masks_observed", mutates_args=())
+def _paste_masks_observed_op(masks: torch.Tensor, boxes: torch.Tensor,
+                             valid: torch.Tensor, height: int, width: int,
+                             threshold: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    if not build.on_card(masks):
+        out = paste_masks_plain(masks, boxes, height, width, threshold,
+                                pixel_major=True)
+        observed = (out & valid).any(dim=-1)
+        return out, observed, observed.sum(dim=1, keepdim=True,
+                                           dtype=torch.int32)
+    return _paste_launch(masks, boxes, height, width, threshold, 1, True,
+                         valid)
+
+
+@_paste_masks_observed_op.register_fake
+def _(masks, boxes, valid, height, width, threshold):
+    cols = -(-width // TILE_COLS) if masks.device.type == "cuda" else 1
+    return (masks.new_empty((height, width, masks.shape[0]),
+                            dtype=torch.bool),
+            masks.new_empty((height, width), dtype=torch.bool),
+            masks.new_empty((height, cols), dtype=torch.int32))
 
 
 def paste_masks_observed(masks: torch.Tensor, boxes: torch.Tensor,
@@ -142,11 +188,5 @@ def paste_masks_observed(masks: torch.Tensor, boxes: torch.Tensor,
     if threshold < 0:
         raise ValueError(f"paste_masks_observed: the flags need boolean "
                          f"masks (threshold >= 0), got {threshold}")
-    if not build.on_card(masks):
-        out = paste_masks_plain(masks, boxes, height, width, threshold,
-                                pixel_major=True)
-        observed = (out & valid).any(dim=-1)
-        return out, observed, observed.sum(dim=1, keepdim=True,
-                                           dtype=torch.int32)
-    return _paste_launch(masks, boxes, height, width, threshold, 1, True,
-                         valid)
+    return _paste_masks_observed_op(masks, boxes, valid, height, width,
+                                    float(threshold))

@@ -17,6 +17,11 @@
 Counterpart of the JAX package's `ops/memory_ops.py`, with its host-side
 helpers `obs_visibility_host` and the proj-index guard of
 `engine/eval.py:chunk_to_frame_inputs`.
+
+The three kernel wrappers are custom ops (`eodt::memory_read`,
+`eodt::memory_read_batched`, `eodt::write_select`; `torch.library`)
+whose fake implementations give their output shapes, so that
+`serve/export.py` can export a frame that calls them.
 """
 
 from __future__ import annotations
@@ -117,16 +122,9 @@ def _read_launch(name, features, obs_count, proj_indices, pool, batch):
     return out
 
 
-def memory_read(features: torch.Tensor, obs_count: torch.Tensor,
-                proj_indices: torch.Tensor, pool: int = 4) -> torch.Tensor:
-    """Project map memory into the egocentric frame, mean-pooled.
-
-    features [cells, D] f32 sums, obs_count [cells] f32, proj_indices
-    [H, W] int32 with ids in [0, cells) -> [H/pool, W/pool, D] f32.
-    On the card (`csrc/memory_read.cu`) a pre-pass writes the normalised
-    bf16 table once, then a gather takes the mean of 16-byte vectors of
-    it; the plain version on a CPU tensor.
-    """
+@torch.library.custom_op("eodt::memory_read", mutates_args=())
+def _memory_read_op(features: torch.Tensor, obs_count: torch.Tensor,
+                    proj_indices: torch.Tensor, pool: int) -> torch.Tensor:
     if not build.on_card(features):
         return memory_read_plain(features, obs_count, proj_indices, pool)
     if features.dim() != 2 or proj_indices.dim() != 2:
@@ -139,16 +137,33 @@ def memory_read(features: torch.Tensor, obs_count: torch.Tensor,
     return out
 
 
+@_memory_read_op.register_fake
+def _(features, obs_count, proj_indices, pool):
+    h, w = proj_indices.shape
+    return features.new_empty((h // pool, w // pool, features.shape[-1]),
+                              dtype=torch.float32)
+
+
+def memory_read(features: torch.Tensor, obs_count: torch.Tensor,
+                proj_indices: torch.Tensor, pool: int = 4) -> torch.Tensor:
+    """Project map memory into the egocentric frame, mean-pooled.
+
+    features [cells, D] f32 sums, obs_count [cells] f32, proj_indices
+    [H, W] int32 with ids in [0, cells) -> [H/pool, W/pool, D] f32.
+    On the card (`csrc/memory_read.cu`) a pre-pass writes the normalised
+    bf16 table once, then a gather takes the mean of 16-byte vectors of
+    it; the plain version on a CPU tensor.
+    """
+    return _memory_read_op(features, obs_count, proj_indices, pool)
+
+
 memory_read.launches = 0
 
 
-def memory_read_batched(features: torch.Tensor, obs_count: torch.Tensor,
-                        proj_indices: torch.Tensor,
-                        pool: int = 4) -> torch.Tensor:
-    """`memory_read` over a batch of frames, each with its own memory, in
-    one launch: features [B, cells, D], obs_count [B, cells], proj_indices
-    [B, H, W] -> [B, H/pool, W/pool, D] f32, bit-exact per frame to
-    `memory_read` (the training step's read of precomputed memories)."""
+@torch.library.custom_op("eodt::memory_read_batched", mutates_args=())
+def _memory_read_batched_op(features: torch.Tensor, obs_count: torch.Tensor,
+                            proj_indices: torch.Tensor,
+                            pool: int) -> torch.Tensor:
     if not build.on_card(features):
         return memory_read_batched_plain(features, obs_count, proj_indices,
                                          pool)
@@ -160,6 +175,23 @@ def memory_read_batched(features: torch.Tensor, obs_count: torch.Tensor,
                        proj_indices, pool, features.shape[0])
     memory_read_batched.launches += 1
     return out
+
+
+@_memory_read_batched_op.register_fake
+def _(features, obs_count, proj_indices, pool):
+    b, h, w = proj_indices.shape
+    return features.new_empty((b, h // pool, w // pool, features.shape[-1]),
+                              dtype=torch.float32)
+
+
+def memory_read_batched(features: torch.Tensor, obs_count: torch.Tensor,
+                        proj_indices: torch.Tensor,
+                        pool: int = 4) -> torch.Tensor:
+    """`memory_read` over a batch of frames, each with its own memory, in
+    one launch: features [B, cells, D], obs_count [B, cells], proj_indices
+    [B, H, W] -> [B, H/pool, W/pool, D] f32, bit-exact per frame to
+    `memory_read` (the training step's read of precomputed memories)."""
+    return _memory_read_batched_op(features, obs_count, proj_indices, pool)
 
 
 memory_read_batched.launches = 0
@@ -217,25 +249,12 @@ def write_select_plain(masks_pm: torch.Tensor, det_valid: torch.Tensor,
     return seg_idx.to(torch.int32), aug
 
 
-def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
-                 proj_indices: torch.Tensor, subsample: int,
-                 observed: Optional[torch.Tensor] = None,
-                 row_counts: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The exact write's pixel selection: masks_pm [H, W, N] bool
-    (pixel-major), det_valid [N] bool, proj_indices [H, W] int32 ->
-    (seg_idx [H * J] int32, -1 for an empty slot; aug [H * J, N + 1] f32,
-    each selected pixel's mask weights 1/c over its c covering valid masks
-    and a count of 1 on lane N), J = ceil(W / subsample) slots a row.
-    The rows feed the segment-sum as they are. `observed` [H, W] bool and
-    `row_counts` [H, K] int32, the flags and counts `paste_masks_observed`
-    wrote with the masks, spare the kernel its first pass, which reads
-    every mask byte to find them. The row-scan kernel on the card
-    (`csrc/write_select.cu`), the plain version on a CPU tensor;
-    bit-exact to each other."""
-    if (observed is None) != (row_counts is None):
-        raise ValueError("write_select: pass observed and row_counts "
-                         "together, or neither")
+@torch.library.custom_op("eodt::write_select", mutates_args=())
+def _write_select_op(masks_pm: torch.Tensor, det_valid: torch.Tensor,
+                     proj_indices: torch.Tensor, subsample: int,
+                     observed: Optional[torch.Tensor],
+                     row_counts: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     if not build.on_card(masks_pm):
         return write_select_plain(masks_pm, det_valid, proj_indices,
                                   subsample, observed, row_counts)
@@ -291,6 +310,37 @@ def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
                build.stream_handle()), "write_select")
     write_select.launches += 1
     return seg_idx, aug
+
+
+@_write_select_op.register_fake
+def _(masks_pm, det_valid, proj_indices, subsample, observed, row_counts):
+    h, w, n = masks_pm.shape
+    j_cap = -(-w // subsample)
+    return (masks_pm.new_empty((h * j_cap,), dtype=torch.int32),
+            masks_pm.new_empty((h * j_cap, n + 1), dtype=torch.float32))
+
+
+def write_select(masks_pm: torch.Tensor, det_valid: torch.Tensor,
+                 proj_indices: torch.Tensor, subsample: int,
+                 observed: Optional[torch.Tensor] = None,
+                 row_counts: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact write's pixel selection: masks_pm [H, W, N] bool
+    (pixel-major), det_valid [N] bool, proj_indices [H, W] int32 ->
+    (seg_idx [H * J] int32, -1 for an empty slot; aug [H * J, N + 1] f32,
+    each selected pixel's mask weights 1/c over its c covering valid masks
+    and a count of 1 on lane N), J = ceil(W / subsample) slots a row.
+    The rows feed the segment-sum as they are. `observed` [H, W] bool and
+    `row_counts` [H, K] int32, the flags and counts `paste_masks_observed`
+    wrote with the masks, spare the kernel its first pass, which reads
+    every mask byte to find them. The row-scan kernel on the card
+    (`csrc/write_select.cu`), the plain version on a CPU tensor;
+    bit-exact to each other."""
+    if (observed is None) != (row_counts is None):
+        raise ValueError("write_select: pass observed and row_counts "
+                         "together, or neither")
+    return _write_select_op(masks_pm, det_valid, proj_indices, subsample,
+                            observed, row_counts)
 
 
 write_select.launches = 0

@@ -14,6 +14,10 @@ changing (one host check per iteration). Both give the unique greedy
 solution. Orders follow the JAX package's tie rules: `jnp.argsort` is
 stable and `lax.top_k` puts the lower index first, so every sort here is
 `torch.sort(..., stable=True)`.
+
+`nms_keep` is the custom op `eodt::nms_keep` (`torch.library`), so that
+`torch.export` records it as one call, on the card and on the CPU alike
+(the plain fixpoint's host checks stay inside it).
 """
 
 from __future__ import annotations
@@ -61,8 +65,8 @@ def topk_padded(kept_scores: torch.Tensor, topk: int, *rows: torch.Tensor
 def _greedy_keep(iou_mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Fixpoint of greedy suppression; iou_mask[i, j] is True iff i (the
     higher score) suppresses j. The suppression chain is at most N deep;
-    one host check per iteration."""
-    active = valid
+    one host check per iteration. Never returns `valid` itself."""
+    active = valid.clone()
     for _ in range(valid.shape[0]):
         suppressed = (iou_mask & active[:, None]).any(dim=0)
         new = valid & ~suppressed
@@ -89,13 +93,10 @@ def nms_keep_plain(boxes_s: torch.Tensor, classes_s: torch.Tensor,
     return _greedy_keep(iou_mask, valid_s)
 
 
-def nms_keep(boxes_s: torch.Tensor, classes_s: torch.Tensor,
-             valid_s: torch.Tensor, iou_threshold: float,
-             disabled: bool = False) -> torch.Tensor:
-    """Greedy keep set [N] bool of score-sorted boxes [N, 4] f32, classes
-    [N] int32 and valid [N] bool; `disabled` suppresses nothing. The
-    class-partitioned bitmask kernels on the card (`csrc/nms.cu`), the
-    plain version on a CPU tensor."""
+@torch.library.custom_op("eodt::nms_keep", mutates_args=())
+def _nms_keep_op(boxes_s: torch.Tensor, classes_s: torch.Tensor,
+                 valid_s: torch.Tensor, iou_threshold: float,
+                 disabled: bool) -> torch.Tensor:
     if not build.on_card(boxes_s):
         return nms_keep_plain(boxes_s, classes_s, valid_s, iou_threshold,
                               disabled)
@@ -143,6 +144,22 @@ def nms_keep(boxes_s: torch.Tensor, classes_s: torch.Tensor,
                int(bool(disabled)), build.stream_handle()), "nms")
     nms_keep.launches += 1
     return keep
+
+
+@_nms_keep_op.register_fake
+def _(boxes_s, classes_s, valid_s, iou_threshold, disabled):
+    return valid_s.new_empty((boxes_s.shape[0],), dtype=torch.bool)
+
+
+def nms_keep(boxes_s: torch.Tensor, classes_s: torch.Tensor,
+             valid_s: torch.Tensor, iou_threshold: float,
+             disabled: bool = False) -> torch.Tensor:
+    """Greedy keep set [N] bool of score-sorted boxes [N, 4] f32, classes
+    [N] int32 and valid [N] bool; `disabled` suppresses nothing. The
+    class-partitioned bitmask kernels on the card (`csrc/nms.cu`), the
+    plain version on a CPU tensor."""
+    return _nms_keep_op(boxes_s, classes_s, valid_s, float(iou_threshold),
+                        bool(disabled))
 
 
 nms_keep.launches = 0

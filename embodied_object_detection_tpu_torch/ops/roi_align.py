@@ -27,13 +27,18 @@ plain form, differentiated by torch autograd:
              assigned level selected
   impl="v1"  the bilinear tap form: four gathered taps per sample from one
              flattened table of all levels, then the window mean
+
+The forward wrapper `roi_align_cuda` is the custom op `eodt::roi_align`
+(`torch.library`), whose fake implementation gives its output shape, so
+that `serve/export.py` can export a frame that calls it;
+`RoiAlignFunction` wraps it for training.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -173,18 +178,11 @@ def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
     return vals.mean(dim=(2, 4))
 
 
-def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                   lvl_of_roi: torch.Tensor, strides: Tuple[int, ...],
-                   output_size: int, sampling_ratio: int,
-                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The tap form on the card (`csrc/roi_align.cu`): features per-level
-    [H_l, W_l, C] bf16 or f32, boxes [R, 4] f32, lvl_of_roi [R] int32 in
-    [0, levels) -> [R, S, S, C] in the features' type. Each block stages
-    its ROI's distinct tap rows x distinct tap columns in shared memory,
-    in bands of output rows when they do not fit; `stats`, an int32 [R, 3]
-    tensor on the card, is zeroed and then receives each ROI's largest
-    staged grid (positions), the positions all its bands staged, and its
-    bands beyond one a block (0 where no band split)."""
+@torch.library.custom_op("eodt::roi_align", mutates_args=("stats",))
+def _roi_align_op(features: List[torch.Tensor], boxes: torch.Tensor,
+                  lvl_of_roi: torch.Tensor, strides: List[int],
+                  output_size: int, sampling_ratio: int,
+                  stats: Optional[torch.Tensor]) -> torch.Tensor:
     dtype = features[0].dtype
     c = features[0].shape[-1]
     r = boxes.shape[0]
@@ -245,6 +243,29 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                build.stream_handle()), "roi_align")
     roi_align_cuda.launches += 1
     return out
+
+
+@_roi_align_op.register_fake
+def _(features, boxes, lvl_of_roi, strides, output_size, sampling_ratio,
+      stats):
+    return boxes.new_empty((boxes.shape[0], output_size, output_size,
+                            features[0].shape[-1]), dtype=features[0].dtype)
+
+
+def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                   lvl_of_roi: torch.Tensor, strides: Tuple[int, ...],
+                   output_size: int, sampling_ratio: int,
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tap form on the card (`csrc/roi_align.cu`): features per-level
+    [H_l, W_l, C] bf16 or f32, boxes [R, 4] f32, lvl_of_roi [R] int32 in
+    [0, levels) -> [R, S, S, C] in the features' type. Each block stages
+    its ROI's distinct tap rows x distinct tap columns in shared memory,
+    in bands of output rows when they do not fit; `stats`, an int32 [R, 3]
+    tensor on the card, is zeroed and then receives each ROI's largest
+    staged grid (positions), the positions all its bands staged, and its
+    bands beyond one a block (0 where no band split)."""
+    return _roi_align_op(list(features), boxes, lvl_of_roi, list(strides),
+                         output_size, sampling_ratio, stats)
 
 
 roi_align_cuda.launches = 0

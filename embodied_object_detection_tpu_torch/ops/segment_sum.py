@@ -19,6 +19,10 @@ the multiple of 4 at or above K, so that every vector atomic is 16-byte
 aligned; the result is its [:, :K] view (row stride K'), which
 `memory_write`'s `acc[:, :-1] @ features` and `acc[:, -1]` read as they
 are.
+
+The wrapper is the custom op `eodt::segment_sum` (`torch.library`), with
+a fake implementation that gives its output's shape and strides, so that
+`serve/export.py` can export a frame that calls it.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ def segment_sum_plain(w: torch.Tensor, idx: torch.Tensor,
     return out[:num_cells]
 
 
-def segment_sum(w: torch.Tensor, idx: torch.Tensor,
-                num_cells: int) -> torch.Tensor:
-    """[S, K] f32 rows, [S] int32 cell ids -> [num_cells, K] f32 sums."""
+@torch.library.custom_op("eodt::segment_sum", mutates_args=())
+def _segment_sum_op(w: torch.Tensor, idx: torch.Tensor,
+                    num_cells: int) -> torch.Tensor:
+    """The wrapper's body: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
     if not build.on_card(w):
         return segment_sum_plain(w, idx, num_cells)
     if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
@@ -65,6 +71,24 @@ def segment_sum(w: torch.Tensor, idx: torch.Tensor,
                padded, num_cells, build.stream_handle()), "segment_sum")
     segment_sum.launches += 1
     return out[:, :lanes]
+
+
+@_segment_sum_op.register_fake
+def _(w, idx, num_cells):
+    lanes = w.shape[1]
+    if w.device.type == "cuda":
+        return w.new_empty((num_cells, -(-lanes // 4) * 4),
+                           dtype=torch.float32)[:, :lanes]
+    return w.new_empty((num_cells + 1, lanes), dtype=torch.float32)[
+        :num_cells]
+
+
+def segment_sum(w: torch.Tensor, idx: torch.Tensor,
+                num_cells: int) -> torch.Tensor:
+    """[S, K] f32 rows, [S] int32 cell ids -> [num_cells, K] f32 sums,
+    through the custom op `eodt::segment_sum` (so that `torch.export`
+    records the call and the exported program launches the kernel)."""
+    return _segment_sum_op(w, idx, num_cells)
 
 
 segment_sum.launches = 0

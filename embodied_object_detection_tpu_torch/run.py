@@ -255,7 +255,7 @@ def parity_dry_run(args) -> dict:
         model = build_detector(mini, seed=0, device=args.device)
         if args.weights and args.weights.endswith((".pth", ".pkl")) \
                 and os.path.exists(args.weights):
-            _load_weights(model, mini, args.weights)
+            load_weights(model, mini, args.weights)
         with tempfile.TemporaryDirectory() as td:
             root = os.path.join(td, "synth")
             generate_synthetic_dataset(root, num_scenes=1,
@@ -302,11 +302,15 @@ def _not_ported(args) -> None:
             "ported yet: ROADMAP queue 1 item 9; pass --eval-only")
 
 
-def _load_weights(model, cfg, path: str) -> None:
+def load_weights(model, cfg, path: str):
+    """Load `path` into `model`: a detectron2 .pth / .pkl, converted and
+    required to match the model, or a checkpoint of the port. Returns the
+    .pth's zs_weight buffer (the classifier it was trained with), else
+    None."""
     if path.endswith((".pth", ".pkl")):
         from .convert.torch_weights import (load_torch_checkpoint,
                                             verify_against_model)
-        converted, _ = load_torch_checkpoint(path)
+        converted, zs_weight = load_torch_checkpoint(path)
         missing, extra, mismatch = verify_against_model(converted, model)
         print(f"converted {path}: missing={len(missing)} "
               f"extra={len(extra)} mismatch={len(mismatch)}")
@@ -320,7 +324,7 @@ def _load_weights(model, cfg, path: str) -> None:
                 "refusing to run with randomly initialized parameters")
         sd = converted["state_dict"]
         model.load_state_dict({k: sd[k] for k in model.state_dict()})
-        return
+        return zs_weight
     from .engine.checkpoint import latest_checkpoint, restore_checkpoint
     from .parallel.train_step import make_train_step
     ckpt = latest_checkpoint(path) if os.path.isdir(path) else path
@@ -328,6 +332,7 @@ def _load_weights(model, cfg, path: str) -> None:
         raise FileNotFoundError(f"no checkpoint in {path}")
     init_state, _ = make_train_step(model, cfg)
     restore_checkpoint(ckpt, init_state())
+    return None
 
 
 def main(argv=None):
@@ -365,7 +370,7 @@ def main(argv=None):
 
     model = build_detector(cfg, seed=0, device=args.device)
     if args.weights:
-        _load_weights(model, cfg, args.weights)
+        load_weights(model, cfg, args.weights)
     zs_weight = find_zs_weight(args, cfg.roi.num_classes,
                                cfg.zeroshot_weight_path)
 

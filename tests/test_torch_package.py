@@ -52,24 +52,29 @@ def test_port_file_imports_nothing_of_jax(path):
 
 
 def test_import_leaves_jax_unloaded():
-    """Every port module imports without JAX, and without h5py or PIL,
-    which the data layer imports where it reads h5 or JPEG files (the
-    card's machine has neither)."""
+    """Every port module imports without JAX, and without h5py, PIL or
+    cv2, which the data layer and the demos import where they read h5,
+    JPEG or video files or draw (the card's machine has none of them)."""
     modules = [m.name for m in pkgutil.walk_packages(
         [str(PORT_DIR)], prefix="embodied_object_detection_tpu_torch.")]
+    serving = {f"embodied_object_detection_tpu_torch.{m}" for m in (
+        "geometry", "geometry.projector", "data.catalog", "demo.visualizer",
+        "demo.predictor", "demo.demo", "demo.predict_api",
+        "demo.robot_demo", "serve", "serve.server", "serve.export")}
+    assert serving <= set(modules), serving - set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
             "lazy = [m for m in sys.modules if m.split('.')[0] in "
-            "('h5py', 'PIL')]\n"
+            "('h5py', 'PIL', 'cv2')]\n"
             "assert not lazy, lazy\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 14
+    assert len(modules) >= 25
 
 
 def test_build_detector_without_device_raises_without_card(monkeypatch):
