@@ -153,6 +153,40 @@ Phases (each prints its own lines; any failure exits non-zero):
      `frame_step`'s, the memory within the segment-sum's bound; export and
      load seconds
 
+  12. the deformable attention kernels (forward and backward) against
+     their plain version at the encoder's full-width shape (Q = S = 6380
+     tokens of 60x80 + 30x40 + 15x20 + 8x10, M = 8, D = 32, L = 4, P = 4)
+     and the decoder's (Q = 100), locations in [-0.1, 1.1] with pixel
+     centres, borders and the -1 row: the forward within 1e-5 of the
+     plain version's largest output, grad_loc and grad_attn within 1e-5 of
+     the plain autograd's largest, grad_value and the plain autograd's
+     within contributions x 2^-24 x sum|contribution| of the exact sum of
+     its f32 contributions
+  12b. Deformable-DETR inference at 480x640 with seeded weights at the
+     JAX defaults (ResNet-50, hidden 256, 8 heads, 6 + 6 layers, FFN
+     2048, 4 levels x 4 points, 100 queries): the single-stage linear
+     detector (20 classes) and the two-stage, box-refine, zero-shot one
+     on the vendored mp3d table, `detr_inference` to 100 detections over
+     24 frames each under the sync debug mode "error" (a warm-up frame
+     under "warn" first), 12 deformable-attention launches a frame, ms a
+     frame, the busy share (device busy ms a frame of 2 profiled frames
+     over the timed ms a frame), peak memory
+  12c. Deformable-DETR training at 480x640: 3 `detr_train_step_host_matched`
+     steps of the two-stage, box-refine detector on 5 GT boxes, each with
+     a `GroupedOptimizer` step: finite losses, gradients on enc_output,
+     sampling_offsets and value_proj, 12 forward and 12 backward launches
+     a step, ms a step, peak memory, and the host syncs of one more step
+     (8 by design: the GT validity and 7 cost matrices)
+  12d. the same detector at 64x96 with ResNet depths (1, 1, 1, 1) on the
+     card and on the CPU from the same seeded weights: DETROutputs of both
+     variants within 1e-4 of each output's largest, one two-stage train
+     step's losses within 1e-4 and gradients within 1e-3 of each tensor's
+     largest (plus 1e-6 of the step's largest for gradients that are 0 in
+     exact arithmetic)
+  7 also times both deformable attention kernels (the encoder's shape in
+  the JSON line, the decoder's printed) beside the plain version and the
+  reference's grid_sample composition (its autograd for the backward).
+
 With --profile, phases 5, 8 and 10 also print each port kernel's device
 time a call in the profiled chunk, step and engine run (10: the engine
 over its first 2 chunks), the mask paste + write selection a frame, and
@@ -258,7 +292,7 @@ def event_ms(fn, reps: int = 20) -> float:
 def kernel_counters():
     """Kernel name -> the wrapper whose `launches` counts its launches."""
     from embodied_object_detection_tpu_torch.ops import (
-        mask_paste, memory_ops, nms, roi_align, segment_sum)
+        mask_paste, memory_ops, ms_deform_attn, nms, roi_align, segment_sum)
     return {"segment_sum": segment_sum.segment_sum,
             "memory_read": memory_ops.memory_read,
             "nms": nms.nms_keep,
@@ -266,7 +300,10 @@ def kernel_counters():
             "roi_align_backward": roi_align.roi_align_backward_cuda,
             "mask_paste": mask_paste.paste_masks,
             "memory_read_batched": memory_ops.memory_read_batched,
-            "write_select": memory_ops.write_select}
+            "write_select": memory_ops.write_select,
+            "ms_deform_attn": ms_deform_attn.ms_deform_attn_cuda,
+            "ms_deform_attn_backward":
+                ms_deform_attn.ms_deform_attn_backward_cuda}
 
 
 def zero_counters():
@@ -1300,7 +1337,7 @@ def profile_run(fn, out_dir, tag, units, unit):
     print("\n".join(table.splitlines()[:30]))
     # the device time of each of the port's kernels in this run
     ours = ("segment_sum", "memory_read", "nms_", "roi_align", "mask_paste",
-            "write_select")
+            "write_select", "ms_deform_attn")
     for e in sorted(averages, key=lambda e: -e.device_time_total):
         if e.device_time_total > 0 and any(k in e.key for k in ours):
             print(f"  in the {tag}: {kernel_name(e.key)} "
@@ -1316,7 +1353,17 @@ def profile_run(fn, out_dir, tag, units, unit):
     waits = {name: sum(1 for e in trace_events if e.get("name") == name)
              for name in ("cudaStreamSynchronize", "cudaMemcpyAsync")}
     print(f"  host calls in the {tag}: {waits}")
-    # device busy time = union of kernel / copy / set intervals
+    ops, busy, span = device_busy(trace_events)
+    print(f"  profiled {tag}: {ops} device ops, device busy "
+          f"{busy / 1e3:.2f} ms of a {span / 1e3:.2f} ms span "
+          f"({busy / 1e3 / units:.2f} ms/{unit} busy; idle share "
+          f"{1 - busy / span:.3f} under the profiler)")
+
+
+def device_busy(trace_events):
+    """(device ops, busy us, span us) of a chrome trace: busy time is the
+    union of its kernel, copy and set intervals, the span from the first
+    one's start to the last one's end."""
     events = sorted(
         (e["ts"], e["ts"] + e["dur"]) for e in trace_events
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
@@ -1329,11 +1376,21 @@ def profile_run(fn, out_dir, tag, units, unit):
         else:
             cur[1] = max(cur[1], e)
     busy += cur[1] - cur[0]
-    span = max(e for _, e in events) - events[0][0]
-    print(f"  profiled {tag}: {len(events)} device ops, device busy "
-          f"{busy / 1e3:.2f} ms of a {span / 1e3:.2f} ms span "
-          f"({busy / 1e3 / units:.2f} ms/{unit} busy; idle share "
-          f"{1 - busy / span:.3f} under the profiler)")
+    return len(events), busy, max(e for _, e in events) - events[0][0]
+
+
+def profile_busy(fn):
+    """Profile one fn() call: (device ops, busy us, span us)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        return device_busy(json.loads(trace.read_text())["traceEvents"])
 
 
 def miniature(cfg, frames):
@@ -2087,7 +2144,8 @@ def check_train_against_cpu():
              f"{moved} elements moved by >= lr mult / 2 on the card")
 
 
-def time_kernels(rng, launches, train_launches, errs):
+def time_kernels(rng, launches, train_launches, errs, detr_launches,
+                 detr_train_launches):
     from embodied_object_detection_tpu_torch.ops import memory_ops
     from embodied_object_detection_tpu_torch.ops import segment_sum as ss
 
@@ -2161,7 +2219,8 @@ def time_kernels(rng, launches, train_launches, errs):
         time_roi_align_backward(rng, train_launches, errs) + \
         time_mask_paste(rng, launches, errs) + \
         time_memory_read_batched(rng, train_launches, errs) + \
-        time_write_select(rng, launches, errs)
+        time_write_select(rng, launches, errs) + \
+        time_ms_deform_attn(rng, detr_launches, detr_train_launches, errs)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.1f} us kernel, "
               f"{k['plain_ms'] * 1e3:.1f} us plain, bound "
@@ -2169,8 +2228,10 @@ def time_kernels(rng, launches, train_launches, errs):
               f"{'-' if k['library_ms'] is None else '%.1f us' % (k['library_ms'] * 1e3)}")
     phase(7, "kernel device times from CUDA graphs of 20 calls x 10 "
              "replays, inputs L2-warm (the plain NMS, which checks its "
-             "fixpoint on the host, and the plain ROIAlign backward, "
-             "torch autograd, from CUDA events around 20 eager calls)")
+             "fixpoint on the host, and the plain ROIAlign backward, torch "
+             "autograd, from CUDA events around 20 eager calls; the "
+             "deformable attention's backward yardsticks, torch autograd, "
+             "graph-captured like the kernels)")
     return kernels
 
 
@@ -3103,6 +3164,467 @@ def check_export(model, cfg, memory):
     return export_s, info["load_s"]
 
 
+# ---------------------------------------------------------- Deformable-DETR
+
+# the encoder's levels at 480x640: C3-C5 and the stride-64 extra level
+DETR_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
+DETR_LAUNCHES = 12      # deformable attentions a forward: 6 encoder + 6 decoder
+DETR_FRAMES = 24
+DETR_STEPS = 3
+DETR_VARIANTS = {"single_stage": {},
+                 "two_stage_refine_zeroshot": dict(
+                     use_zeroshot=True, with_box_refine=True,
+                     two_stage=True)}
+# sampling-offset and attention-weight kernels from normal(0, 0.1) (the JAX
+# init zeroes them): samples spread ~2 level pixels from their references
+DETR_ATTN_STD = 0.1
+
+
+def msda_inputs(rng, q, m=8, d=32, p=4, shapes=DETR_LEVELS):
+    """value [S, M, D], locations [Q, M, L, P, 2] in [-0.1, 1.1] with each
+    level's first point of every (query, head) on an edge case (a pixel
+    centre, the first and last centres, 0 and 1, and -0.5 / size: a
+    sample on the -1 row or column), softmaxed weights, a grad_out."""
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(s, m, d).astype(np.float32)
+    locs = rng.uniform(-0.1, 1.1, (q, m, len(shapes), p, 2)).astype(
+        np.float32)
+    for lvl, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            edge = np.array([(size // 2 + 0.5) / size, 0.5 / size,
+                             (size - 0.5) / size, 0.0, 1.0, -0.5 / size],
+                            np.float32)
+            locs[:, :, lvl, 0, axis] = edge[rng.randint(0, 6, (q, m))]
+    attn = rng.rand(q, m, len(shapes), p).astype(np.float32)
+    attn /= attn.sum(axis=(2, 3), keepdims=True)
+    grad = rng.randn(q, m * d).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (value, locs, attn, grad)]
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def msda_check(value, locs, attn, grad, shapes=DETR_LEVELS):
+    """The kernels against the plain version on the same inputs: (forward
+    max abs err, its share of max |plain|, grad_loc and grad_attn errors
+    as shares of the plain autograd's largest, grad_value's max err
+    against the exact (f64) sum of its f32 contributions (g * a) * w and
+    max err / bound, the bound contributions x 2^-24 x sum|contribution|
+    that any summation order keeps, the plain autograd's grad_value's max
+    err / bound against the same exact sum, the most contributions on one
+    element). A miss raises."""
+    from embodied_object_detection_tpu_torch.ops import ms_deform_attn as ma
+    out = ma.ms_deform_attn_cuda(value, shapes, locs, attn)
+    plain = ma.ms_deform_attn_plain(value, shapes, locs, attn)
+    fwd = float((out - plain).abs().max())
+    fwd_rel = rel_err(out, plain)
+    gv, gl, ga = ma.ms_deform_attn_backward_cuda(grad, value, shapes, locs,
+                                                 attn)
+    leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
+    (ma.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2]) *
+     grad).sum().backward()
+    loc_rel = rel_err(gl, leaves[1].grad)
+    attn_rel = rel_err(ga, leaves[2].grad)
+    exact, bound, count = ma.ms_deform_attn_grad_value_exact(
+        shapes, value, locs, attn, grad)
+    err = (gv.double() - exact).abs()
+    gv_err = float(err.max())
+    ratio = float((err / bound.clamp(min=1e-300)).max())
+    plain_err = (leaves[0].grad.double() - exact).abs()
+    plain_ratio = float((plain_err / bound.clamp(min=1e-300)).max())
+    if fwd_rel > 1e-5 or loc_rel > 1e-5 or attn_rel > 1e-5 or \
+            not bool((err <= bound).all()) or \
+            not bool((plain_err <= bound).all()):
+        raise AssertionError(
+            f"ms_deform_attn kernels vs plain: forward {fwd_rel:.3e}, "
+            f"grad_loc {loc_rel:.3e}, grad_attn {attn_rel:.3e} (tolerance "
+            f"1e-5 of the largest), grad_value max err / bound {ratio:.3f}, "
+            f"the plain autograd's grad_value max err / bound "
+            f"{plain_ratio:.3f}")
+    return (fwd, fwd_rel, loc_rel, attn_rel, gv_err, ratio, plain_ratio,
+            int(count.max()))
+
+
+def check_ms_deform_attn(rng):
+    """Phase 12: both kernels against the plain version at the encoder's
+    (Q = S) and the decoder's (Q = 100) full-width shapes."""
+    s = sum(h * w for h, w in DETR_LEVELS)
+    worst_fwd = worst_gv = 0.0
+    for name, q in (("encoder", s), ("decoder", 100)):
+        fwd, fwd_rel, loc_rel, attn_rel, gv_err, ratio, plain_ratio, most = \
+            msda_check(*msda_inputs(rng, q))
+        worst_fwd, worst_gv = max(worst_fwd, fwd), max(worst_gv, gv_err)
+        print(f"  {name} (Q = {q}, S = {s}, M = 8, D = 32, L = 4, P = 4): "
+              f"forward max err {fwd:.3e} ({fwd_rel:.2e} of max |plain|, "
+              f"tolerance 1e-5); grad_loc {loc_rel:.2e} and grad_attn "
+              f"{attn_rel:.2e} of the plain autograd's largest (tolerance "
+              f"1e-5); grad_value max err {gv_err:.3e} from the exact sum, "
+              f"max err / bound {ratio:.3f} (up to {most} contributions on "
+              f"one element), the plain autograd's grad_value max err / "
+              f"bound {plain_ratio:.3f} from the same sum")
+    phase(12, "ms_deform_attn forward within 1e-5 of the plain version's "
+              "largest output, its backward's grad_loc and grad_attn within "
+              "1e-5 of the plain autograd's largest, grad_value and the "
+              "plain autograd's within contributions x 2^-24 x "
+              "sum|contribution| of the exact sum, "
+              "at the encoder's and the decoder's shapes, locations in "
+              "[-0.1, 1.1] with pixel centres, borders and the -1 row")
+    return {"ms_deform_attn": worst_fwd, "ms_deform_attn_backward": worst_gv}
+
+
+def detr_zs():
+    import os
+    from embodied_object_detection_tpu_torch.data.catalog import METADATA_DIR
+    from embodied_object_detection_tpu_torch.demo.predictor import (
+        load_zs_weight_npy)
+    return torch.from_numpy(load_zs_weight_npy(
+        os.path.join(METADATA_DIR, "mp3d_clip.npy")))
+
+
+def run_detr_inference():
+    """Phase 12b: the full-width detector and detr_inference, both
+    variants; launches, host syncs, ms/frame, busy share, peak memory."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.models.deformable_detr import (
+        build_deformable_detr, detr_inference)
+
+    cfg = DetectorConfig()
+    h, w = cfg.input.height, cfg.input.width
+    rng = np.random.RandomState(50)
+    images = torch.from_numpy(rng.randint(0, 255, (DETR_FRAMES, h, w, 3))
+                              .astype(np.float32)).cuda()
+    zs = detr_zs().cuda()
+    first, summary = None, []
+    for name, variant in DETR_VARIANTS.items():
+        model = build_deformable_detr(cfg, seed=0, device="cuda",
+                                      attn_init_std=DETR_ATTN_STD, **variant)
+        z = zs if variant.get("use_zeroshot") else None
+
+        def frames(n):
+            with torch.no_grad():
+                outs = []
+                for i in range(n):
+                    out = model(images[i], z)
+                    outs.append((out, detr_inference(
+                        out.logits[-1], out.boxes_cxcywh[-1], (h, w))))
+                return outs
+
+        syncs = sync_sites(lambda: frames(1))
+        if syncs:
+            for site, n in syncs.items():
+                print(f"    {n} x {site}")
+            raise AssertionError(f"phase 12b {name}: the frame synchronises "
+                                 "with the host")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = frames(DETR_FRAMES)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / DETR_FRAMES * 1e3
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: DETR_LAUNCHES * DETR_FRAMES * (k == "ms_deform_attn")
+                    for k in launches}
+        if launches != expected:
+            raise AssertionError(f"phase 12b {name}: launches {launches}, "
+                                 f"expected {expected}")
+        classes = cfg.roi.num_classes
+        for out, dets in outs:
+            enc = out.enc_logits
+            ok = out.logits.shape == (6, 100, classes) and \
+                dets.boxes.shape == (100, 4) and \
+                all(bool(torch.isfinite(t).all()) for t in (
+                    out.logits, out.boxes_cxcywh, dets.boxes, dets.scores)) \
+                and bool((dets.scores[:-1] >= dets.scores[1:]).all()) and \
+                (enc is None or (enc.shape == (sum(
+                    a * b for a, b in DETR_LEVELS), classes) and
+                    bool(torch.isfinite(enc).all())))
+            if not ok:
+                raise AssertionError(f"phase 12b {name}: bad outputs")
+        ops, busy, span = profile_busy(lambda: frames(2))
+        busy_ms = busy / 2e3
+        dets = outs[-1][1]
+        print(f"  {name}: {DETR_FRAMES} frames at {h}x{w}, {ms:.2f} ms/frame "
+              f"(eager, host clock), 0 host syncs (sync debug mode 'error'), "
+              f"launches {launches['ms_deform_attn']} "
+              f"({DETR_LAUNCHES} a frame), peak {peak / 2 ** 30:.2f} GiB; "
+              f"profiled 2 frames: {ops} device ops, device busy "
+              f"{busy_ms:.2f} ms/frame, busy share {busy_ms / ms:.3f} of the "
+              f"timed frame ({busy / span:.3f} of the profiled span, under "
+              f"the profiler); last frame's top score "
+              f"{float(dets.scores[0]):.4f}, class {int(dets.classes[0])}")
+        summary.append(f"{name} {ms:.2f} ms/frame, device busy "
+                       f"{busy_ms:.2f} ms/frame (busy share "
+                       f"{busy_ms / ms:.3f}), peak {peak / 2 ** 30:.2f} GiB")
+        first = first or launches
+        del model
+    phase("12b", f"Deformable-DETR inference at {h}x{w} (ResNet-50, hidden "
+                 f"256, 6 + 6 layers, 100 queries, seeded weights): "
+                 f"{'; '.join(summary)}; detr_inference to 100 detections, "
+                 f"{DETR_LAUNCHES} deformable-attention launches a frame, "
+                 "no host sync")
+    return first
+
+
+def detr_gt(rng, h, w, g=8, valid=5):
+    from embodied_object_detection_tpu_torch.structures import GroundTruth
+    x1 = rng.uniform(0, w * 0.6, g)
+    y1 = rng.uniform(0, h * 0.6, g)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(16, w * 0.4, g),
+                      y1 + rng.uniform(16, h * 0.4, g)], -1)
+    live = np.arange(g) < valid
+    boxes[~live] = 0.0
+    classes = np.where(live, rng.randint(0, 20, g), 0)
+    return GroundTruth(torch.from_numpy(boxes.astype(np.float32)),
+                       torch.from_numpy(classes.astype(np.int32)),
+                       torch.from_numpy(live))
+
+
+def run_detr_training():
+    """Phase 12c: three full-width train steps of the two-stage, box-refine
+    detector, each followed by a GroupedOptimizer step."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.engine.solver import (
+        GroupedOptimizer)
+    from embodied_object_detection_tpu_torch.models.deformable_detr import (
+        build_deformable_detr, detr_train_step_host_matched)
+
+    cfg = DetectorConfig()
+    h, w = cfg.input.height, cfg.input.width
+    model = build_deformable_detr(cfg, seed=1, device="cuda",
+                                  attn_init_std=DETR_ATTN_STD,
+                                  with_box_refine=True, two_stage=True)
+    opt = GroupedOptimizer(model.named_parameters(), cfg.solver)
+    rng = np.random.RandomState(51)
+    images = torch.from_numpy(rng.randint(0, 255, (DETR_STEPS + 2, h, w, 3))
+                              .astype(np.float32)).cuda()
+    gts = [type(g)(*[t.cuda() for t in g])
+           for g in (detr_gt(rng, h, w) for _ in range(DETR_STEPS + 2))]
+
+    def step(i):
+        (total, aux), grads = detr_train_step_host_matched(
+            model, images[i], gts[i], (h, w))
+        for n, p in model.named_parameters():
+            p.grad = grads[n]
+        opt.step()
+        return total, aux, grads
+
+    step(0)                                   # cuDNN's first calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    step_ms, totals = [], []
+    for i in range(1, DETR_STEPS + 1):
+        t0 = time.perf_counter()
+        total, aux, grads = step(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        bad = [k for k, v in aux.items() if not math.isfinite(float(v))]
+        if bad or not math.isfinite(float(total)):
+            raise AssertionError(f"phase 12c: non-finite losses {bad}")
+        totals.append(float(total))
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {k: DETR_LAUNCHES * DETR_STEPS * (
+        k in ("ms_deform_attn", "ms_deform_attn_backward")) for k in launches}
+    if launches != expected:
+        raise AssertionError(f"phase 12c: launches {launches}, expected "
+                             f"{expected}")
+    norms = {n: float(grads[f"detr.{n}.weight"].abs().sum()) for n in (
+        "enc_output", "encoder0.self_attn.sampling_offsets",
+        "decoder5.cross_attn.sampling_offsets", "encoder0.self_attn.value_proj",
+        "decoder0.cross_attn.value_proj")}
+    if not all(v > 0 for v in norms.values()):
+        raise AssertionError(f"phase 12c: zero gradients {norms}")
+    syncs = sync_sites(lambda: step(DETR_STEPS + 1))
+    n_sync = sum(syncs.values())
+    for site, n in syncs.items():
+        print(f"    {n} x {site}")
+    # by design: the GT validity once, one cost matrix a decoder layer and
+    # one for the encoder stage (the assignments go back in one pinned,
+    # non-blocking copy)
+    designed = 1 + 6 + 1
+    if n_sync != designed:
+        raise AssertionError(f"phase 12c: {n_sync} host syncs a step, "
+                             f"designed {designed}")
+    print(f"  {DETR_STEPS} steps at {h}x{w}: totals "
+          f"{', '.join(f'{t:.3f}' for t in totals)}; ms/step (host clock, "
+          f"step + optimizer to a synchronize) "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)}; peak "
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches['ms_deform_attn']} "
+          f"forward + {launches['ms_deform_attn_backward']} backward; "
+          f"|grad| sums {', '.join(f'{k} {v:.3e}' for k, v in norms.items())}")
+    phase("12c", f"Deformable-DETR training at {h}x{w} (two-stage, box "
+                 f"refine, 5 GT boxes): {DETR_STEPS} steps + AdamW, losses "
+                 f"finite, {np.mean(step_ms):.1f} ms/step, peak "
+                 f"{peak / 2 ** 30:.2f} GiB, {DETR_LAUNCHES} forward and "
+                 f"{DETR_LAUNCHES} backward launches a step, {n_sync} host "
+                 f"syncs a step (GT validity, 7 cost matrices), gradients on "
+                 f"enc_output, sampling_offsets and value_proj")
+    return launches
+
+
+def check_detr_against_cpu():
+    """Phase 12d: the detector at 64x96 with ResNet depths (1, 1, 1, 1)
+    (the DETR at full width) on the card and on the CPU from the same
+    seeded weights: DETROutputs of both variants, and one train step's
+    losses and gradients (two-stage, box refine)."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.models.deformable_detr import (
+        build_deformable_detr, detr_train_step_host_matched)
+
+    cfg = DetectorConfig()
+    cfg = cfg.replace(
+        backbone=dataclasses.replace(cfg.backbone, depths=(1, 1, 1, 1)),
+        input=dataclasses.replace(cfg.input, height=64, width=96))
+    rng = np.random.RandomState(52)
+    image = torch.from_numpy(rng.randint(0, 255, (64, 96, 3)).astype(
+        np.float32))
+    gt = detr_gt(rng, 64, 96, g=4, valid=3)
+    zs = detr_zs()
+    worst = {}
+    for name, variant in DETR_VARIANTS.items():
+        models = {dev: build_deformable_detr(cfg, seed=2, device=dev,
+                                             attn_init_std=DETR_ATTN_STD,
+                                             **variant)
+                  for dev in ("cpu", "cuda")}
+        z = zs if variant.get("use_zeroshot") else None
+        with torch.no_grad():
+            outs = {dev: m(image.to(dev), None if z is None else z.to(dev))
+                    for dev, m in models.items()}
+        for field, c, g in zip(outs["cpu"]._fields, outs["cpu"],
+                               outs["cuda"]):
+            if c is None:
+                continue
+            err = rel_err(g.cpu(), c)
+            worst[f"{name} {field}"] = err
+            if err > 1e-4:
+                raise AssertionError(f"phase 12d {name} {field}: card vs "
+                                     f"CPU {err:.3e} of the largest")
+    # one train step of the last variant's weights, linear classifier
+    variant = dict(with_box_refine=True, two_stage=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_deformable_detr(cfg, seed=3, device=dev,
+                                      attn_init_std=DETR_ATTN_STD, **variant)
+        (total, aux), grads = detr_train_step_host_matched(
+            model, image.to(dev), type(gt)(*[t.to(dev) for t in gt]),
+            (64, 96))
+        res[dev] = ({k: float(v) for k, v in aux.items()},
+                    {k: v.cpu() for k, v in grads.items()})
+    (l_c, g_c), (l_g, g_g) = res["cpu"], res["cuda"]
+    loss_rel = max(abs(l_g[k] - l_c[k]) / max(abs(l_c[k]), 1e-6) for k in l_c)
+    if sorted(l_c) != sorted(l_g) or loss_rel > 1e-4:
+        raise AssertionError(f"phase 12d: losses differ by {loss_rel:.3e}")
+    noise = 1e-6 * max(float(v.abs().max()) for v in g_c.values())
+    grad_ratio = 0.0
+    for k, c in g_c.items():
+        err = float((g_g[k] - c).abs().max())
+        bound = 1e-3 * float(c.abs().max()) + noise
+        grad_ratio = max(grad_ratio, err / bound)
+        if err > bound:
+            raise AssertionError(f"phase 12d: gradient of {k} differs by "
+                                 f"{err:.3e} (bound {bound:.3e})")
+    print(f"  forward, card vs CPU (share of each output's largest): "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())}")
+    phase("12d", f"Deformable-DETR at 64x96 (ResNet depths 1, DETR at full "
+                 f"width), card vs CPU from the same weights: DETROutputs of "
+                 f"both variants within {max(worst.values()):.2e} of each "
+                 f"output's largest (tolerance 1e-4); one two-stage train "
+                 f"step's {len(l_c)} losses within {loss_rel:.2e} (tolerance "
+                 f"1e-4) and every gradient within its tolerance, 1e-3 of "
+                 f"its largest plus 1e-6 of the step's largest gradient for "
+                 f"gradients that are 0 in exact arithmetic (max err / "
+                 f"tolerance {grad_ratio:.3f})")
+
+
+def msda_yardstick(value, shapes, locs, attn):
+    """The reference's ms_deform_attn_core_pytorch
+    (functions/ms_deform_attn_func.py): one F.grid_sample a level
+    (align_corners=False, zero padding), the weighted sum, the reshape."""
+    import torch.nn.functional as F
+    s, m, d = value.shape
+    q, _, l, p, _ = locs.shape
+    grids = 2 * locs - 1
+    sampled, start = [], 0
+    for lid, (h, w) in enumerate(shapes):
+        v = value[start:start + h * w].permute(1, 2, 0).reshape(m, d, h, w)
+        start += h * w
+        sampled.append(F.grid_sample(v, grids[:, :, lid].transpose(0, 1),
+                                     mode="bilinear", padding_mode="zeros",
+                                     align_corners=False))  # [M, D, Q, P]
+    a = attn.transpose(0, 1).reshape(m, 1, q, l * p)
+    out = (torch.stack(sampled, -2).flatten(-2) * a).sum(-1)    # [M, D, Q]
+    return out.permute(2, 0, 1).reshape(q, m * d)
+
+
+def time_ms_deform_attn(rng, launches, train_launches, errs):
+    """Both kernels at the encoder's shape (the JSON entries) and the
+    decoder's, beside the plain version and the reference's grid_sample
+    composition (for the backward, torch.autograd.grad of each, captured
+    in a CUDA graph as the kernels are). Bounds: bytes of value, locations
+    and weights read once and the output written once (backward: value,
+    locations, weights and grad_out read once, grad_value, grad_loc and
+    grad_attn written once), against 10 (backward 26) f32 operations a
+    (query, head, level, point, channel)."""
+    from embodied_object_detection_tpu_torch.ops import ms_deform_attn as ma
+    s = sum(h * w for h, w in DETR_LEVELS)
+    entries = []
+    for name, q in (("encoder", s), ("decoder", 100)):
+        value, locs, attn, grad = msda_inputs(rng, q)
+        shapes = DETR_LEVELS
+        m, d = value.shape[1:]
+        samples = q * m * len(shapes) * locs.shape[3] * d
+        ins = (value.numel() + locs.numel() + attn.numel()) * 4
+        ms = graph_ms(lambda: ma.ms_deform_attn_cuda(value, shapes, locs,
+                                                     attn))
+        plain_ms = graph_ms(lambda: ma.ms_deform_attn_plain(
+            value, shapes, locs, attn))
+        lib_ms = graph_ms(lambda: msda_yardstick(value, shapes, locs, attn))
+        lib_gap = rel_err(msda_yardstick(value, shapes, locs, attn),
+                          ma.ms_deform_attn_cuda(value, shapes, locs, attn))
+        b_ms, b_by = bound_ms(ins + grad.numel() * 4, 10 * samples)
+        bwd_ms = graph_ms(lambda: ma.ms_deform_attn_backward_cuda(
+            grad, value, shapes, locs, attn))
+        leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
+        bwd_plain_ms = graph_ms(lambda: torch.autograd.grad(
+            ma.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2]),
+            leaves, grad))
+        bwd_lib_ms = graph_ms(lambda: torch.autograd.grad(
+            msda_yardstick(leaves[0], shapes, leaves[1], leaves[2]), leaves,
+            grad))
+        bb_ms, bb_by = bound_ms(2 * ins + grad.numel() * 4, 26 * samples)
+        print(f"  ms_deform_attn, {name} (Q = {q}): forward {ms * 1e3:.1f} us "
+              f"kernel, {plain_ms * 1e3:.1f} us plain, {lib_ms * 1e3:.1f} us "
+              f"grid_sample composition ({lib_gap:.1e} from the kernel), "
+              f"bound {b_ms * 1e3:.2f} us ({b_by}); backward "
+              f"{bwd_ms * 1e3:.1f} us kernel, {bwd_plain_ms * 1e3:.1f} us "
+              f"plain autograd, {bwd_lib_ms * 1e3:.1f} us grid_sample "
+              f"composition's autograd, bound {bb_ms * 1e3:.2f} us ({bb_by})")
+        if name == "encoder":
+            src = "embodied_object_detection_tpu_torch/csrc/ms_deform_attn.cu"
+            ref = "embodied_object_detection_tpu/ops/ms_deform_attn.py:35"
+            entries = [
+                {"name": "ms_deform_attn", "route": "cuda", "source": src,
+                 "replaces": ref, "launches": launches["ms_deform_attn"],
+                 "max_abs_err": errs["ms_deform_attn"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib_ms},
+                {"name": "ms_deform_attn_backward", "route": "cuda",
+                 "source": src, "replaces": ref,
+                 "launches": train_launches["ms_deform_attn_backward"],
+                 "max_abs_err": errs["ms_deform_attn_backward"],
+                 "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb_ms,
+                 "bound_by": bb_by, "library_ms": bwd_lib_ms}]
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -3144,7 +3666,12 @@ def main() -> int:
     check_predictor_and_server(robot_model, robot_cfg)
     check_image_demo()
     check_export(robot_model, robot_cfg, robot_memory)
-    kernels = time_kernels(rng, launches, train_launches, errs)
+    errs.update(check_ms_deform_attn(rng))
+    detr_launches = run_detr_inference()
+    detr_train_launches = run_detr_training()
+    check_detr_against_cpu()
+    kernels = time_kernels(rng, launches, train_launches, errs,
+                           detr_launches, detr_train_launches)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -71,9 +71,21 @@ ENTRY_POINTS = {
     "roi_align_backward": ("roi_align_backward_launch",
                            (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P)),
+    # (value, host arrays: heights, widths; num_levels, locations,
+    #  attention weights, out, queries, heads, channels, points, stream)
+    "ms_deform_attn": ("ms_deform_attn_launch",
+                       (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # (value, host arrays: heights, widths; num_levels, locations,
+    #  attention weights, grad_out, grad_value (zeroed), grad_loc,
+    #  grad_attn, queries, heads, channels, points, stream)
+    "ms_deform_attn_backward": ("ms_deform_attn_backward_launch",
+                                (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _P)),
 }
-# the ROIAlign backward shares the forward's sample table
-SOURCES = {"roi_align_backward": "roi_align"}
+# the ROIAlign backward shares the forward's sample table, the deformable
+# attention's backward its corner arithmetic
+SOURCES = {"roi_align_backward": "roi_align",
+           "ms_deform_attn_backward": "ms_deform_attn"}
 
 
 def source(name: str) -> str:

@@ -5,4 +5,5 @@ Importing the package registers every kernel wrapper's custom op
 `serve/export.py` needs to load and run.
 """
 
-from . import mask_paste, memory_ops, nms, roi_align, segment_sum  # noqa: F401
+from . import (mask_paste, memory_ops, ms_deform_attn,  # noqa: F401
+               nms, roi_align, segment_sum)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from embodied_object_detection_tpu_torch.ops import (
-    mask_paste, memory_ops, nms, roi_align, segment_sum)
+    mask_paste, memory_ops, ms_deform_attn, nms, roi_align, segment_sum)
 
 pytestmark = pytest.mark.cuda
 
@@ -496,3 +496,88 @@ def test_mask_paste_kernel_vs_plain(n, threshold, pixel_major, x_stride,
     flipped = got != want
     assert int(flipped.sum()) <= max(1, got.numel() // 10000)
     assert bool(((want_vals[flipped] - threshold).abs() < 1e-5).all())
+
+
+# the encoder's levels at 480x640 (C3-C5 and the stride-64 extra level)
+MSDA_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
+
+
+def _msda_inputs(rng, shapes, q, m, d, p):
+    """Locations in [-0.1, 1.1], and on every level the first point of
+    each (query, head) at one of the edge cases: a pixel centre, the map's
+    first and last centres, 0 and 1 (a corner outside), and -0.5 / size
+    (a sample on the -1 row or column)."""
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(s, m, d).astype(np.float32)
+    locs = rng.uniform(-0.1, 1.1, (q, m, len(shapes), p, 2)).astype(
+        np.float32)
+    for lvl, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            edge = np.array([(size // 2 + 0.5) / size, 0.5 / size,
+                             (size - 0.5) / size, 0.0, 1.0, -0.5 / size],
+                            np.float32)
+            locs[:, :, lvl, 0, axis] = edge[rng.randint(0, 6, (q, m))]
+    attn = rng.rand(q, m, len(shapes), p).astype(np.float32)
+    attn /= attn.sum(axis=(2, 3), keepdims=True)
+    grad = rng.randn(q, m * d).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (value, locs, attn, grad)]
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.parametrize("q,m,d,p", [
+    (None, 8, 32, 4), (100, 8, 32, 4), (300, 4, 8, 2), (200, 2, 48, 3)],
+    ids=["encoder", "decoder", "narrow", "wide"])
+def test_ms_deform_attn_kernels_vs_plain(q, m, d, p):
+    """Kernels 8 and 8b at the encoder's (Q = S = 6380) and the decoder's
+    (Q = 100) shapes, D = 8 (idle lanes) and D = 48 (a lane loop): the
+    forward within 1e-5 of the plain version's largest output, grad_loc
+    and grad_attn within 1e-5 of the largest of the plain version's
+    autograd, grad_value within its atomics bound of the exact sum, and
+    that exact sum within the same bound of the plain autograd's
+    grad_value (so the sum the kernel is held to is the plain version's
+    gradient, not only the taps' own arithmetic)."""
+    _need_card()
+    rng = np.random.RandomState(26)
+    shapes = MSDA_LEVELS
+    q = q or sum(h * w for h, w in shapes)
+    value, locs, attn, grad = _msda_inputs(rng, shapes, q, m, d, p)
+    out = ms_deform_attn.ms_deform_attn_cuda(value, shapes, locs, attn)
+    plain = ms_deform_attn.ms_deform_attn_plain(value, shapes, locs, attn)
+    assert _rel_err(out, plain) <= 1e-5
+    gv, gl, ga = ms_deform_attn.ms_deform_attn_backward_cuda(
+        grad, value, shapes, locs, attn)
+    leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
+    (ms_deform_attn.ms_deform_attn_plain(leaves[0], shapes, leaves[1],
+                                         leaves[2]) * grad).sum().backward()
+    assert _rel_err(gl, leaves[1].grad) <= 1e-5
+    assert _rel_err(ga, leaves[2].grad) <= 1e-5
+    exact, bound, _ = ms_deform_attn.ms_deform_attn_grad_value_exact(
+        shapes, value, locs, attn, grad)
+    assert bool(((gv.double() - exact).abs() <= bound).all())
+    assert bool(((leaves[0].grad.double() - exact).abs() <= bound).all())
+
+
+def test_ms_deform_attn_autograd_launches_both_kernels():
+    """Under autograd a CUDA tensor goes through MSDeformAttnFunction: one
+    forward and one backward launch, and the gradients of the plain
+    version."""
+    _need_card()
+    rng = np.random.RandomState(27)
+    shapes = ((12, 16), (6, 8))
+    value, locs, attn, grad = _msda_inputs(rng, shapes, 40, 4, 8, 4)
+    leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
+    fwd = ms_deform_attn.ms_deform_attn_cuda.launches
+    bwd = ms_deform_attn.ms_deform_attn_backward_cuda.launches
+    (ms_deform_attn.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]) *
+     grad).sum().backward()
+    assert ms_deform_attn.ms_deform_attn_cuda.launches == fwd + 1
+    assert ms_deform_attn.ms_deform_attn_backward_cuda.launches == bwd + 1
+    ref = [t.clone().requires_grad_() for t in (value, locs, attn)]
+    (ms_deform_attn.ms_deform_attn_plain(ref[0], shapes, ref[1], ref[2]) *
+     grad).sum().backward()
+    for a, b in zip(leaves, ref):
+        assert _rel_err(a.grad, b.grad) <= 1e-5

@@ -54,7 +54,9 @@ def test_port_file_imports_nothing_of_jax(path):
 def test_import_leaves_jax_unloaded():
     """Every port module imports without JAX, and without h5py, PIL or
     cv2, which the data layer and the demos import where they read h5,
-    JPEG or video files or draw (the card's machine has none of them)."""
+    JPEG or video files or draw (the card's machine has none of them),
+    and without triton or nvcc: no module imports triton or builds a
+    kernel when it is imported (the Deformable-DETR family's too)."""
     modules = [m.name for m in pkgutil.walk_packages(
         [str(PORT_DIR)], prefix="embodied_object_detection_tpu_torch.")]
     serving = {f"embodied_object_detection_tpu_torch.{m}" for m in (
@@ -62,6 +64,9 @@ def test_import_leaves_jax_unloaded():
         "demo.predictor", "demo.demo", "demo.predict_api",
         "demo.robot_demo", "serve", "serve.server", "serve.export")}
     assert serving <= set(modules), serving - set(modules)
+    detr = {f"embodied_object_detection_tpu_torch.{m}" for m in (
+        "ops.deform_conv", "ops.ms_deform_attn", "models.deformable_detr")}
+    assert detr <= set(modules), detr - set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -70,6 +75,9 @@ def test_import_leaves_jax_unloaded():
             "lazy = [m for m in sys.modules if m.split('.')[0] in "
             "('h5py', 'PIL', 'cv2')]\n"
             "assert not lazy, lazy\n"
+            "assert 'triton' not in sys.modules\n"
+            "from embodied_object_detection_tpu_torch.kernels import build\n"
+            "assert build.load.cache_info().currsize == 0\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
