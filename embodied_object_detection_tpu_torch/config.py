@@ -28,7 +28,8 @@ class BackboneConfig:
     depths: Tuple[int, ...] = (3, 4, 6, 3)
     in_channels: Tuple[int, ...] = (512, 1024, 2048)
     fpn_channels: int = 256
-    # rematerialise trunk + FPN in frame_train; not ported (raises)
+    # recompute trunk + FPN in the backward of a training step
+    # (torch.utils.checkpoint) instead of keeping their activations
     train_remat: bool = False
 
 
@@ -59,8 +60,12 @@ class CenterNetConfig:
     neg_weight: float = 0.5
     sigmoid_clamp: float = 1e-4
     ignore_high_fp: float = 0.85
-    # MORE_POS assignment; not ported (raises)
+    # MORE_POS assignment (ref: centernet.py:59-61, 748-878): extra
+    # positive locations in each GT's center 3x3 whose regression loss is
+    # small
     more_pos: bool = False
+    more_pos_thresh: float = 0.2
+    more_pos_topk: int = 9
     sizes_of_interest: Tuple[Tuple[int, int], ...] = (
         (0, 80), (64, 160), (128, 320), (256, 640), (512, 10000000))
 
@@ -84,10 +89,17 @@ class ROIHeadsConfig:
     zs_weight_dim: int = 512
     norm_temperature: float = 50.0
     use_sigmoid_ce: bool = True
-    # federated loss, zero-category masking and per-stage remat are not
-    # ported (raise)
+    # the federated loss (USE_FED_LOSS): each stage's BCE over the GT
+    # classes present and fed_loss_num_cat classes in all, the rest drawn
+    # by class frequency from cat_freq_path ("" = the vendored LVIS v1
+    # table, whose length must equal num_classes)
     use_fed_loss: bool = False
+    fed_loss_num_cat: int = 50
+    cat_freq_path: str = ""
+    # IGNORE_ZERO_CATS: no loss on classes of (near-)zero frequency
     ignore_zero_cats: bool = False
+    # recompute each cascade stage's pool, box head and predictor in the
+    # backward (torch.utils.checkpoint)
     train_stage_remat: bool = False
     mult_proposal_score: bool = True
     one_class_per_proposal: bool = False
@@ -221,14 +233,6 @@ def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
     if cfg.roi.align_impl not in ("v1", "v4"):
         raise NotImplementedError(
             f"roi.align_impl={cfg.roi.align_impl!r}: the port has v1 and v4")
-    for knob, value in (("centernet.more_pos", cfg.centernet.more_pos),
-                        ("roi.use_fed_loss", cfg.roi.use_fed_loss),
-                        ("roi.ignore_zero_cats", cfg.roi.ignore_zero_cats),
-                        ("roi.train_stage_remat", cfg.roi.train_stage_remat),
-                        ("backbone.train_remat", cfg.backbone.train_remat)):
-        if value:
-            raise NotImplementedError(
-                f"{knob}=True: the torch port does not implement it yet")
     return cfg
 
 

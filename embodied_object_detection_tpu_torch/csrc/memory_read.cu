@@ -35,6 +35,32 @@
 // the table's elements) and re-read 2 KB f32 rows 16 times from L1/L2
 // (629 MB a frame); here each row is divided once and the re-reads are
 // 1 KB bf16 rows.
+//
+// Backward (kernel 2b): the transpose of the read in `features`, as JAX's
+// autodiff forms it through ops/memory_ops.py:memory_read(_batched):
+//     grad_features[r] = f32(bf16(sum over the (window, tap) pairs that
+//                        gathered row r of bf16(grad_out[window] / p^2)))
+//                        / (obs[r] > 1 ? obs[r] : 1)
+// (the mean's cotangent g / p^2 rounded to bf16 where the gather widened
+// bf16 to f32, scatter-added into the bf16 table's cotangent, widened back
+// and divided as the normalisation's transpose). grad_out [B, H/p, W/p, D]
+// f32, grad_features [B * cells, D] f32, zeroed by the wrapper. JAX adds
+// the contributions in bf16 one by one; atomics cannot keep an order, so
+// the kernel adds them in f32 and rounds once, and is held to that
+// arithmetic's own bound of the exact sum s, one bf16 rounding of an f32
+// sum: (2^-8 |s| + n 2^-24 sum |c|) / denominator, to first order
+// (ops/memory_ops.py:memory_read_grad_exact; JAX's bf16 sum keeps only the
+// looser n 2^-8 sum |c| / denominator). Two kernels:
+//   1. the scatter: a warp per output window stages its p^2 row ids and
+//      merges equal ones (a tap's id counted with its multiplicity, exact
+//      in f32: a bf16 value times at most 64), then adds each distinct
+//      row once with one float4 atomicAdd (sm_90, a vector RED in L2) per
+//      4 channels: a window of a real scene maps to one or two cells, and
+//      random ids to 16;
+//   2. the finish, in place: the bf16 rounding and the division.
+// What bounds it: bytes (grad_out read once, the table written once) and,
+// on random ids, the atomics: 307 200 taps x 512 channels a frame, ~39 M
+// float4 REDs where no window repeats a cell.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,7 +178,111 @@ void launch_gather(const uint4* table, const int* proj, float* out, int vec,
       table, proj, out, vec, height, width, cells, out_cells);
 }
 
+constexpr int kMaxTaps = kMaxPool * kMaxPool;
+constexpr int kBwdWarps = 8;       // windows a scatter block
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__global__ void __launch_bounds__(kBwdWarps * 32)
+memory_read_scatter(const float4* __restrict__ grad_out,
+                    const int* __restrict__ proj, float4* __restrict__ acc,
+                    int vec4, int height, int width, int pool, int cells,
+                    long long windows) {
+  __shared__ long long rows[kBwdWarps][kMaxTaps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long win = blockIdx.x * (long long)kBwdWarps + warp;
+  if (win >= windows) return;        // whole warps leave together
+  const int taps = pool * pool;
+  const int out_w = width / pool;
+  const int frame_windows = (height / pool) * out_w;
+  const int b = (int)(win / frame_windows);
+  const int local = (int)(win - (long long)b * frame_windows);
+  const int oy = local / out_w, ox = local - (local / out_w) * out_w;
+  for (int t = lane; t < taps; t += 32) {
+    const int dy = t / pool, dx = t - (t / pool) * pool;
+    rows[warp][t] = (long long)b * cells +
+                    __ldg(proj + (long long)b * height * width +
+                          (long long)(oy * pool + dy) * width + ox * pool +
+                          dx);
+  }
+  __syncwarp();
+  const float n = (float)taps;
+  const float4* g = grad_out + win * vec4;
+  for (int t = 0; t < taps; ++t) {
+    const long long row = rows[warp][t];
+    // the first tap of its row carries the row's multiplicity
+    bool earlier = false;
+    int mult = 0;
+    for (int u0 = 0; u0 < taps; u0 += 32) {
+      const int u = u0 + lane;
+      const bool same = u < taps && rows[warp][u] == row;
+      earlier |= __any_sync(0xffffffffu, same && u < t);
+      mult += __popc(__ballot_sync(0xffffffffu, same));
+    }
+    if (earlier) continue;
+    const float f = (float)mult;
+    for (int c = lane; c < vec4; c += 32) {
+      const float4 v = __ldg(g + c);
+      atomicAdd(acc + row * vec4 + c,
+                make_float4(bf16_round(__fdiv_rn(v.x, n)) * f,
+                            bf16_round(__fdiv_rn(v.y, n)) * f,
+                            bf16_round(__fdiv_rn(v.z, n)) * f,
+                            bf16_round(__fdiv_rn(v.w, n)) * f));
+    }
+  }
+}
+
+__global__ void memory_read_finish(float4* __restrict__ acc,
+                                   const float* __restrict__ obs,
+                                   long long rows, int vec4) {
+  const long long n = rows * vec4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float o = __ldg(obs + i / vec4);
+    const float d = o > 1.0f ? o : 1.0f;
+    const float4 v = acc[i];
+    acc[i] = make_float4(__fdiv_rn(bf16_round(v.x), d),
+                         __fdiv_rn(bf16_round(v.y), d),
+                         __fdiv_rn(bf16_round(v.z), d),
+                         __fdiv_rn(bf16_round(v.w), d));
+  }
+}
+
 }  // namespace
+
+// grad_features: a zeroed f32 [batch * cells, dim] buffer, 16-byte
+// aligned, that holds the gradient when the two kernels are done.
+extern "C" int memory_read_backward_launch(const void* grad_out,
+                                           const void* obs, const void* proj,
+                                           void* grad_features, int dim,
+                                           int height, int width, int pool,
+                                           int batch, int cells,
+                                           void* stream) {
+  if (pool <= 0 || pool > kMaxPool || dim % 4 != 0 || height % pool != 0 ||
+      width % pool != 0 || batch < 0 || cells < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long windows =
+      (long long)batch * (height / pool) * (width / pool);
+  const long long rows = (long long)batch * cells;
+  if (dim == 0 || rows == 0) return 0;
+  if ((windows + kBwdWarps - 1) / kBwdWarps > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int vec4 = dim / 4;
+  if (windows > 0)
+    memory_read_scatter<<<(unsigned int)((windows + kBwdWarps - 1) /
+                                         kBwdWarps),
+                          kBwdWarps * 32, 0, s>>>(
+        (const float4*)grad_out, (const int*)proj, (float4*)grad_features,
+        vec4, height, width, pool, cells, windows);
+  long long blocks = (rows * vec4 + kThreads - 1) / kThreads;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;
+  memory_read_finish<<<(unsigned int)blocks, kThreads, 0, s>>>(
+      (float4*)grad_features, (const float*)obs, rows, vec4);
+  return (int)cudaGetLastError();
+}
 
 // table: a [batch * cells, dim] bf16 scratch the caller allocates.
 extern "C" int memory_read_launch(const void* features, const void* obs,

@@ -2,7 +2,8 @@
 
 The part of the JAX package's `data/catalog.py` that the demo and serving
 surface reads (`COCO_CLASSES`, `load_categories`, `builtin_class_names`;
-ref: the BUILDIN_METADATA_PATH lookups of Detic/predict.py:38-43). The
+ref: the BUILDIN_METADATA_PATH lookups of Detic/predict.py:38-43), and the
+federated loss's class-frequency table (`load_class_freq`). The
 category tables are the vendored JSON under `data/metadata/`, beside the
 CLIP classifier `.npy` files that `demo/demo.py:find_classifier_npy`
 resolves.
@@ -13,6 +14,8 @@ from __future__ import annotations
 import json
 import os
 from typing import List
+
+import numpy as np
 
 METADATA_DIR = os.path.join(os.path.dirname(__file__), "metadata")
 
@@ -54,3 +57,19 @@ def builtin_class_names(vocabulary: str) -> List[str]:
         return list(OBJECT_LVIS)
     cats = load_categories(_TABLES[vocabulary])
     return [c["name"] for c in sorted(cats, key=lambda c: c["id"])]
+
+
+def load_class_freq(path: str = "", freq_weight: float = 0.5) -> np.ndarray:
+    """Per-class image count ** freq_weight, in category-id order: the
+    federated loss's sampling weights (ref: detic/modeling/utils.py:
+    load_class_freq). The default table is the vendored LVIS v1 train
+    category info, data/metadata/lvis_v1_train_cat_info.json (1203
+    classes)."""
+    if not path:
+        path = os.path.join(METADATA_DIR, "lvis_v1_train_cat_info.json")
+    with open(path) as f:
+        cat_info = json.load(f)
+    counts = np.asarray([c["image_count"] for c in
+                         sorted(cat_info, key=lambda x: x["id"])],
+                        np.float32)
+    return counts ** freq_weight

@@ -5,9 +5,12 @@ step flattened into a batch of frames (`chunks_to_train_batch`), a
 per-iteration numpy stream keyed on (seed, iteration) so a resumed run
 samples on where it left off, a one-batch lookahead thread that makes the
 next batch (and stages it in pinned memory) while the card runs the step,
-the finite-loss assert, `metrics.json` lines of window medians, and
-periodic checkpoints. `batch_fn(it, rng, dp)` replaces the chunk loader;
-the h5 episode dataset and the tensorboard mirror are not ported yet.
+the finite-loss assert, `metrics.json` lines of window medians mirrored
+into a TensorBoard events file (`utils/tb_writer.py`), and periodic
+checkpoints. The chunks come from a sequence of `ChunkRecord`s, such as
+the h5 `data.EpisodeDataset` that `run.py` trains from;
+`batch_fn(it, rng, dp)` replaces the chunk loader. `load_fed_freq_weight`
+reads the class-frequency table of the federated loss.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..models.detector import EmbodiedDetector
 from ..ops.memory_ops import check_proj_indices
 from ..parallel.train_step import (TrainBatch, TrainState, batch_to_device,
                                    make_train_step)
+from ..utils.tb_writer import SummaryWriter
 from .checkpoint import (PeriodicCheckpointer, latest_checkpoint,
                          restore_checkpoint)
 
@@ -116,17 +120,53 @@ def chunks_to_train_batch(chunks: Sequence[ChunkRecord],
 
 
 class MetricsWriter:
-    """One JSON line per logging period in <output_dir>/metrics.json."""
+    """One JSON line per logging period in <output_dir>/metrics.json,
+    mirrored into a TensorBoard events file under <output_dir>/tb/ (the
+    reference's JSONWriter and TensorboardXWriter, train_mp3d.py:534-542)."""
 
     def __init__(self, output_dir: str):
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.json")
+        self._tb = SummaryWriter(os.path.join(output_dir, "tb"))
 
     def write(self, iteration: int, scalars: Dict[str, float]) -> None:
         rec = {"iteration": iteration,
                **{k: float(v) for k, v in scalars.items()}}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        self._tb.add_scalars(
+            {k: v for k, v in rec.items() if k != "iteration"}, iteration)
+
+    def close(self) -> None:
+        self._tb.close()
+
+
+def load_fed_freq_weight(cfg: DetectorConfig) -> Optional[np.ndarray]:
+    """The [C] class-frequency table of the federated loss and the
+    zero-category mask (ref: detic_fast_rcnn.py:85-97), or None when
+    neither `roi.use_fed_loss` nor `roi.ignore_zero_cats` is set. A short
+    table is zero-padded to `roi.num_classes`; a longer one raises, and so
+    does a `roi.fed_loss_num_cat` above the positive-frequency classes
+    (torch.multinomial would raise at the first step)."""
+    if not (cfg.roi.use_fed_loss or cfg.roi.ignore_zero_cats):
+        return None
+    from ..data.catalog import load_class_freq
+    fed_w = load_class_freq(cfg.roi.cat_freq_path)
+    if fed_w.shape[0] < cfg.roi.num_classes:
+        fed_w = np.concatenate(
+            [fed_w, np.zeros(cfg.roi.num_classes - fed_w.shape[0],
+                             fed_w.dtype)])
+    elif fed_w.shape[0] > cfg.roi.num_classes:
+        raise ValueError(
+            f"cat_freq_path table has {fed_w.shape[0]} classes, model "
+            f"has only {cfg.roi.num_classes}")
+    n_pos = int((fed_w > 0).sum())
+    if cfg.roi.use_fed_loss and cfg.roi.fed_loss_num_cat > n_pos:
+        raise ValueError(
+            f"roi.fed_loss_num_cat={cfg.roi.fed_loss_num_cat} exceeds "
+            f"the {n_pos} positive-frequency classes in "
+            f"{cfg.roi.cat_freq_path or 'the LVIS v1 table'}")
+    return fed_w
 
 
 def iter_rng(seed: int, it: int) -> np.random.RandomState:
@@ -153,7 +193,8 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
     max_iter = max_iter if max_iter is not None else solver.max_iter
     device = next(model.parameters()).device
     pin = device.type == "cuda"
-    init_state, step_fn = make_train_step(model, cfg)
+    init_state, step_fn = make_train_step(
+        model, cfg, fed_freq_weight=load_fed_freq_weight(cfg))
     state = init_state()
     start_iter = 0
     if resume:
@@ -232,4 +273,5 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
             checkpointer.step(it, state)
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
+        writer.close()
     return state

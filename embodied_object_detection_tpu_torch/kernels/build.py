@@ -81,11 +81,29 @@ ENTRY_POINTS = {
     "ms_deform_attn_backward": ("ms_deform_attn_backward_launch",
                                 (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _P)),
+    # (grad_out, obs_count, proj, grad_features (zeroed f32 [B * cells,
+    #  D], finished in place), dim, height, width, pool, batch, cells,
+    #  stream)
+    "memory_read_backward": ("memory_read_backward_launch",
+                             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    # (x, offset, mask (null for DCNv1), columns, height, width, in
+    #  channels, out height, out width, kernel h, kernel w, stride,
+    #  padding, dilation, stream)
+    "deform_im2col": ("deform_im2col_launch",
+                      (_P, _P, _P, _P) + (_I,) * 10 + (_P,)),
+    # (x, offset, mask, grad_columns, grad_x (zeroed), grad_offset,
+    #  grad_mask (null without a mask), the same ten ints, stream)
+    "deform_im2col_backward": ("deform_im2col_backward_launch",
+                               (_P,) * 7 + (_I,) * 10 + (_P,)),
 }
 # the ROIAlign backward shares the forward's sample table, the deformable
-# attention's backward its corner arithmetic
+# attention's backward its corner arithmetic, the read's transpose its
+# source, the deformable convolution's kernels one source
 SOURCES = {"roi_align_backward": "roi_align",
-           "ms_deform_attn_backward": "ms_deform_attn"}
+           "ms_deform_attn_backward": "ms_deform_attn",
+           "memory_read_backward": "memory_read",
+           "deform_im2col": "deform_conv",
+           "deform_im2col_backward": "deform_conv"}
 
 
 def source(name: str) -> str:

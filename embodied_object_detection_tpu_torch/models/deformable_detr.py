@@ -29,8 +29,10 @@ Where the two frameworks differ:
     `detr_inference` run without a host sync;
   * TF32 is switched off by `build_deformable_detr`: the family is f32
     throughout, as in the JAX package;
-  * its GroupNorms (`GroupNorm2Pass`) take the JAX package's two-pass
-    variance.
+  * `DeformableDETR.points` is kept but never reaches the layers, which
+    sample 4 points whatever it says: the JAX `DeformableDETR` builds its
+    encoder and decoder layers without it (their default is 4), and a JAX
+    parameter tree of any `points` loads only into the same shapes.
 The Hungarian assignment of the train step runs on the host (scipy), as
 in the JAX package and the reference (matcher.py is no-grad).
 """
@@ -54,22 +56,6 @@ from .layers import GroupNorm, nchw, nhwc
 from .resnet import ResNet50
 
 LN_EPS = 1e-6           # the JAX package's LayerNorm epsilon
-
-
-class GroupNorm2Pass(GroupNorm):
-    """The shared GroupNorm in the JAX package's arithmetic: the mean, then
-    the mean of the squared deviations. `F.group_norm`'s CPU variance loses
-    digits where a group's mean is far above its spread, as in the
-    miniature's groups of one channel over 2 positions; a group of one
-    value normalises to 0."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [1, C, H, W] -> f32 [1, C, H, W]."""
-        xf = x.float().reshape(1, self.num_groups, -1)
-        xc = xf - xf.mean(-1, keepdim=True)
-        xn = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + self.eps)
-        return xn.reshape(x.shape) * self.weight[:, None, None] + \
-            self.bias[:, None, None]
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,7 +264,8 @@ class DeformableDETR(nn.Module):
     `in_channels` channels (the trailing `pre_projected` levels already at
     `hidden_dim`). Classes through a plain linear head, or through the
     CLIP-space `zs_weight` with `use_zeroshot` (the Detic open-vocabulary
-    DETR, d2_deformable_detr.py:163-177)."""
+    DETR, d2_deformable_detr.py:163-177). `points` is recorded only: the
+    layers sample their default 4 points, as the JAX package's do."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 20,
                  hidden_dim: int = 256, heads: int = 8, enc_layers: int = 6,
@@ -298,16 +285,17 @@ class DeformableDETR(nn.Module):
         self.norm_temperature = norm_temperature
         self.with_box_refine = with_box_refine
         self.two_stage = two_stage
+        self.points = points
         self.n_proj = len(in_channels) - pre_projected
         for i, ch in enumerate(in_channels):
             if i < self.n_proj:
                 self.add_module(f"input_proj{i}", nn.Conv2d(ch, c, 1))
-                self.add_module(f"input_gn{i}", GroupNorm2Pass(32, c))
+                self.add_module(f"input_gn{i}", GroupNorm(32, c))
             self.register_parameter(f"level_embed{i}",
                                     nn.Parameter(torch.zeros(c)))
         for i in range(enc_layers):
             self.add_module(f"encoder{i}",
-                            EncoderLayer(c, heads, levels, ffn, points))
+                            EncoderLayer(c, heads, levels, ffn))
         # prediction heads: shared across decoder layers (per-layer clones
         # only under box refine); two-stage adds one more head for the
         # encoder stage, shared with the decoder's unless refining
@@ -332,7 +320,7 @@ class DeformableDETR(nn.Module):
             self.reference_points = nn.Linear(c, 2)
         for i in range(dec_layers):
             self.add_module(f"decoder{i}",
-                            DecoderLayer(c, heads, levels, ffn, points))
+                            DecoderLayer(c, heads, levels, ffn))
 
     def apply_cls(self, k: int, x: torch.Tensor,
                   zs_weight: Optional[torch.Tensor]) -> torch.Tensor:
@@ -462,7 +450,7 @@ class DeformableDetrDetector(nn.Module):
         # whole input projection (ref: deformable_detr.py input_proj
         # extra-level branch), so the trunk takes it pre-projected
         self.extra_level = nn.Conv2d(2048, self.detr.hidden_dim, 3, 2, 1)
-        self.extra_gn = GroupNorm2Pass(32, self.detr.hidden_dim)
+        self.extra_gn = GroupNorm(32, self.detr.hidden_dim)
 
     def forward(self, image: torch.Tensor,
                 zs_weight: Optional[torch.Tensor] = None) -> DETROutputs:

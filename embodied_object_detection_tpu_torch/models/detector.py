@@ -25,6 +25,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import DetectorConfig, check_slice_config
@@ -38,8 +39,9 @@ from .centernet import CenterNetHead, decode_proposals
 from .fpn import RecurrentFPN
 from .layers import DTYPES
 from .resnet import ResNet50
-from .losses import (add_gt_to_proposals, centernet_normalize,
-                     centernet_raw_losses, centernet_targets, match_proposals,
+from .losses import (add_gt_to_proposals, add_more_pos, centernet_normalize,
+                     centernet_raw_losses, centernet_targets,
+                     fed_loss_class_weight, fed_uniform, match_proposals,
                      sample_proposals, stage_losses)
 from .roi_heads import CascadeOutputs, CascadeROIHeads, apply_deltas
 
@@ -78,6 +80,17 @@ class EpisodeOutputs(NamedTuple):
     memory: MemoryState           # final live memory
     any_detection: torch.Tensor   # [T]
     first_memory: MemoryState     # memory right after the chunk's frame 0
+
+
+def recompute(fn, *args):
+    """fn(*args) with its activations recomputed in the backward instead
+    of kept (`torch.utils.checkpoint`, non-reentrant): the JAX package's
+    `nn.remat` regions. The random state is not saved: no region recomputed
+    here draws random numbers, and `checkpoint` would restore only the
+    default generators, not the explicit `torch.Generator`s of the
+    training step."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class EmbodiedDetector(nn.Module):
@@ -168,31 +181,46 @@ class EmbodiedDetector(nn.Module):
                     generator: Optional[torch.Generator] = None,
                     defer_centernet_norm: bool = False,
                     ego: Optional[torch.Tensor] = None,
-                    backbone_feats: Optional[tuple] = None) -> dict:
+                    backbone_feats: Optional[tuple] = None,
+                    fed_freq_weight: Optional[torch.Tensor] = None) -> dict:
         """One frame's training losses; the frame reads a precomputed
         memory and writes none. `ego` is the frame's memory image when the
         caller read it for a batch, `backbone_feats` (C3, C4, C5) when it
         ran the trunk for a batch. With `defer_centernet_norm` the
         CenterNet entries are raw sums, with their counts under
         `_centernet_num_pos` and `_centernet_reg_cnt` for the batch to
-        normalise. `generator` draws the proposal sample (seed 0 on the
-        frame's device when None)."""
+        normalise. `generator` draws the proposal sample and, with the
+        federated loss, each stage's class draw after it (seed 0 on the
+        frame's device when None). `fed_freq_weight` [C] (the class
+        frequencies of `roi.cat_freq_path`) turns on `roi.use_fed_loss`
+        and `roi.ignore_zero_cats`; without it both are off, as in the
+        JAX package. `backbone.train_remat` recomputes the trunk (when
+        run here) and the FPN in the backward, `roi.train_stage_remat`
+        each stage's pool, box head and predictor; no recomputed region
+        draws random numbers."""
         cfg = self.cfg
         h, w = cfg.input.height, cfg.input.width
         if ego is None and cfg.memory.reads_memory():
             ego = memory_read(mem_features, mem_obs, proj_indices)
+        remat = cfg.backbone.train_remat
         if backbone_feats is None:
-            backbone_feats = self.backbone_raw(image)
-        p3, p4, p5, p6, p7 = self.fpn(*backbone_feats, ego)
+            backbone_feats = recompute(self.backbone_raw, image) if remat \
+                else self.backbone_raw(image)
+        p3, p4, p5, p6, p7 = recompute(self.fpn, *backbone_feats, ego) \
+            if remat else self.fpn(*backbone_feats, ego)
         feats = (p3, p4, p5, p6, p7)
 
         agn_hms, regs = self.centernet(feats)
         shapes = [(f.shape[0], f.shape[1]) for f in feats]
         targets = centernet_targets(gt, shapes, cfg.centernet)
+        reg_flat = torch.cat([x.reshape(-1, 4) for x in regs])
+        # MORE_POS (centernet.py:203-208): the loss-selected center-3x3
+        # positives replace the peaks
+        more_pos = add_more_pos(reg_flat, gt, shapes, cfg.centernet) \
+            if cfg.centernet.more_pos else None
         raw = centernet_raw_losses(
-            torch.cat([x.reshape(-1) for x in agn_hms]),
-            torch.cat([x.reshape(-1, 4) for x in regs]), targets,
-            cfg.centernet)
+            torch.cat([x.reshape(-1) for x in agn_hms]), reg_flat, targets,
+            cfg.centernet, more_pos=more_pos)
         if defer_centernet_norm:
             losses = {"loss_centernet_agn_pos": raw.pos,
                       "loss_centernet_agn_neg": raw.neg,
@@ -223,21 +251,44 @@ class EmbodiedDetector(nn.Module):
 
         num_stages = len(roi.cascade_ious)
         matched = match_proposals(boxes, valid, gt, roi.cascade_ious[0], c)
+        # the federated loss draws each stage's classes anew, as each
+        # reference losses() call does (detic_fast_rcnn.py:214-218)
+        use_fed = roi.use_fed_loss and fed_freq_weight is not None
+        zero_cat_w = (fed_freq_weight[:c] > 1e-4).float() \
+            if roi.ignore_zero_cats and fed_freq_weight is not None else None
+        if use_fed and generator is None:
+            generator = torch.Generator(device=boxes.device)
+            generator.manual_seed(0)
+
+        def stage_forward(k, stage_boxes):
+            pooled = self.roi_heads._pool((p3, p4, p5), stage_boxes,
+                                          roi.pooler_resolution)
+            pooled = grad_scale(pooled, 1.0 / num_stages)
+            x = getattr(self.roi_heads, f"box_head{k}")(pooled)
+            return getattr(self.roi_heads, f"box_predictor{k}")(x,
+                                                                zs_weight)
+
         for k in range(num_stages):
             if k > 0:
                 boxes = clip_boxes(prev_boxes.detach(), h, w)
                 valid = valid & nonempty(boxes)
                 matched = match_proposals(boxes, valid, gt,
                                           roi.cascade_ious[k], c)
-            pooled = self.roi_heads._pool((p3, p4, p5), boxes,
-                                          roi.pooler_resolution)
-            pooled = grad_scale(pooled, 1.0 / num_stages)
-            x = getattr(self.roi_heads, f"box_head{k}")(pooled)
-            logits, deltas, _ = getattr(self.roi_heads,
-                                        f"box_predictor{k}")(x, zs_weight)
+            logits, deltas, _ = recompute(stage_forward, k, boxes) \
+                if roi.train_stage_remat else stage_forward(k, boxes)
+            class_weight = fed_loss_class_weight(
+                matched.gt_classes, matched.valid, fed_freq_weight,
+                roi.fed_loss_num_cat, c,
+                fed_uniform(c, generator, boxes.device)) if use_fed else None
+            if zero_cat_w is not None:
+                # sigmoid: multiplies into the federated mask (detic_fast_
+                # rcnn.py:225-228); softmax: replaces it (:244-251)
+                class_weight = zero_cat_w if class_weight is None or \
+                    not roi.use_sigmoid_ce else class_weight * zero_cat_w
             stage = stage_losses(logits, deltas, matched,
                                  roi.cascade_bbox_reg_weights[k], c,
-                                 use_sigmoid_ce=roi.use_sigmoid_ce)
+                                 use_sigmoid_ce=roi.use_sigmoid_ce,
+                                 class_weight=class_weight)
             losses.update({f"{n}_stage{k}": v for n, v in stage.items()})
             prev_boxes = apply_deltas(deltas, boxes,
                                       roi.cascade_bbox_reg_weights[k])

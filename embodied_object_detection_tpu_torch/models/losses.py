@@ -4,9 +4,10 @@ Counterpart of the JAX package's `models/losses.py`: ground-truth boxes are
 padded to [G] with a valid mask, FPN locations are a fixed [M], and every
 gather or select of the reference's dynamic-shape indexing is a where or
 argmin over the [M, G] interaction matrix, so nothing here waits for the
-host. The MORE_POS assignment, the federated loss, the image-label and
-caption losses are not ported yet (`config.check_slice_config` raises on
-the first two).
+host. With them: the MORE_POS assignment (`add_more_pos`, the indexed
+focal loss) and the federated loss's class mask (`fed_loss_class_weight`,
+its uniform draw taken as an input). The image-label and caption losses
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -135,6 +136,99 @@ def binary_heatmap_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return -pos_loss, -neg_loss
 
 
+class MorePos(NamedTuple):
+    """The MORE_POS positives (ref: centernet.py:748-878 _add_more_pos /
+    _get_c33_inds): flat heatmap locations over all levels, [G * L * 9],
+    the slots of the reference's variable-length list that hold no
+    positive carry pos_valid False."""
+    pos_inds: torch.Tensor    # [G * L * 9] int32
+    pos_valid: torch.Tensor   # [G * L * 9] bool
+    labels: torch.Tensor      # [G * L * 9] int32 GT class
+
+
+def add_more_pos(reg_pred_flat: torch.Tensor, gt: GroundTruth,
+                 shapes: Sequence[Tuple[int, int]],
+                 cfg: CenterNetConfig) -> MorePos:
+    """MORE_POS: the cells of each GT's center 3x3 on every level whose
+    (no-grad) gIoU regression loss lies below min(its more_pos_topk-th
+    smallest, more_pos_thresh) become positives; the center itself costs
+    0 on the GT's assigned level. Levels are looped in Python, so no
+    constant is copied from the host."""
+    boxes = gt.boxes
+    dev = boxes.device
+    g = boxes.shape[0]
+    m = sum(h * w for h, w in shapes)
+    centers = (boxes[:, :2] + boxes[:, 2:]) / 2                    # [G, 2]
+    diag = torch.sqrt(((boxes[:, 2:] - boxes[:, :2]) ** 2).sum(-1)) / 2
+    tap = torch.arange(9, device=dev)
+    dx, dy = tap % 3 - 1, tap // 3 - 1                             # [9]
+    shift = torch.stack([dx, dy, -dx, -dy], -1).float()            # [9, 4]
+    inds, regs, level_masks, c33_masks = [], [], [], []
+    base = 0
+    for (h, w), stride, (lo, hi) in zip(shapes, cfg.strides,
+                                        cfg.sizes_of_interest):
+        ci = torch.floor(centers / stride)                         # [G, 2]
+        grid = ci * stride + float(stride // 2)
+        reg = torch.stack([grid[:, 0] - boxes[:, 0], grid[:, 1] - boxes[:, 1],
+                           boxes[:, 2] - grid[:, 0],
+                           boxes[:, 3] - grid[:, 1]], -1) / stride  # [G, 4]
+        level_masks.append((reg.min(-1).values >= 0) & (diag >= lo) &
+                           (diag <= hi) & gt.valid)
+        nx = ci[:, 0:1].long() + dx
+        ny = ci[:, 1:2].long() + dy                                # [G, 9]
+        c33_reg = reg[:, None, :] + shift                          # [G, 9, 4]
+        c33_masks.append((nx >= 0) & (nx < w) & (ny >= 0) & (ny < h) &
+                         (c33_reg.min(-1).values >= 0))
+        inds.append(base + ny * w + nx)
+        regs.append(c33_reg)
+        base += h * w
+    c33_ind = torch.stack(inds, 1).clamp(0, m - 1)                 # [G, L, 9]
+    c33_reg = torch.stack(regs, 1)                                 # [G, L, 9, 4]
+    levels = len(shapes)
+    pred = reg_pred_flat.detach()[c33_ind]
+    loss = giou_loss_ltrb(pred.reshape(-1, 4),
+                          c33_reg.clamp(min=0.0).reshape(-1, 4))
+    loss = torch.where(torch.stack(c33_masks, 1),
+                       loss.reshape(g, levels, 9), INF)
+    center = (tap == 4) & torch.stack(level_masks, 1)[..., None]
+    loss = torch.where(center, 0.0, loss)
+    kth = torch.sort(loss.reshape(g, levels * 9), dim=1).values[
+        :, cfg.more_pos_topk - 1]
+    thresh = kth.clamp(max=cfg.more_pos_thresh)
+    new_pos = (loss < thresh[:, None, None]) & gt.valid[:, None, None]
+    return MorePos(pos_inds=c33_ind.reshape(-1).to(torch.int32),
+                   pos_valid=new_pos.reshape(-1),
+                   labels=gt.classes[:, None, None].expand(
+                       g, levels, 9).reshape(-1).to(torch.int32))
+
+
+def binary_heatmap_focal_loss_indexed(logits: torch.Tensor,
+                                      targets: torch.Tensor,
+                                      pos_inds: torch.Tensor,
+                                      pos_valid: torch.Tensor,
+                                      cfg: CenterNetConfig
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The focal loss with its positives given as indices (the
+    reference's `pred[pos_inds]`, heatmap_focal_loss.py:70-73): a repeated
+    index contributes repeated terms. The negative term is the mask
+    form's."""
+    pred = torch.sigmoid(logits).clamp(cfg.sigmoid_clamp,
+                                       1 - cfg.sigmoid_clamp)
+    neg_weights = torch.pow(1 - targets, cfg.hm_focal_beta)
+    pos_pred = pred[pos_inds.long()]
+    pos_loss = torch.log(pos_pred) * torch.pow(1 - pos_pred, cfg.loss_gamma)
+    pos_loss = torch.where(pos_valid, pos_loss, 0.0).sum()
+    neg_loss = torch.log(1 - pred) * torch.pow(pred, cfg.loss_gamma) * \
+        neg_weights
+    if cfg.ignore_high_fp > 0:
+        neg_loss = neg_loss * (pred < cfg.ignore_high_fp)
+    neg_loss = neg_loss.sum()
+    if cfg.hm_focal_alpha >= 0:
+        pos_loss = cfg.hm_focal_alpha * pos_loss
+        neg_loss = (1 - cfg.hm_focal_alpha) * neg_loss
+    return -pos_loss, -neg_loss
+
+
 def giou_loss_ltrb(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """1 - gIoU of boxes given as ltrb distances from one point, [K, 4]."""
     pl, pt, pr, pb = pred.unbind(-1)
@@ -165,12 +259,22 @@ class CenterNetRawLosses(NamedTuple):
 def centernet_raw_losses(agn_logits_flat: torch.Tensor,
                          reg_pred_flat: torch.Tensor,
                          targets: CenterNetTargets,
-                         cfg: CenterNetConfig) -> CenterNetRawLosses:
+                         cfg: CenterNetConfig,
+                         more_pos: "MorePos | None" = None
+                         ) -> CenterNetRawLosses:
     """The CenterNet losses before the division by the (batch-averaged)
-    counts: agn_logits_flat [M], reg_pred_flat [M, 4] (stride units)."""
-    pos_loss, neg_loss = binary_heatmap_focal_loss(
-        agn_logits_flat, targets.agn_heatmap, targets.pos_count, cfg)
-    num_pos = targets.pos_count.float().sum()
+    counts: agn_logits_flat [M], reg_pred_flat [M, 4] (stride units).
+    With `more_pos` the positives are its assignment (centernet.py:203-208)
+    instead of the targets' peaks."""
+    if more_pos is not None:
+        pos_loss, neg_loss = binary_heatmap_focal_loss_indexed(
+            agn_logits_flat, targets.agn_heatmap, more_pos.pos_inds,
+            more_pos.pos_valid, cfg)
+        num_pos = more_pos.pos_valid.float().sum()
+    else:
+        pos_loss, neg_loss = binary_heatmap_focal_loss(
+            agn_logits_flat, targets.agn_heatmap, targets.pos_count, cfg)
+        num_pos = targets.pos_count.float().sum()
     reg_valid = targets.reg_targets.max(dim=1).values >= 0
     reg_cnt = reg_valid.float().sum()
     per_loc = giou_loss_ltrb(reg_pred_flat, torch.where(
@@ -268,6 +372,48 @@ def sample_proposals(valid: torch.Tensor, fg: torch.Tensor, batch_size: int,
     return idx, keys >= 0.0
 
 
+def fed_uniform(num_classes: int, generator: torch.Generator,
+                device: "torch.device | str") -> torch.Tensor:
+    """The [C] uniform draw of `fed_loss_class_weight`, in [1e-10, 1) as
+    the JAX package's `jax.random.uniform(minval=1e-10)`, from
+    `generator` on `device`."""
+    return torch.rand((num_classes,), generator=generator,
+                      device=device) + 1e-10
+
+
+def fed_loss_class_weight(gt_classes: torch.Tensor, valid: torch.Tensor,
+                          freq_weight: torch.Tensor, num_sample_cats: int,
+                          num_classes: int,
+                          uniform: torch.Tensor) -> torch.Tensor:
+    """The federated loss's [C] 0/1 class mask (ref: get_fed_loss_inds,
+    detic/modeling/utils.py:16-29): every class of a valid matched row
+    (the background, class C, takes one of the `num_sample_cats` slots
+    and is left out of the mask), and as many more classes as the slots
+    left, drawn without replacement with probability proportional to
+    `freq_weight` among the positive-frequency classes that did not
+    appear: a Gumbel top-k over the log frequencies with the Gumbel noise
+    from `uniform` [C] (the draw is an input so that a test can feed
+    JAX's; `fed_uniform` makes one), the same distribution as
+    torch.multinomial. No extras when the appeared classes fill the
+    slots."""
+    c = num_classes
+    dev = gt_classes.device
+    idx = torch.where(valid, gt_classes.long(), c + 1)
+    appeared_full = torch.zeros((c + 2,), dtype=torch.bool,
+                                device=dev).scatter_(0, idx, True)[:c + 1]
+    appeared = appeared_full[:c]
+    k_extra = (num_sample_cats - appeared_full.sum()).clamp(0, c)
+    freq = freq_weight[:c]
+    logw = torch.where(freq > 0, torch.log(freq.clamp(min=1e-20)),
+                       float("-inf"))
+    gumbel = -torch.log(-torch.log(uniform))
+    key = torch.where(appeared, float("-inf"), logw + gumbel)
+    sorted_desc = torch.sort(key, descending=True).values
+    cut = sorted_desc.gather(0, (k_extra - 1).clamp(0, c - 1).reshape(1))
+    extras = (key >= cut) & (k_extra > 0) & torch.isfinite(key)
+    return (appeared | extras).float()
+
+
 def softmax_cross_entropy_loss(logits: torch.Tensor,
                                gt_classes: torch.Tensor,
                                valid: torch.Tensor,
@@ -281,10 +427,14 @@ def softmax_cross_entropy_loss(logits: torch.Tensor,
 
 def stage_losses(logits: torch.Tensor, deltas: torch.Tensor,
                  matched: MatchedProposals, reg_weights: Tuple[float, ...],
-                 num_classes: int, use_sigmoid_ce: bool = True) -> dict:
+                 num_classes: int, use_sigmoid_ce: bool = True,
+                 class_weight: "torch.Tensor | None" = None) -> dict:
     """One cascade stage: sigmoid BCE over the C foreground classes (or
     softmax CE over C+1) and the class-agnostic gIoU box loss, both over
-    the number of valid proposals."""
+    the number of valid proposals. `class_weight` [C] (the federated mask,
+    the zero-category mask or their product) weights the BCE's classes,
+    or the softmax rows by their class (background weight 1, torch's
+    weighted mean; detic_fast_rcnn.py:201-266)."""
     c = num_classes
     b = matched.valid.float().sum().clamp(min=1.0)
     zero = torch.zeros((), device=logits.device)
@@ -296,12 +446,17 @@ def stage_losses(logits: torch.Tensor, deltas: torch.Tensor,
         logit_fg = logits[:, :c]
         bce = logit_fg.clamp(min=0) - logit_fg * onehot + \
             torch.log1p(torch.exp(-logit_fg.abs()))
+        if class_weight is not None:
+            bce = bce * class_weight[None, :]
         loss_cls = torch.where(matched.valid[:, None], bce, zero).sum() / b
     else:
         logp = F.log_softmax(logits.float(), dim=-1)
         picked = torch.gather(logp, 1,
                               matched.gt_classes.long()[:, None])[:, 0]
         row_w = matched.valid.float()
+        if class_weight is not None:
+            cw = torch.cat([class_weight, class_weight.new_ones(1)])
+            row_w = cw[matched.gt_classes.long()] * row_w
         loss_cls = -(picked * row_w).sum() / row_w.sum().clamp(min=1.0)
 
     fg = (matched.gt_classes < c) & matched.valid

@@ -197,6 +197,147 @@ def memory_read_batched(features: torch.Tensor, obs_count: torch.Tensor,
 memory_read_batched.launches = 0
 
 
+def memory_read_backward_plain(grad_out: torch.Tensor,
+                               features: torch.Tensor,
+                               obs_count: torch.Tensor,
+                               proj_indices: torch.Tensor,
+                               pool: int = 4) -> torch.Tensor:
+    """The plain transpose: torch autograd through `memory_read_plain`
+    (or `memory_read_batched_plain` for a batch), whose bf16 gather's
+    gradient accumulates in bf16 (`index_put_`), as JAX's scatter-add
+    does. grad_out [..., H/pool, W/pool, D] -> grad of features."""
+    read = memory_read_batched_plain if features.dim() == 3 else \
+        memory_read_plain
+    with torch.enable_grad():
+        leaf = features.detach().requires_grad_()
+        out = read(leaf, obs_count, proj_indices, pool)
+        return torch.autograd.grad(out, leaf, grad_out)[0]
+
+
+@torch.library.custom_op("eodt::memory_read_backward", mutates_args=())
+def _memory_read_backward_op(grad_out: torch.Tensor, obs_count: torch.Tensor,
+                             proj_indices: torch.Tensor,
+                             pool: int) -> torch.Tensor:
+    batch = proj_indices.shape[0] if proj_indices.dim() == 3 else 1
+    cells = obs_count.shape[-1]
+    h, w = proj_indices.shape[-2:]
+    d = grad_out.shape[-1]
+    if grad_out.dtype != torch.float32 or not grad_out.is_contiguous() or \
+            grad_out.shape != proj_indices.shape[:-2] + (h // pool,
+                                                          w // pool, d) or \
+            d % 4 or grad_out.data_ptr() % 16:
+        raise ValueError(f"memory_read_backward: grad_out must be contiguous "
+                         f"float32 [..., H/pool, W/pool, D] with D % 4 == 0 "
+                         f"on a 16-byte boundary, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)}")
+    if obs_count.dtype != torch.float32 or not obs_count.is_contiguous() or \
+            proj_indices.dtype != torch.int32 or \
+            not proj_indices.is_contiguous() or h % pool or w % pool or \
+            pool > 8 or obs_count.shape[:-1] != proj_indices.shape[:-2] or \
+            obs_count.device != grad_out.device or \
+            proj_indices.device != grad_out.device:
+        raise ValueError(f"memory_read_backward: obs_count [..., cells] f32 "
+                         f"and proj [..., H, W] int32 of the read, got "
+                         f"{tuple(obs_count.shape)} and "
+                         f"{tuple(proj_indices.shape)}")
+    launch = build.load("memory_read_backward")
+    grad = torch.zeros(obs_count.shape + (d,), dtype=torch.float32,
+                       device=grad_out.device)
+    build.check_launch(
+        launch(grad_out.data_ptr(), obs_count.data_ptr(),
+               proj_indices.data_ptr(), grad.data_ptr(), d, h, w, pool,
+               batch, cells, build.stream_handle()), "memory_read_backward")
+    memory_read_backward_cuda.launches += 1
+    return grad
+
+
+@_memory_read_backward_op.register_fake
+def _(grad_out, obs_count, proj_indices, pool):
+    return grad_out.new_empty(obs_count.shape + (grad_out.shape[-1],))
+
+
+def memory_read_backward_cuda(grad_out: torch.Tensor,
+                              obs_count: torch.Tensor,
+                              proj_indices: torch.Tensor,
+                              pool: int = 4) -> torch.Tensor:
+    """The read's transpose on the card (`csrc/memory_read.cu`, kernel
+    2b), for `memory_read` (proj [H, W]) and `memory_read_batched` (proj
+    [B, H, W]): the gradient in `features`, summed with f32 atomics over
+    each window's distinct rows and rounded to bf16 once."""
+    return _memory_read_backward_op(grad_out, obs_count, proj_indices, pool)
+
+
+memory_read_backward_cuda.launches = 0
+
+
+def _read_setup(ctx, inputs, output):
+    features, obs_count, proj_indices, pool = inputs
+    ctx.save_for_backward(features, obs_count, proj_indices)
+    ctx.pool = pool
+
+
+def _read_backward(ctx, grad_out):
+    """The gradient in `features` (the kernel on the card, the plain
+    autograd on the CPU); `obs_count` and `proj_indices` take none, as in
+    JAX."""
+    features, obs_count, proj_indices = ctx.saved_tensors
+    if build.on_card(grad_out):
+        grad = memory_read_backward_cuda(grad_out.contiguous(), obs_count,
+                                         proj_indices, ctx.pool)
+    else:
+        grad = memory_read_backward_plain(grad_out, features, obs_count,
+                                          proj_indices, ctx.pool)
+    return grad, None, None, None
+
+
+_memory_read_op.register_autograd(_read_backward, setup_context=_read_setup)
+_memory_read_batched_op.register_autograd(_read_backward,
+                                          setup_context=_read_setup)
+
+
+def memory_read_grad_exact(grad_out: torch.Tensor, obs_count: torch.Tensor,
+                           proj_indices: torch.Tensor, pool: int = 4
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The read's gradient in `features` from the exact (f64) sum s of its
+    n contributions bf16(g / pool^2), divided by the obs denominator:
+    (exact [..., cells, D]; the bound that a bf16 sum in any order keeps,
+    n x 2^-8 x sum |c| / denominator; the bound of an f32 sum in any order
+    rounded once to bf16 and divided in f32, ((2^-8 + 2^-23) |s| +
+    (1 + 2^-7) n 2^-24 sum |c|) / denominator; the count n of each row
+    [..., cells, 1]). The batched form takes proj [B, H, W] and obs
+    [B, cells]."""
+    batched = proj_indices.dim() == 3
+    proj = proj_indices if batched else proj_indices[None]
+    obs = obs_count.reshape(proj.shape[0], -1)
+    b, h, w = proj.shape
+    cells = obs.shape[1]
+    d = grad_out.shape[-1]
+    g = grad_out.reshape(b, h // pool, w // pool, d)
+    c = (g / float(pool * pool)).to(torch.bfloat16).double()
+    c = c[:, :, None, :, None].expand(b, h // pool, pool, w // pool, pool, d)
+    idx = proj.long() + (torch.arange(b, device=proj.device) *
+                         cells)[:, None, None]
+    idx = idx.reshape(-1)
+    c = c.reshape(b, h, w, d).reshape(-1, d)
+    exact = torch.zeros((b * cells, d), dtype=torch.float64,
+                        device=grad_out.device).index_add_(0, idx, c)
+    abs_sum = torch.zeros_like(exact).index_add_(0, idx, c.abs())
+    count = torch.zeros((b * cells, 1), dtype=torch.float64,
+                        device=grad_out.device).index_add_(
+        0, idx, torch.ones((idx.numel(), 1), dtype=torch.float64,
+                           device=grad_out.device))
+    denom = torch.where(obs > 1, obs, torch.ones_like(obs)).reshape(-1, 1)
+    denom = denom.double()
+    shape = obs_count.shape + (d,)
+    f32_sum = count * 2.0 ** -24 * abs_sum
+    tight = ((2.0 ** -8 + 2.0 ** -23) * exact.abs() +
+             (1 + 2.0 ** -7) * f32_sum) / denom
+    return ((exact / denom).reshape(shape),
+            (count * 2.0 ** -8 * abs_sum / denom).reshape(shape),
+            tight.reshape(shape), count.reshape(obs_count.shape + (1,)))
+
+
 def pyramid_pool(ego: torch.Tensor, num_levels: int
                  ) -> Tuple[torch.Tensor, ...]:
     """Successive 2x2 mean pools of an [H, W, D] image, one per level."""

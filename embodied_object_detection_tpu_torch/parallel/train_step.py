@@ -19,7 +19,7 @@ import torch
 
 from ..config import DetectorConfig
 from ..engine.solver import GroupedOptimizer, build_optimizer
-from ..models.detector import EmbodiedDetector
+from ..models.detector import EmbodiedDetector, recompute
 from ..ops.memory_ops import memory_read_batched
 from ..structures import GroundTruth
 
@@ -63,15 +63,20 @@ def sample_generators(step: int, batch: int,
 
 def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
                  batch: TrainBatch, zs_weight: torch.Tensor,
-                 step: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 step: int, fed_freq_weight: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, losses) of a batch: per-frame losses weighted and divided
     by the normaliser, the CenterNet terms by the batch-global mean
-    positive and regression-location counts."""
+    positive and regression-location counts. `fed_freq_weight` [C] turns
+    on the federated loss and the zero-category mask where the config
+    asks for them; `backbone.train_remat` recomputes the batched trunk in
+    the backward."""
     n = batch.image.shape[0]
     egos = memory_read_batched(batch.mem_features, batch.mem_obs,
                                batch.proj_indices) \
         if cfg.memory.reads_memory() else None
-    feats = model.backbone_raw(batch.image)
+    feats = recompute(model.backbone_raw, batch.image) \
+        if cfg.backbone.train_remat else model.backbone_raw(batch.image)
     gens = sample_generators(step, n, batch.image.device)
     per_frame = []
     for b in range(n):
@@ -82,7 +87,8 @@ def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
             batch.mem_obs[b], batch.proj_indices[b], gt, gens[b],
             defer_centernet_norm=True,
             ego=None if egos is None else egos[b],
-            backbone_feats=tuple(f[b] for f in feats)))
+            backbone_feats=tuple(f[b] for f in feats),
+            fed_freq_weight=fed_freq_weight))
     losses = {k: torch.stack([f[k] for f in per_frame]) for k in per_frame[0]}
     weight = batch.weight
     wsum = weight.sum().clamp(min=1.0)
@@ -103,11 +109,17 @@ def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
 
 
 def make_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
-                    optimizer: Optional[GroupedOptimizer] = None):
+                    optimizer: Optional[GroupedOptimizer] = None,
+                    fed_freq_weight: Optional[np.ndarray] = None):
     """(init_state, step_fn): init_state() -> TrainState at step 0;
     step_fn(state, batch, zs_weight) -> (state, losses), the losses
     detached, with "total_loss". The model's parameters are updated in
-    place."""
+    place. `fed_freq_weight` ([C] class frequencies,
+    `engine/train.py:load_fed_freq_weight`) enables the federated loss
+    and zero-category masking the config sets."""
+    fed_w = None if fed_freq_weight is None else torch.as_tensor(
+        np.asarray(fed_freq_weight, np.float32)).to(
+            next(model.parameters()).device)
 
     def init_state() -> TrainState:
         nonlocal optimizer
@@ -120,7 +132,7 @@ def make_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.zero_grad(set_to_none=True)
         total, losses = batch_losses(model, cfg, batch, zs_weight,
-                                     state.step)
+                                     state.step, fed_w)
         total.backward()
         state.optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}

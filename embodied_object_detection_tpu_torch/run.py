@@ -1,18 +1,21 @@
 """The port's CLI: `python -m embodied_object_detection_tpu_torch.run`.
 
 Counterpart of the JAX package's `run.py` (the reference's train_mp3d.py,
-ref: Detic/train_mp3d.py:661-857) for evaluation: `--eval-only` runs the
-serial episode protocol (`engine/eval.py:evaluate_dataset`) over an h5
-episode root and prints overall and quartile COCO bbox AP with the timing
-split; `--dry-run` checks the four golden configurations and the three
-GT-memory baselines end to end on synthetic stand-ins and prints the
-golden commands. Everything runs on the card (`--device cuda`, the
-default) unless `--device cpu` is given; without a card, `cuda` raises.
+ref: Detic/train_mp3d.py:661-857): without `--eval-only` it trains over
+an h5 episode root (`engine/train.py:train` on `data.EpisodeDataset`,
+each chunk's precomputed memory from `--semmap-path` snapshots), for
+`--max-iter` iterations, from the latest checkpoint with `--resume`;
+`--eval-only` runs the serial episode protocol
+(`engine/eval.py:evaluate_dataset`) over an h5 episode root and prints
+overall and quartile COCO bbox AP with the timing split; `--dry-run`
+checks the four golden configurations and the three GT-memory baselines
+end to end on synthetic stand-ins and prints the golden commands.
+Everything runs on the card (`--device cuda`, the default) unless
+`--device cpu` is given; without a card, `cuda` raises.
 
 Paths the port does not have yet raise `NotImplementedError` naming their
-ROADMAP queue 1 item: training (item 9), `--eval-streams` above 1 and
-`--coordinator` (item 10), `--coco-json` and `roi.head_type=res5` (item
-12).
+ROADMAP queue 1 item: `--eval-streams` above 1 and `--coordinator` (item
+10), `--coco-json` and `roi.head_type=res5` (item 12).
 
 Examples:
   # eval, implicit object memory, on the card:
@@ -22,6 +25,10 @@ Examples:
       --weights models/implicit_object_memory.pth
   # the wiring of every golden run, on synthetic data, on the CPU:
   python -m embodied_object_detection_tpu_torch.run --dry-run --device cpu
+  # train 1000 iterations on an h5 root with memory snapshots:
+  python -m embodied_object_detection_tpu_torch.run \\
+      --data-path embodied_data/mp3d_example --semmap-path SNAPSHOTS \\
+      --output-dir output/train --max-iter 1000
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ GOLDEN_PRESETS = ("pretrained", "vanilla_training", "detic_finetuned",
 def argument_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="training: continue from the output directory's "
+                        "latest checkpoint")
+    p.add_argument("--max-iter", type=int, default=None,
+                   help="training iterations (default solver.max_iter)")
     p.add_argument("--device", default="cuda",
                    help="device to run on: 'cuda' (the default; raises "
                         "without a card) or 'cpu'")
@@ -296,10 +308,6 @@ def _not_ported(args) -> None:
         raise NotImplementedError(
             "--coordinator and --eval-streams > 1 (the sharded evaluation) "
             "are not ported yet: ROADMAP queue 1 item 10")
-    if not args.eval_only and not args.dry_run:
-        raise NotImplementedError(
-            "training from the CLI (the h5 EpisodeDataset path) is not "
-            "ported yet: ROADMAP queue 1 item 9; pass --eval-only")
 
 
 def load_weights(model, cfg, path: str):
@@ -336,8 +344,9 @@ def load_weights(model, cfg, path: str):
 
 
 def main(argv=None):
-    """CLI entry point. Returns {preset: overall AP} for --dry-run and
-    the `EvalResults` for --eval-only."""
+    """CLI entry point. Returns {preset: overall AP} for --dry-run, the
+    `EvalResults` for --eval-only and the final `TrainState` for
+    training."""
     from .models.detector import resolve_device
     args = argument_parser().parse_args(argv)
     _not_ported(args)
@@ -378,9 +387,20 @@ def main(argv=None):
     if cfg.memory.memory_type in ("semantic_gt", "map_gt"):
         # these baselines read the CLIP class table through the dataset
         # (loader.py:139-142, 233-246); explicit_map reads the memory h5's
-        # or the snapshot's values
+        # or the snapshot's values, in training as in evaluation
         clip_path = find_clip_table_path(args, cfg)
         print(f"GT-memory table from {clip_path}")
+    if not args.eval_only:
+        from .engine.train import train
+        dataset = EpisodeDataset(
+            cfg.train_data_path,
+            max_sequence_length=cfg.input.max_sequence_length,
+            max_gt=cfg.input.max_gt_boxes,
+            memory_type=cfg.memory.memory_type, clip_path=clip_path,
+            semmap_path=cfg.semmap_path,
+            semmap_dialect=cfg.memory.semmap_dialect)
+        return train(model, cfg, dataset, zs_weight, max_iter=args.max_iter,
+                     resume=args.resume)
     dataset = EpisodeDataset(
         cfg.test_data_path, test_type=cfg.memory.test_type,
         max_sequence_length=cfg.input.max_sequence_length,

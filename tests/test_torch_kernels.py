@@ -581,3 +581,86 @@ def test_ms_deform_attn_autograd_launches_both_kernels():
      grad).sum().backward()
     for a, b in zip(leaves, ref):
         assert _rel_err(a.grad, b.grad) <= 1e-5
+
+
+@pytest.mark.parametrize("h,w,cin,stride,dilation,modulated", [
+    (60, 80, 256, 1, 1, True), (15, 20, 256, 1, 1, False),
+    (9, 7, 40, 2, 2, True), (4, 5, 33, 1, 2, False)])
+def test_deform_conv_kernels_vs_plain(h, w, cin, stride, dilation,
+                                      modulated):
+    """The im2col kernel equals the plain columns within 1e-6 of their
+    largest (it repeats their arithmetic op for op); the backward kernel's
+    grad_offset and grad_mask within 1e-5 of the plain autograd's
+    largest, grad_x within contributions x 2^-24 x sum|contribution| of
+    the exact sum; offsets of std 2 cross every border."""
+    from embodied_object_detection_tpu_torch.ops import deform_conv
+    _need_card()
+    rng = np.random.RandomState(21)
+    pad = dilation
+    ho = (h + 2 * pad - 2 * dilation - 1) // stride + 1
+    wo = (w + 2 * pad - 2 * dilation - 1) // stride + 1
+    x = torch.from_numpy(rng.randn(h, w, cin).astype(np.float32)).cuda()
+    off = torch.from_numpy((rng.randn(ho, wo, 18) * 2).astype(
+        np.float32)).cuda()
+    mask = torch.from_numpy(rng.rand(ho, wo, 9).astype(
+        np.float32)).cuda() if modulated else None
+    geo = (stride, pad, dilation)
+    cols = deform_conv.deform_im2col_cuda(x, off, mask, 3, 3, *geo)
+    plain = deform_conv.deform_im2col_plain(x, off, mask, 3, 3, *geo)
+    assert float((cols - plain).abs().max()) <= \
+        1e-6 * float(plain.abs().max())
+    gcols = torch.from_numpy(rng.randn(*cols.shape).astype(np.float32)).cuda()
+    gx, goff, gm = deform_conv.deform_im2col_backward_cuda(
+        gcols, x, off, mask, 3, 3, *geo)
+    leaves = [t.clone().requires_grad_() for t in (x, off) +
+              ((mask,) if modulated else ())]
+    want = torch.autograd.grad(deform_conv.deform_im2col_plain(
+        leaves[0], leaves[1], leaves[2] if modulated else None, 3, 3, *geo),
+        leaves, gcols)
+    for got, ref in ((goff, want[1]),) + (((gm, want[2]),) if modulated
+                                          else ()):
+        assert float((got - ref).abs().max()) <= \
+            1e-5 * float(ref.abs().max())
+    exact, bound, _ = deform_conv.deform_conv_grad_x_exact(
+        x, off, mask, gcols, 3, 3, *geo)
+    assert bool(((gx.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("batch,ids", [(None, "random"), (None, "coherent"),
+                                       (4, "random")])
+def test_memory_read_backward_kernel_vs_exact(batch, ids):
+    """The read's gradient in features (kernel 2b) against the exact sum s
+    of the n bf16(g / 16) contributions c, at 8192 x 512 and 480x640 ids:
+    the kernel within ((2^-8 + 2^-23)|s| + (1 + 2^-7) n 2^-24 sum|c|) /
+    denominator (an f32 sum rounded once to bf16), the plain autograd
+    within n 2^-8 sum|c| / denominator (a bf16 sum); one launch a
+    gradient."""
+    _need_card()
+    rng = np.random.RandomState(22)
+    n = batch or 1
+    cells, d, h, w = 8192, 512, 480, 640
+    feats = torch.from_numpy((rng.randn(n, cells, d) * 4).astype(
+        np.float32)).cuda()
+    obs = torch.from_numpy(rng.choice([0.0, 1.0, 2.0, 5.0], (n, cells))
+                           .astype(np.float32)).cuda()
+    if ids == "coherent":
+        block = rng.randint(0, cells, (n, h // 16, w // 16))
+        proj = np.repeat(np.repeat(block, 16, 1), 16, 2)
+    else:
+        proj = rng.randint(0, cells, (n, h, w))
+    proj = torch.from_numpy(proj.astype(np.int32)).cuda()
+    grad = torch.from_numpy(rng.randn(n, h // 4, w // 4, d).astype(
+        np.float32)).cuda()
+    if batch is None:
+        feats, obs, proj, grad = feats[0], obs[0], proj[0], grad[0]
+    read = memory_ops.memory_read_batched if batch else \
+        memory_ops.memory_read
+    before = memory_ops.memory_read_backward_cuda.launches
+    leaf = feats.clone().requires_grad_()
+    got = torch.autograd.grad(read(leaf, obs, proj), leaf, grad)[0]
+    assert memory_ops.memory_read_backward_cuda.launches == before + 1
+    exact, bound, tight, _ = memory_ops.memory_read_grad_exact(grad, obs,
+                                                               proj)
+    plain = memory_ops.memory_read_backward_plain(grad, feats, obs, proj)
+    assert bool(((got.double() - exact).abs() <= tight).all())
+    assert bool(((plain.double() - exact).abs() <= bound).all())

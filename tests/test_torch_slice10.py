@@ -11,8 +11,8 @@ is the JAX tests' (tests/test_deformable_detr.py): hidden 32, 4 heads,
 2 + 2 layers, FFN 64, 12 queries, 4 levels of 16x20 .. 2x3.
 
 JAX's `DeformableDETR` does not pass its `points` field to its layers,
-which keep their default of 4 points; the JAX miniature's `points=2` so
-runs 4 points, and the port (which passes `points` down) is built with 4.
+which keep their default of 4 points; the port's does the same, so both
+miniatures are built with `points=2` and run 4 points.
 
 Tolerances: max |port - jax| <= rtol * max |jax| + atol, stated per test
 (f32 on both sides, sums in other orders).
@@ -387,7 +387,7 @@ def detr_case(name, seed=0):
     tree = spread(jax.tree_util.tree_map(np.asarray, params), rng, 0.5)
     if name == "two_stage_ties":
         tree["params"]["enc_output"]["kernel"][:] = 0.0
-    port = td.DeformableDETR(in_channels=(32,) * 4, points=4, **kw)
+    port = td.DeformableDETR(in_channels=(32,) * 4, points=2, **kw)
     port.load_state_dict(load_jax_params(tree), strict=True)
     return jm, tree, port, feats, zs
 

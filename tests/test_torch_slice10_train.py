@@ -54,7 +54,7 @@ class PortMiniDetector(nn.Module):
     def __init__(self, cfg, **kw):
         super().__init__()
         self.cfg = cfg
-        self.detr = td.DeformableDETR(in_channels=(32,) * 4, points=4,
+        self.detr = td.DeformableDETR(in_channels=(32,) * 4, points=2,
                                       **dict(MINI, **kw))
 
     def forward(self, feats, zs_weight=None):

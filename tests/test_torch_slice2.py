@@ -467,10 +467,13 @@ def test_slice2_kernel_sources(name, replaces):
 
 def test_all_five_kernels_are_built():
     # slice 2's five sources, with slice 3's write selection and ROIAlign
-    # backward and slice 10's deformable attention (forward and backward)
-    # beside them
+    # backward, slice 10's deformable attention (forward and backward) and
+    # slice 11's read transpose and deformable convolution beside them
     assert set(build.ENTRY_POINTS) == {"segment_sum", "memory_read", "nms",
                                        "roi_align", "mask_paste",
                                        "write_select", "roi_align_backward",
                                        "ms_deform_attn",
-                                       "ms_deform_attn_backward"}
+                                       "ms_deform_attn_backward",
+                                       "memory_read_backward",
+                                       "deform_im2col",
+                                       "deform_im2col_backward"}

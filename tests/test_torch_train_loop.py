@@ -68,8 +68,9 @@ def test_resume_matches_an_uninterrupted_run(tmp_path):
     straight, s1 = _run(_config(tmp_path / "a", checkpoint_period=0), 4)
     cfg = _config(tmp_path / "b", checkpoint_period=2)
     _, s2 = _run(cfg, 2)
+    # metrics.json is mirrored into TensorBoard events under tb/
     assert sorted(os.listdir(cfg.output_dir)) == ["ckpt_0000002",
-                                                  "metrics.json"]
+                                                  "metrics.json", "tb"]
     resumed, s3 = _run(cfg, 4, resume=True)
     assert s1.step == s3.step == 4 and s2.step == 2
     assert s3.optimizer.count == 4
