@@ -169,11 +169,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      their plain version at the encoder's full-width shape (Q = S = 6380
      tokens of 60x80 + 30x40 + 15x20 + 8x10, M = 8, D = 32, L = 4, P = 4)
      and the decoder's (Q = 100), locations in [-0.1, 1.1] with pixel
-     centres, borders and the -1 row: the forward within 1e-5 of the
-     plain version's largest output, grad_loc and grad_attn within 1e-5 of
-     the plain autograd's largest, grad_value and the plain autograd's
-     within contributions x 2^-24 x sum|contribution| of the exact sum of
-     its f32 contributions
+     centres, borders and the -1 row; then at D = 6 (rows without 16-byte
+     alignment), at both shapes on the model's locations (each query's
+     reference plus normal(0, 2) level pixels) and on the first 3 levels
+     (an odd L): the forward equal to the plain version bit for bit,
+     grad_loc and grad_attn within 1e-5 of the plain autograd's largest,
+     grad_value and the plain autograd's within
+     contributions x 2^-24 x sum|contribution| of the exact sum of its
+     f32 contributions
   12b. Deformable-DETR inference at 480x640 with seeded weights at the
      JAX defaults (ResNet-50, hidden 256, 8 heads, 6 + 6 layers, FFN
      2048, 4 levels x 4 points, 100 queries): the single-stage linear
@@ -182,7 +185,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      24 frames each under the sync debug mode "error" (a warm-up frame
      under "warn" first), 12 deformable-attention launches a frame, ms a
      frame, the busy share (device busy ms a frame of 2 profiled frames
-     over the timed ms a frame), peak memory
+     over the timed ms a frame), peak memory; from the same 2 profiled
+     frames the device ms a frame by op group (kernel 8, convolutions,
+     matmuls, norms, elementwise, the rest) with the top ops, and kernel
+     8's device time a call in the encoder and in the decoder
   12c. Deformable-DETR training at 480x640: 3 `detr_train_step_host_matched`
      steps of the two-stage, box-refine detector on 5 GT boxes, each with
      a `GroupedOptimizer` step: finite losses, gradients on enc_output,
@@ -214,8 +220,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      plain autograd (bf16 accumulation, as JAX's) within n 2^-8 sum|c| /
      denominator
   7 also times both deformable attention kernels (the encoder's shape in
-  the JSON line, the decoder's printed) beside the plain version and the
-  reference's grid_sample composition (its autograd for the backward),
+  the JSON line, the decoder's printed, both also on the model's
+  locations; the bytes gathered and the backward's float4 REDs, counted
+  by the kernels' lanes in their counting build and held to what the
+  inputs give the design, and their rates) beside the plain version and
+  the reference's grid_sample
+  composition (its autograd for the backward),
   the deformable convolution's kernels at 60x80x256 (the JSON entries:
   the im2col kernel, and the backward kernel on the columns' gradient,
   beside the plain columns and a grid_sample composition, their autograd
@@ -227,7 +237,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 With --profile, phases 5, 8 and 10 also print each port kernel's device
 time a call in the profiled chunk, step and engine run (10: the engine
 over its first 2 chunks), the mask paste + write selection a frame, and
-the device's busy time a frame.
+the device's busy time a frame; phase 12b writes each DETR variant's
+device ops a frame into DIR.
 
 It then prints one JSON line of kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a card, or without the rest of
@@ -372,16 +383,19 @@ def phase(n: int, text: str) -> None:
 def build_kernels():
     from embodied_object_detection_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    report = build.build()
+    # and kernel 8's counting build, which phase 7 reads its gathers from
+    report = build.build(counting=("ms_deform_attn",))
     for name, (secs, log) in report.items():
         print(f"  built {name} in {secs:.1f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {line.strip()}")
+    counting = sum(name.endswith("(counting)") for name in report)
     phase(2, f"kernels ready in {time.perf_counter() - t0:.1f} s "
-             f"({len(report)} of "
+             f"({len(report) - counting} of "
              f"{len(set(map(build.source, build.ENTRY_POINTS)))} sources "
-             f"compiled, {len(build.ENTRY_POINTS)} entry points)")
+             f"and {counting} counting build compiled, "
+             f"{len(build.ENTRY_POINTS)} entry points)")
 
 
 def coherent_proj(rng, h=480, w=640, cells=8192, block=COHERENT_BLOCK):
@@ -1421,8 +1435,8 @@ def device_busy(trace_events):
     return len(events), busy, max(e for _, e in events) - events[0][0]
 
 
-def profile_busy(fn):
-    """Profile one fn() call: (device ops, busy us, span us)."""
+def profile_events(fn):
+    """Profile one fn() call: its chrome trace's events."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1432,7 +1446,42 @@ def profile_busy(fn):
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
-        return device_busy(json.loads(trace.read_text())["traceEvents"])
+        return json.loads(trace.read_text())["traceEvents"]
+
+
+# groups of a frame's device ops, each kernel in the first group whose
+# pattern its name matches (cuDNN's convolutions before the matmuls, as
+# their implicit GEMMs carry "gemm" in their names too); copies, sets and
+# the kernels no pattern matches are "the rest"
+OP_GROUPS = (("kernel 8", r"ms_deform_attn"),
+             ("convolutions", r"(?i)conv|fprop|dgrad|wgrad|winograd|"
+                              r"implicit|nchw|nhwc"),
+             ("matmuls", r"(?i)gemm|gemv|cutlass|cublas|matmul|splitk"),
+             ("norms", r"(?i)norm|welford"),
+             ("elementwise", r"elementwise"))
+
+
+def device_op_split(trace_events, units):
+    """({group: device ms a unit}, [(ms a unit, calls a unit, group,
+    kernel name)] from the most time down) of a chrome trace's device
+    ops."""
+    groups = dict.fromkeys([g for g, _ in OP_GROUPS] + ["the rest"], 0.0)
+    ops = collections.defaultdict(lambda: [0.0, 0])
+    for e in trace_events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e["name"] if e["cat"] == "kernel" else e["cat"]
+        group = next((g for g, pat in OP_GROUPS
+                      if e["cat"] == "kernel" and re.search(pat, name)),
+                     "the rest")
+        op = ops[(group, kernel_name(name))]
+        op[0] += e["dur"] / 1e3 / units
+        op[1] += 1
+        groups[group] += e["dur"] / 1e3 / units
+    top = sorted(((ms, n / units, g, k) for (g, k), (ms, n) in ops.items()),
+                 reverse=True)
+    return groups, top
 
 
 def miniature(cfg, frames):
@@ -3430,25 +3479,81 @@ DETR_VARIANTS = {"single_stage": {},
 DETR_ATTN_STD = 0.1
 
 
-def msda_inputs(rng, q, m=8, d=32, p=4, shapes=DETR_LEVELS):
-    """value [S, M, D], locations [Q, M, L, P, 2] in [-0.1, 1.1] with each
-    level's first point of every (query, head) on an edge case (a pixel
-    centre, the first and last centres, 0 and 1, and -0.5 / size: a
-    sample on the -1 row or column), softmaxed weights, a grad_out."""
+def msda_in_frames(trace_events, per_frame=DETR_LAUNCHES):
+    """Kernel 8's device us a call in profiled DETR frames: (encoder,
+    decoder), the first half of each frame's launches the encoder's."""
+    calls = sorted((e["ts"], e["dur"]) for e in trace_events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel" and
+                   "ms_deform_attn_fwd" in e["name"])
+    enc = [d for i, (_, d) in enumerate(calls) if i % per_frame <
+           per_frame // 2]
+    dec = [d for i, (_, d) in enumerate(calls) if i % per_frame >=
+           per_frame // 2]
+    return float(np.mean(enc)), float(np.mean(dec))
+
+
+def msda_arrays(rng, shapes, q, m, d, p, locality="random"):
+    """Kernel 8's test inputs as f32 numpy arrays from `rng`: value
+    [S, M, D], locations [Q, M, L, P, 2], attention weights softmaxed over
+    (L, P), grad_out [Q, M * D]. The card tests and the CPU test of the
+    lane map draw theirs here too. locality "random": locations uniform in
+    [-0.1, 1.1] with each level's first point of every (query, head) on an
+    edge case (a pixel centre, the first and last centres, 0 and 1, and
+    -0.5 / size: a sample on the -1 row or column). "model": the
+    Deformable-DETR's, each query's reference at every level plus offsets
+    of normal(0, 2) level pixels (DETR_ATTN_STD's spread); at Q = S (the
+    encoder) the reference is the query's own pixel centre at its level,
+    normalised, else (the decoder) uniform in (0, 1)."""
     s = sum(h * w for h, w in shapes)
+    nl = len(shapes)
     value = rng.randn(s, m, d).astype(np.float32)
-    locs = rng.uniform(-0.1, 1.1, (q, m, len(shapes), p, 2)).astype(
-        np.float32)
-    for lvl, (h, w) in enumerate(shapes):
-        for axis, size in ((0, w), (1, h)):
-            edge = np.array([(size // 2 + 0.5) / size, 0.5 / size,
-                             (size - 0.5) / size, 0.0, 1.0, -0.5 / size],
-                            np.float32)
-            locs[:, :, lvl, 0, axis] = edge[rng.randint(0, 6, (q, m))]
-    attn = rng.rand(q, m, len(shapes), p).astype(np.float32)
+    if locality == "model":
+        if q == s:
+            refs = np.concatenate([np.stack(
+                [(np.arange(h * w) % w + 0.5) / w,
+                 (np.arange(h * w) // w + 0.5) / h], -1) for h, w in shapes])
+        else:
+            refs = rng.uniform(0.0, 1.0, (q, 2))
+        sizes = np.array([(w, h) for h, w in shapes], np.float64)
+        locs = (refs[:, None, None, None, :] +
+                rng.normal(0.0, 2.0, (q, m, nl, p, 2)) /
+                sizes[None, None, :, None, :]).astype(np.float32)
+    elif locality == "random":
+        locs = rng.uniform(-0.1, 1.1, (q, m, nl, p, 2)).astype(np.float32)
+        for lvl, (h, w) in enumerate(shapes):
+            for axis, size in ((0, w), (1, h)):
+                edge = np.array([(size // 2 + 0.5) / size, 0.5 / size,
+                                 (size - 0.5) / size, 0.0, 1.0,
+                                 -0.5 / size], np.float32)
+                locs[:, :, lvl, 0, axis] = edge[rng.randint(0, 6, (q, m))]
+    else:
+        raise ValueError(f"locality must be 'random' or 'model', got "
+                         f"{locality!r}")
+    attn = rng.rand(q, m, nl, p).astype(np.float32)
     attn /= attn.sum(axis=(2, 3), keepdims=True)
     grad = rng.randn(q, m * d).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in (value, locs, attn, grad)]
+    return value, locs, attn, grad
+
+
+def msda_inputs(rng, q, m=8, d=32, p=4, shapes=DETR_LEVELS,
+                locality="random"):
+    """`msda_arrays` on the card."""
+    return [torch.from_numpy(a).cuda()
+            for a in msda_arrays(rng, shapes, q, m, d, p, locality)]
+
+
+def msda_corners(locs, shapes=DETR_LEVELS):
+    """The corners inside their level over every (query, head, level,
+    point), counted from the inputs: those the kernels' design loads."""
+    n = 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = torch.floor(locs[:, :, lvl, :, 0] * w - 0.5)
+        y0 = torch.floor(locs[:, :, lvl, :, 1] * h - 0.5)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                n += int(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) &
+                          (y0 + dy < h)).sum())
+    return n
 
 
 def rel_err(got, want):
@@ -3497,30 +3602,54 @@ def msda_check(value, locs, attn, grad, shapes=DETR_LEVELS):
             int(count.max()))
 
 
+# phase 12's cases: (name, Q (None: S), M, D, P, locality, levels)
+MSDA_CASES = (("encoder", None, 8, 32, 4, "random", 4),
+              ("decoder", 100, 8, 32, 4, "random", 4),
+              ("D % 4 != 0", 2000, 8, 6, 4, "random", 4),
+              ("encoder, model locality", None, 8, 32, 4, "model", 4),
+              ("decoder, model locality", 100, 8, 32, 4, "model", 4),
+              ("odd L", 2000, 8, 32, 4, "random", 3))
+
+
 def check_ms_deform_attn(rng):
     """Phase 12: both kernels against the plain version at the encoder's
-    (Q = S) and the decoder's (Q = 100) full-width shapes."""
-    s = sum(h * w for h, w in DETR_LEVELS)
+    (Q = S) and the decoder's (Q = 100) full-width shapes, at D = 6 (rows
+    without 16-byte alignment, a quad of 2 channels), on the model's
+    locations and on 3 levels (an odd L: the forward's instantiation that
+    takes one level at a time); the forward must equal the plain version
+    bit for bit."""
     worst_fwd = worst_gv = 0.0
-    for name, q in (("encoder", s), ("decoder", 100)):
+    # the cases after the first two from a generator of their own, so that
+    # the later phases draw the same inputs as before them
+    extra = np.random.RandomState(12)
+    for i, (name, q, m, d, p, locality, nl) in enumerate(MSDA_CASES):
+        shapes = DETR_LEVELS[:nl]
+        s = sum(h * w for h, w in shapes)
+        q = q or s
         fwd, fwd_rel, loc_rel, attn_rel, gv_err, ratio, plain_ratio, most = \
-            msda_check(*msda_inputs(rng, q))
+            msda_check(*msda_inputs(rng if i < 2 else extra, q, m, d, p,
+                                    shapes, locality), shapes)
         worst_fwd, worst_gv = max(worst_fwd, fwd), max(worst_gv, gv_err)
-        print(f"  {name} (Q = {q}, S = {s}, M = 8, D = 32, L = 4, P = 4): "
-              f"forward max err {fwd:.3e} ({fwd_rel:.2e} of max |plain|, "
-              f"tolerance 1e-5); grad_loc {loc_rel:.2e} and grad_attn "
+        print(f"  {name} (Q = {q}, S = {s}, M = {m}, D = {d}, L = {nl}, "
+              f"P = {p}, {locality} locations): forward max abs err "
+              f"{fwd:.3e} ({fwd_rel:.2e} of max |plain|, bit-equal "
+              f"required); grad_loc {loc_rel:.2e} and grad_attn "
               f"{attn_rel:.2e} of the plain autograd's largest (tolerance "
               f"1e-5); grad_value max err {gv_err:.3e} from the exact sum, "
               f"max err / bound {ratio:.3f} (up to {most} contributions on "
               f"one element), the plain autograd's grad_value max err / "
               f"bound {plain_ratio:.3f} from the same sum")
-    phase(12, "ms_deform_attn forward within 1e-5 of the plain version's "
-              "largest output, its backward's grad_loc and grad_attn within "
-              "1e-5 of the plain autograd's largest, grad_value and the "
-              "plain autograd's within contributions x 2^-24 x "
-              "sum|contribution| of the exact sum, "
-              "at the encoder's and the decoder's shapes, locations in "
-              "[-0.1, 1.1] with pixel centres, borders and the -1 row")
+        if fwd != 0.0:
+            raise AssertionError(f"phase 12 {name}: the forward differs from "
+                                 f"the plain version by {fwd:.3e}")
+    phase(12, "ms_deform_attn forward equal to the plain version bit for "
+              "bit, its backward's grad_loc and grad_attn within 1e-5 of "
+              "the plain autograd's largest, grad_value and the plain "
+              "autograd's within contributions x 2^-24 x sum|contribution| "
+              "of the exact sum, at the encoder's and the decoder's shapes "
+              "on locations in [-0.1, 1.1] with pixel centres, borders and "
+              "the -1 row and on the model's locations, at D = 6 and "
+              "on 3 levels")
     return {"ms_deform_attn": worst_fwd, "ms_deform_attn_backward": worst_gv}
 
 
@@ -3533,9 +3662,13 @@ def detr_zs():
         os.path.join(METADATA_DIR, "mp3d_clip.npy")))
 
 
-def run_detr_inference():
+def run_detr_inference(profile_dir=None):
     """Phase 12b: the full-width detector and detr_inference, both
-    variants; launches, host syncs, ms/frame, busy share, peak memory."""
+    variants; launches, host syncs, ms/frame, busy share, peak memory,
+    and from 2 profiled frames the device time by op group and kernel 8's
+    device time a call (encoder and decoder apart). With `profile_dir`,
+    also each variant's device ops a frame into it. Returns the first
+    variant's launches and {variant: its numbers}."""
     from embodied_object_detection_tpu_torch.config import DetectorConfig
     from embodied_object_detection_tpu_torch.models.deformable_detr import (
         build_deformable_detr, detr_inference)
@@ -3546,7 +3679,7 @@ def run_detr_inference():
     images = torch.from_numpy(rng.randint(0, 255, (DETR_FRAMES, h, w, 3))
                               .astype(np.float32)).cuda()
     zs = detr_zs().cuda()
-    first, summary = None, []
+    first, summary, stats = None, [], {}
     for name, variant in DETR_VARIANTS.items():
         model = build_deformable_detr(cfg, seed=0, device="cuda",
                                       attn_init_std=DETR_ATTN_STD, **variant)
@@ -3597,8 +3730,28 @@ def run_detr_inference():
                     bool(torch.isfinite(enc).all())))
             if not ok:
                 raise AssertionError(f"phase 12b {name}: bad outputs")
-        ops, busy, span = profile_busy(lambda: frames(2))
+        events = profile_events(lambda: frames(2))
+        ops, busy, span = device_busy(events)
         busy_ms = busy / 2e3
+        split, top = device_op_split(events, 2)
+        enc_us, dec_us = msda_in_frames(events)
+        print(f"    device ms a frame by op group: " + ", ".join(
+            f"{g} {v:.3f}" for g, v in split.items()) +
+            f" (kernel 8 {split['kernel 8'] / sum(split.values()):.3f} of "
+            f"the device time); kernel 8 in the frame {enc_us:.1f} us a "
+            f"call (encoder), {dec_us:.1f} us (decoder)")
+        for ms_op, calls, group, kernel in top[:12]:
+            print(f"      {ms_op:.3f} ms, {calls:g} calls a frame, "
+                  f"{group}: {kernel}")
+        if profile_dir:
+            out = Path(profile_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            (out / f"detr_{name}_ops.txt").write_text("".join(
+                f"{ms_op:.4f} ms\t{calls:g}\t{group}\t{kernel}\n"
+                for ms_op, calls, group, kernel in top))
+        stats[name] = {"ms_per_frame": ms, "busy_ms_per_frame": busy_ms,
+                       "device_ops_per_frame": ops / 2, "split_ms": split,
+                       "msda_us_encoder": enc_us, "msda_us_decoder": dec_us}
         dets = outs[-1][1]
         print(f"  {name}: {DETR_FRAMES} frames at {h}x{w}, {ms:.2f} ms/frame "
               f"(eager, host clock), 0 host syncs (sync debug mode 'error'), "
@@ -3619,7 +3772,7 @@ def run_detr_inference():
                  f"{'; '.join(summary)}; detr_inference to 100 detections, "
                  f"{DETR_LAUNCHES} deformable-attention launches a frame, "
                  "no host sync")
-    return first
+    return first, stats
 
 
 def detr_gt(rng, h, w, g=8, valid=5):
@@ -3814,34 +3967,89 @@ def msda_yardstick(value, shapes, locs, attn):
     return out.permute(2, 0, 1).reshape(q, m * d)
 
 
+# phase 7's timed cases of kernels 8 and 8b: (shape, Q (None: S), locality)
+MSDA_TIMED = (("encoder", None, "random"), ("decoder", 100, "random"),
+              ("encoder", None, "model"), ("decoder", 100, "model"))
+
+
+def msda_timed_inputs(rng):
+    """{(shape, locality): inputs} of phase 7's timed cases: the random
+    locations from rng (as phase 7 has always drawn them), the model's
+    from a generator of their own."""
+    s = sum(h * w for h, w in DETR_LEVELS)
+    own = np.random.RandomState(71)
+    return {(name, loc): msda_inputs(rng if loc == "random" else own,
+                                     q or s, locality=loc)
+            for name, q, loc in MSDA_TIMED}
+
+
+def msda_kernel_ms(ma, value, locs, attn, grad, shapes=DETR_LEVELS):
+    """(forward ms, backward ms) a call of the kernels' wrappers, the
+    backward's zero fill of grad_value included."""
+    return (graph_ms(lambda: ma.ms_deform_attn_cuda(value, shapes, locs,
+                                                    attn)),
+            graph_ms(lambda: ma.ms_deform_attn_backward_cuda(
+                grad, value, shapes, locs, attn)))
+
+
 def time_ms_deform_attn(rng, launches, train_launches, errs):
     """Both kernels at the encoder's shape (the JSON entries) and the
-    decoder's, beside the plain version and the reference's grid_sample
-    composition (for the backward, torch.autograd.grad of each, captured
-    in a CUDA graph as the kernels are). Bounds: bytes of value, locations
-    and weights read once and the output written once (backward: value,
+    decoder's, on random and on the model's locations; on random ones
+    beside the plain version and the reference's grid_sample composition
+    (for the backward, torch.autograd.grad of each, captured in a CUDA
+    graph as the kernels are). Bounds: bytes of value, locations and
+    weights read once and the output written once (backward: value,
     locations, weights and grad_out read once, grad_value, grad_loc and
     grad_attn written once), against 10 (backward 26) f32 operations a
-    (query, head, level, point, channel)."""
+    (query, head, level, point, channel). Gathers: the corner bytes each
+    kernel copied or loaded and the REDs the backward issued, counted by
+    the kernels' lanes in their counting build
+    (`ms_deform_attn_tally`), and their rates over the timed kernels'
+    times; the counts must be those the inputs give the design (a corner
+    inside its level: D x 4 bytes, ceil(D / 4) float4 REDs)."""
     from embodied_object_detection_tpu_torch.ops import ms_deform_attn as ma
-    s = sum(h * w for h, w in DETR_LEVELS)
     entries = []
-    for name, q in (("encoder", s), ("decoder", 100)):
-        value, locs, attn, grad = msda_inputs(rng, q)
+    for (name, locality), inputs in msda_timed_inputs(rng).items():
+        value, locs, attn, grad = inputs
         shapes = DETR_LEVELS
+        q = locs.shape[0]
         m, d = value.shape[1:]
         samples = q * m * len(shapes) * locs.shape[3] * d
         ins = (value.numel() + locs.numel() + attn.numel()) * 4
-        ms = graph_ms(lambda: ma.ms_deform_attn_cuda(value, shapes, locs,
-                                                     attn))
+        tally = ma.ms_deform_attn_tally(value, shapes, locs, attn, grad)
+        corners = msda_corners(locs)
+        design = {"forward_bytes": corners * d * 4,
+                  "backward_bytes": corners * d * 4,
+                  "backward_reds": corners * -(-d // 4)}
+        if tally != design:
+            raise AssertionError(f"phase 7 ms_deform_attn, {name}, "
+                                 f"{locality}: the kernels issued {tally}, "
+                                 f"the inputs give the design {design}")
+        gathered, bwd_gathered = tally["forward_bytes"], \
+            tally["backward_bytes"]
+        reds = tally["backward_reds"]
+        ms, bwd_ms = msda_kernel_ms(ma, value, locs, attn, grad)
+        b_ms, b_by = bound_ms(ins + grad.numel() * 4, 10 * samples)
+        bb_ms, bb_by = bound_ms(2 * ins + grad.numel() * 4, 26 * samples)
+        line = (f"  ms_deform_attn, {name} (Q = {q}), {locality} locations "
+                f"(counted by the counting build, equal to the {corners} "
+                f"corners inside their level): forward gathered "
+                f"{gathered / 1e6:.1f} MB, backward {bwd_gathered / 1e6:.1f} "
+                f"MB and {reds / 1e6:.2f} M float4 REDs; forward "
+                f"{ms * 1e3:.1f} us kernel ({gathered / ms / 1e9:.2f} TB/s "
+                f"of gathers), bound {b_ms * 1e3:.2f} us ({b_by}); backward "
+                f"{bwd_ms * 1e3:.1f} us kernel "
+                f"({bwd_gathered / bwd_ms / 1e9:.2f} TB/s, "
+                f"{reds / bwd_ms / 1e6:.1f} G REDs/s), bound "
+                f"{bb_ms * 1e3:.2f} us ({bb_by})")
+        if locality != "random":
+            print(line)
+            continue
         plain_ms = graph_ms(lambda: ma.ms_deform_attn_plain(
             value, shapes, locs, attn))
         lib_ms = graph_ms(lambda: msda_yardstick(value, shapes, locs, attn))
         lib_gap = rel_err(msda_yardstick(value, shapes, locs, attn),
                           ma.ms_deform_attn_cuda(value, shapes, locs, attn))
-        b_ms, b_by = bound_ms(ins + grad.numel() * 4, 10 * samples)
-        bwd_ms = graph_ms(lambda: ma.ms_deform_attn_backward_cuda(
-            grad, value, shapes, locs, attn))
         leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
         bwd_plain_ms = graph_ms(lambda: torch.autograd.grad(
             ma.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2]),
@@ -3849,14 +4057,11 @@ def time_ms_deform_attn(rng, launches, train_launches, errs):
         bwd_lib_ms = graph_ms(lambda: torch.autograd.grad(
             msda_yardstick(leaves[0], shapes, leaves[1], leaves[2]), leaves,
             grad))
-        bb_ms, bb_by = bound_ms(2 * ins + grad.numel() * 4, 26 * samples)
-        print(f"  ms_deform_attn, {name} (Q = {q}): forward {ms * 1e3:.1f} us "
-              f"kernel, {plain_ms * 1e3:.1f} us plain, {lib_ms * 1e3:.1f} us "
-              f"grid_sample composition ({lib_gap:.1e} from the kernel), "
-              f"bound {b_ms * 1e3:.2f} us ({b_by}); backward "
-              f"{bwd_ms * 1e3:.1f} us kernel, {bwd_plain_ms * 1e3:.1f} us "
-              f"plain autograd, {bwd_lib_ms * 1e3:.1f} us grid_sample "
-              f"composition's autograd, bound {bb_ms * 1e3:.2f} us ({bb_by})")
+        print(f"{line}; forward {plain_ms * 1e3:.1f} us plain, "
+              f"{lib_ms * 1e3:.1f} us grid_sample composition ({lib_gap:.1e} "
+              f"from the kernel); backward {bwd_plain_ms * 1e3:.1f} us plain "
+              f"autograd, {bwd_lib_ms * 1e3:.1f} us grid_sample "
+              f"composition's autograd")
         if name == "encoder":
             src = "embodied_object_detection_tpu_torch/csrc/ms_deform_attn.cu"
             ref = "embodied_object_detection_tpu/ops/ms_deform_attn.py:35"
@@ -3865,13 +4070,16 @@ def time_ms_deform_attn(rng, launches, train_launches, errs):
                  "replaces": ref, "launches": launches["ms_deform_attn"],
                  "max_abs_err": errs["ms_deform_attn"], "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": lib_ms},
+                 "library_ms": lib_ms, "gathered_bytes": gathered,
+                 "gather_tb_s": gathered / ms / 1e9},
                 {"name": "ms_deform_attn_backward", "route": "cuda",
                  "source": src, "replaces": ref,
                  "launches": train_launches["ms_deform_attn_backward"],
                  "max_abs_err": errs["ms_deform_attn_backward"],
                  "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bb_ms,
-                 "bound_by": bb_by, "library_ms": bwd_lib_ms}]
+                 "bound_by": bb_by, "library_ms": bwd_lib_ms,
+                 "gathered_bytes": bwd_gathered,
+                 "gather_tb_s": bwd_gathered / bwd_ms / 1e9, "reds": reds}]
     return entries
 
 
@@ -4344,7 +4552,8 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR",
                         help="profile one eval chunk, the eval engine's "
                              "first 2 chunks and one training step into "
-                             "DIR")
+                             "DIR, and write the DETR frames' device ops "
+                             "there")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4381,7 +4590,7 @@ def main() -> int:
     check_image_demo()
     check_export(robot_model, robot_cfg, robot_memory)
     errs.update(check_ms_deform_attn(rng))
-    detr_launches = run_detr_inference()
+    detr_launches, _ = run_detr_inference(args.profile)
     detr_train_launches = run_detr_training()
     check_detr_against_cpu()
     blocks = dcn_blocks()

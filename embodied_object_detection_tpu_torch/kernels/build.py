@@ -6,6 +6,9 @@ plain C interface (no PyTorch headers, so a build takes seconds), under
 flags so that an edited source is never served from a stale library.
 Nothing here runs at import time: `load` builds on first use, and
 `build` compiles several sources at once with one nvcc process each.
+A source may also have a counting build (`counting=True`: compiled with
+COUNT_FLAGS), whose kernels also count what they issue; it is a library of
+its own, used only to measure, never on a wrapper's path.
 
 The entry point of every library takes device pointers (and, for the
 ROIAlign's per-level arguments, pointers to small host arrays), ints,
@@ -31,6 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+COUNT_FLAGS = ("-DEODT_COUNT",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,33 +138,43 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """The library of kernel `name`'s source."""
+def _flags(counting: bool) -> Tuple[str, ...]:
+    return NVCC_FLAGS + COUNT_FLAGS if counting else NVCC_FLAGS
+
+
+def library_path(name: str, counting: bool = False) -> Path:
+    """The library of kernel `name`'s source (its counting build when
+    `counting`)."""
     src = source(name)
     text = (CSRC / f"{src}.cu").read_bytes()
     digest = hashlib.sha256(
-        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src}-{digest}.so"
+        text + " ".join(_flags(counting)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src}{'-count' if counting else ''}-{digest}.so"
 
 
-def build(names: Iterable[str] = tuple(ENTRY_POINTS)
-          ) -> Dict[str, Tuple[float, str]]:
+def build(names: Iterable[str] = tuple(ENTRY_POINTS),
+          counting: Iterable[str] = ()) -> Dict[str, Tuple[float, str]]:
     """Compile the source of every named kernel whose library is missing,
-    all nvcc processes started together. Returns {source: (seconds,
-    compiler log)} for the sources it compiled; raises if any compile
-    failed."""
+    and the counting build of every kernel in `counting`, all nvcc
+    processes started together. Returns {source (with " (counting)" for a
+    counting build): (seconds, compiler log)} for the libraries it
+    compiled; raises if any compile failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
     running = {}
-    for name in dict.fromkeys(map(source, names)):
-        out = library_path(name)
+    jobs = [(n, False) for n in map(source, names)] + \
+        [(n, True) for n in map(source, counting)]
+    for name, count in dict.fromkeys(jobs):
+        out = library_path(name, count)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True), tmp, out)
+        cmd = [nvcc(), *_flags(count), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        key = f"{name} (counting)" if count else name
+        running[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp, out)
     report, failed = {}, []
     for name, (proc, tmp, out) in running.items():
         log, _ = proc.communicate()
@@ -175,8 +189,9 @@ def build(names: Iterable[str] = tuple(ENTRY_POINTS)
 
 
 @functools.cache
-def load(name: str):
-    """The ctypes entry point of kernel `name`, built on first use."""
+def library(name: str, counting: bool = False) -> ctypes.CDLL:
+    """The library of kernel `name` (its counting build when `counting`),
+    built on first use."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"CUDA is not available: the {name} kernel runs only on the card")
@@ -184,9 +199,18 @@ def load(name: str):
         raise RuntimeError(
             f"the {name} kernel is built for sm_90a (Hopper); this card is "
             f"sm_{''.join(map(str, torch.cuda.get_device_capability()))}")
-    build((name,))
+    if counting:
+        build((), counting=(name,))
+    else:
+        build((name,))
+    return ctypes.CDLL(str(library_path(name, counting)))
+
+
+@functools.cache
+def load(name: str):
+    """The ctypes entry point of kernel `name`, built on first use."""
     symbol, argtypes = ENTRY_POINTS[name]
-    fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+    fn = getattr(library(name), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

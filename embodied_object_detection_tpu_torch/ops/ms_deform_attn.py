@@ -6,15 +6,18 @@ head, level and point, a bilinear zero-padded sample (grid_sample,
 align_corners=False) of the level's value map at a location normalised to
 [0, 1] per level, weighted by the attention weights and summed.
 
-On a CUDA tensor `ms_deform_attn` launches `csrc/ms_deform_attn.cu` (one
-warp per query and head, one lane per channel); under autograd the call is
+On a CUDA tensor `ms_deform_attn` launches `csrc/ms_deform_attn.cu` (a
+warp per query and head, a lane per point and 4 channels, every corner
+row of two levels in flight at once); under autograd the call is
 `MSDeformAttnFunction`, whose backward launches the second kernel of the
-same source (grad_value by f32 atomics, grad_loc and grad_attn by warp
-sums). On a CPU tensor it takes `ms_deform_attn_plain`, the JAX package's
+same source (grad_value by float4 atomics, grad_loc and grad_attn by
+sums over each point's lanes). On a CPU tensor it takes `ms_deform_attn_plain`, the JAX package's
 gather form, differentiated by torch autograd; it is also the kernels'
 yardstick in the tests and on the card. Both wrappers are custom ops
 (`torch.ops.eodt.ms_deform_attn`, `torch.ops.eodt.ms_deform_attn_backward`)
 with fake implementations, as every kernel of the port is.
+`ms_deform_attn_tally` runs the source's counting build once to measure
+what the kernels gather and how many REDs they issue.
 """
 
 from __future__ import annotations
@@ -241,6 +244,57 @@ def ms_deform_attn_backward_cuda(
 
 
 ms_deform_attn_backward_cuda.launches = 0
+
+
+def ms_deform_attn_tally(value: torch.Tensor,
+                         spatial_shapes: Sequence[Tuple[int, int]],
+                         sampling_locations: torch.Tensor,
+                         attention_weights: torch.Tensor,
+                         grad_out: torch.Tensor) -> dict:
+    """Both kernels once from the counting build of their source (not the
+    wrappers: no launch is counted), on the card: {"forward_bytes": the
+    bytes of the corner quads the forward copied, "backward_bytes": those
+    the backward loaded, "backward_reds": the REDs it issued into
+    grad_value (a float4 RED a quad, or one a channel where D % 4 != 0)}.
+    The counts are what the kernels issued, tallied by their lanes."""
+    shapes = _flat_shapes(spatial_shapes)
+    q, m, d, p = _check("ms_deform_attn_tally", value, shapes,
+                        sampling_locations, attention_weights)
+    lib = build.library("ms_deform_attn", counting=True)
+    fwd, bwd = (getattr(lib, build.ENTRY_POINTS[n][0]) for n in (
+        "ms_deform_attn", "ms_deform_attn_backward"))
+    fwd.argtypes = build.ENTRY_POINTS["ms_deform_attn"][1]
+    bwd.argtypes = build.ENTRY_POINTS["ms_deform_attn_backward"][1]
+    tally = lib.ms_deform_attn_tally
+    tally.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    counts = (ctypes.c_ulonglong * 2)()
+    nl, heights, widths = _levels(shapes)
+    out = torch.empty((q, m * d), dtype=torch.float32, device=value.device)
+    grads = (torch.zeros_like(value), torch.empty_like(sampling_locations),
+             torch.empty_like(attention_weights))
+    grad_out = grad_out.contiguous()
+    if grad_out.shape != (q, m * d) or grad_out.dtype != torch.float32:
+        raise ValueError(f"ms_deform_attn_tally: grad_out must be float32 "
+                         f"[{q}, {m * d}], got {tuple(grad_out.shape)}")
+    result = {}
+    build.check_launch(tally(counts), "ms_deform_attn_tally")   # zeroes
+    build.check_launch(
+        fwd(value.data_ptr(), heights, widths, nl,
+            sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            out.data_ptr(), q, m, d, p, build.stream_handle()),
+        "ms_deform_attn (counting)")
+    build.check_launch(tally(counts), "ms_deform_attn_tally")
+    result["forward_bytes"] = int(counts[0])
+    build.check_launch(
+        bwd(value.data_ptr(), heights, widths, nl,
+            sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            grad_out.data_ptr(), *(g.data_ptr() for g in grads),
+            q, m, d, p, build.stream_handle()),
+        "ms_deform_attn_backward (counting)")
+    build.check_launch(tally(counts), "ms_deform_attn_tally")
+    result["backward_bytes"] = int(counts[0])
+    result["backward_reds"] = int(counts[1])
+    return result
 
 
 class MSDeformAttnFunction(torch.autograd.Function):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from embodied_object_detection_tpu_torch.ops import (
     mask_paste, memory_ops, ms_deform_attn, nms, roi_align, segment_sum)
 
@@ -502,25 +503,11 @@ def test_mask_paste_kernel_vs_plain(n, threshold, pixel_major, x_stride,
 MSDA_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
 
 
-def _msda_inputs(rng, shapes, q, m, d, p):
-    """Locations in [-0.1, 1.1], and on every level the first point of
-    each (query, head) at one of the edge cases: a pixel centre, the map's
-    first and last centres, 0 and 1 (a corner outside), and -0.5 / size
-    (a sample on the -1 row or column)."""
-    s = sum(h * w for h, w in shapes)
-    value = rng.randn(s, m, d).astype(np.float32)
-    locs = rng.uniform(-0.1, 1.1, (q, m, len(shapes), p, 2)).astype(
-        np.float32)
-    for lvl, (h, w) in enumerate(shapes):
-        for axis, size in ((0, w), (1, h)):
-            edge = np.array([(size // 2 + 0.5) / size, 0.5 / size,
-                             (size - 0.5) / size, 0.0, 1.0, -0.5 / size],
-                            np.float32)
-            locs[:, :, lvl, 0, axis] = edge[rng.randint(0, 6, (q, m))]
-    attn = rng.rand(q, m, len(shapes), p).astype(np.float32)
-    attn /= attn.sum(axis=(2, 3), keepdims=True)
-    grad = rng.randn(q, m * d).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in (value, locs, attn, grad)]
+def _msda_inputs(rng, shapes, q, m, d, p, locality="random"):
+    """chip_smoke.py's phase 12 inputs (`msda_arrays`) on the card: random
+    locations with edge cases, or the model's."""
+    return [torch.from_numpy(a).cuda() for a in
+            chip_smoke.msda_arrays(rng, shapes, q, m, d, p, locality)]
 
 
 def _rel_err(got, want):
@@ -528,26 +515,36 @@ def _rel_err(got, want):
                                                  1e-30)
 
 
-@pytest.mark.parametrize("q,m,d,p", [
-    (None, 8, 32, 4), (100, 8, 32, 4), (300, 4, 8, 2), (200, 2, 48, 3)],
-    ids=["encoder", "decoder", "narrow", "wide"])
-def test_ms_deform_attn_kernels_vs_plain(q, m, d, p):
+@pytest.mark.parametrize("q,m,d,p,locality,levels", [
+    (None, 8, 32, 4, "random", 4), (100, 8, 32, 4, "random", 4),
+    (300, 4, 8, 2, "random", 4), (200, 2, 48, 3, "random", 4),
+    (2000, 8, 6, 4, "random", 4), (None, 8, 32, 4, "model", 4),
+    (2000, 8, 32, 4, "random", 3), (500, 8, 32, 4, "random", 1)],
+    ids=["encoder", "decoder", "narrow", "wide", "d6", "encoder_model",
+         "three_levels", "one_level"])
+def test_ms_deform_attn_kernels_vs_plain(q, m, d, p, locality, levels):
     """Kernels 8 and 8b at the encoder's (Q = S = 6380) and the decoder's
-    (Q = 100) shapes, D = 8 (idle lanes) and D = 48 (a lane loop): the
-    forward within 1e-5 of the plain version's largest output, grad_loc
-    and grad_attn within 1e-5 of the largest of the plain version's
-    autograd, grad_value within its atomics bound of the exact sum, and
-    that exact sum within the same bound of the plain autograd's
-    grad_value (so the sum the kernel is held to is the plain version's
-    gradient, not only the taps' own arithmetic)."""
+    (Q = 100) shapes, D = 8 (a point on 2 lanes), D = 48 (12 quads on 16
+    lanes, 2 point passes), D = 6 (rows without 16-byte alignment, a quad
+    of 2 channels), the encoder on the model's locations, and on 3 and 1
+    levels (an odd L: the forward's instantiation that takes one level at
+    a time): the forward
+    within 1e-5 of the plain version's largest output and equal to it bit
+    for bit (the card's plain version adds the points in order, as the
+    kernel does), grad_loc and grad_attn within 1e-5 of the largest of the
+    plain version's autograd, grad_value within its atomics bound of the
+    exact sum, and that exact sum within the same bound of the plain
+    autograd's grad_value (so the sum the kernel is held to is the plain
+    version's gradient, not only the taps' own arithmetic)."""
     _need_card()
     rng = np.random.RandomState(26)
-    shapes = MSDA_LEVELS
+    shapes = MSDA_LEVELS[:levels]
     q = q or sum(h * w for h, w in shapes)
-    value, locs, attn, grad = _msda_inputs(rng, shapes, q, m, d, p)
+    value, locs, attn, grad = _msda_inputs(rng, shapes, q, m, d, p, locality)
     out = ms_deform_attn.ms_deform_attn_cuda(value, shapes, locs, attn)
     plain = ms_deform_attn.ms_deform_attn_plain(value, shapes, locs, attn)
     assert _rel_err(out, plain) <= 1e-5
+    assert torch.equal(out, plain)
     gv, gl, ga = ms_deform_attn.ms_deform_attn_backward_cuda(
         grad, value, shapes, locs, attn)
     leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
@@ -581,6 +578,37 @@ def test_ms_deform_attn_autograd_launches_both_kernels():
      grad).sum().backward()
     for a, b in zip(leaves, ref):
         assert _rel_err(a.grad, b.grad) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [32, 6])
+def test_ms_deform_attn_counting_build_counts_the_design(d):
+    """The counting build's tallies (`ms_deform_attn_tally`): D x 4 bytes
+    of corner quads copied by the forward and loaded by the backward for
+    every corner inside its level, and ceil(D / 4) float4 REDs a corner
+    (D scalar ones where D % 4 != 0); its launches leave the wrappers'
+    counters alone."""
+    _need_card()
+    rng = np.random.RandomState(28)
+    shapes = MSDA_LEVELS
+    value, locs, attn, grad = _msda_inputs(rng, shapes, 300, 8, d, 4)
+    inside = 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = torch.floor(locs[:, :, lvl, :, 0] * w - 0.5)
+        y0 = torch.floor(locs[:, :, lvl, :, 1] * h - 0.5)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                inside += int(((x0 + dx >= 0) & (x0 + dx < w) &
+                               (y0 + dy >= 0) & (y0 + dy < h)).sum())
+    fwd = ms_deform_attn.ms_deform_attn_cuda.launches
+    bwd = ms_deform_attn.ms_deform_attn_backward_cuda.launches
+    tally = ms_deform_attn.ms_deform_attn_tally(value, shapes, locs, attn,
+                                                grad)
+    assert tally == {"forward_bytes": inside * d * 4,
+                     "backward_bytes": inside * d * 4,
+                     "backward_reds": inside * (d // 4 if d % 4 == 0
+                                                else d)}
+    assert ms_deform_attn.ms_deform_attn_cuda.launches == fwd
+    assert ms_deform_attn.ms_deform_attn_backward_cuda.launches == bwd
 
 
 @pytest.mark.parametrize("h,w,cin,stride,dilation,modulated", [
