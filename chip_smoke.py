@@ -207,18 +207,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      forward and `torch.autograd.grad` backward on each of the five
      CenterNet levels of a 480x640 frame (60x80 to 4x5, 256 channels),
      launches counted (10 forward, 10 backward); then at every level the
-     im2col kernel and the op within 1e-6 of the plain version's largest,
-     grad_offset, grad_mask, grad_weight and grad_bias within 1e-5 of the
-     plain autograd's largest, grad_x and the plain autograd's within
-     contributions x 2^-24 x sum|contribution| of the exact (f64) sum
+     im2col kernel's columns equal to the plain version's bit for bit, the
+     op within 1e-6 of the plain version's largest, grad_offset,
+     grad_mask, grad_weight and grad_bias within 1e-5 of the plain
+     autograd's largest, grad_x and the plain autograd's within
+     contributions x 2^-24 x sum|contribution| of the exact (f64) sum;
+     each level's im2col and backward kernel times (CUDA graphs)
   13b. the memory read's transpose (kernel 2b): `torch.autograd.grad` of
      `memory_read` in features at 8192 x 512 with 480x640 random and
      coherent ids, and of `memory_read_batched` at B = 4, launches counted
-     (3); against the exact (f64) sum s of the n bf16(g / 16)
-     contributions c: the kernel (an f32 sum rounded once to bf16) within
-     ((2^-8 + 2^-23)|s| + (1 + 2^-7) n 2^-24 sum|c|) / denominator, the
-     plain autograd (bf16 accumulation, as JAX's) within n 2^-8 sum|c| /
-     denominator
+     (3); the kernel equal bit for bit to the window-order sum
+     (`memory_read_grad_window_order`) and to a second call; against the
+     exact (f64) sum s of the n bf16(g / 16) contributions c: the kernel
+     (an f32 sum rounded once to bf16) within ((2^-8 + 2^-23)|s| +
+     (1 + 2^-7) n 2^-24 sum|c|) / denominator, the plain autograd (bf16
+     accumulation, as JAX's) within n 2^-8 sum|c| / denominator
   7 also times both deformable attention kernels (the encoder's shape in
   the JSON line, the decoder's printed, both also on the model's
   locations; the bytes gathered and the backward's float4 REDs, counted
@@ -4175,8 +4178,8 @@ def run_dcn_path(blocks, inputs):
 
 def dcn_check(block, x, grad_out):
     """One level's kernels against the plain version on the block's own
-    offsets and mask: (columns max abs err, its share of max |plain|,
-    unequal column elements, op output share, grad_offset and grad_mask
+    offsets and mask: (columns max abs err, unequal column elements (a
+    miss unless 0), op output share, grad_offset and grad_mask
     shares of the plain autograd's largest, grad_x max err from the exact
     (f64) sum and max err / bound, the plain autograd's grad_x max err /
     bound, weight and bias gradient shares). A miss raises."""
@@ -4189,7 +4192,6 @@ def dcn_check(block, x, grad_out):
     cols = dc.deform_im2col_cuda(x, off, mask, kh, kw, *geo)
     plain = dc.deform_im2col_plain(x, off, mask, kh, kw, *geo)
     col_err = float((cols - plain).abs().max())
-    col_rel = rel_err(cols, plain)
     unequal = int((cols != plain).sum())
     with torch.no_grad():
         op_rel = rel_err(dc.modulated_deform_conv(x, off, mask, w, b, *geo),
@@ -4217,35 +4219,57 @@ def dcn_check(block, x, grad_out):
     ratio = float((err / bound.clamp(min=1e-300)).max())
     plain_err = (want[0].double() - exact).abs()
     plain_ratio = float((plain_err / bound.clamp(min=1e-300)).max())
-    if col_rel > 1e-6 or op_rel > 1e-6 or off_rel > 1e-5 or \
+    if unequal or op_rel > 1e-6 or off_rel > 1e-5 or \
             mask_rel > 1e-5 or w_rel > 1e-5 or b_rel > 1e-5 or \
             not bool((err <= bound).all()) or \
             not bool((plain_err <= bound).all()):
         raise AssertionError(
             f"deform_conv kernels vs plain at {tuple(x.shape)}: columns "
-            f"{col_rel:.3e}, output {op_rel:.3e} (tolerance 1e-6 of the "
-            f"largest), grad_offset {off_rel:.3e}, grad_mask {mask_rel:.3e}, "
+            f"{unequal} unequal elements (tolerance 0), output {op_rel:.3e} "
+            f"(tolerance 1e-6 of the largest), grad_offset {off_rel:.3e}, "
+            f"grad_mask {mask_rel:.3e}, "
             f"grad_weight {w_rel:.3e}, grad_bias {b_rel:.3e} (tolerance "
             f"1e-5), grad_x max err / bound {ratio:.3f}, the plain "
             f"autograd's {plain_ratio:.3f}")
-    return (col_err, col_rel, unequal, op_rel, off_rel, mask_rel, gx_err,
+    return (col_err, unequal, op_rel, off_rel, mask_rel, gx_err,
             ratio, plain_ratio, w_rel, b_rel, int(count.max()))
+
+
+def dcn_level_ms(block, x, grad_out):
+    """(the im2col kernel's ms, the backward kernel's ms on the columns'
+    gradient) at one level on the block's own offsets and mask, each in a
+    CUDA graph."""
+    from embodied_object_detection_tpu_torch.ops import deform_conv as dc
+    off, mask = dcn_offsets(block, x)
+    w = block.weight.detach()
+    kh = kw = block.kernel_size
+    geo = (block.stride, block.padding, block.dilation)
+    gcols = dc._matmul_f32(grad_out.reshape(-1, w.shape[-1]),
+                           w.reshape(-1, w.shape[-1]).t()).contiguous()
+    return (graph_ms(lambda: dc.deform_im2col_cuda(x, off, mask, kh, kw,
+                                                   *geo)),
+            graph_ms(lambda: dc.deform_im2col_backward_cuda(
+                gcols, x, off, mask, kh, kw, *geo)))
 
 
 def check_deform_conv(blocks, inputs):
     """Phase 13: the main path through the blocks, then both kernels
-    against the plain version at every level, modulated and not."""
+    against the plain version at every level, modulated and not, and
+    their times there."""
     launches = run_dcn_path(blocks, inputs)
     worst_cols = worst_gx = 0.0
     for modulated, block in blocks.items():
         for x, grad_out in inputs:
-            (col_err, col_rel, unequal, op_rel, off_rel, mask_rel, gx_err,
-             ratio, plain_ratio, w_rel, b_rel, most) = dcn_check(
+            (col_err, unequal, op_rel, off_rel, mask_rel, gx_err, ratio,
+             plain_ratio, w_rel, b_rel, most) = dcn_check(
                  block, x, grad_out)
             worst_cols, worst_gx = max(worst_cols, col_err), max(worst_gx,
                                                                  gx_err)
+            col_ms, bwd_ms = dcn_level_ms(block, x, grad_out)
             print(f"  {'modulated' if modulated else 'unmodulated'} "
-                  f"{tuple(x.shape)}: columns max err {col_err:.3e} "
+                  f"{tuple(x.shape)}: im2col kernel {col_ms * 1e3:.1f} us, "
+                  f"backward kernel {bwd_ms * 1e3:.1f} us; columns max err "
+                  f"{col_err:.3e} "
                   f"({unequal} unequal elements), output {op_rel:.2e} of "
                   f"the plain version's largest; grad_offset {off_rel:.2e}, "
                   f"grad_mask {mask_rel:.2e}, grad_weight {w_rel:.2e}, "
@@ -4255,8 +4279,9 @@ def check_deform_conv(blocks, inputs):
                   f"pixel), the plain autograd's {plain_ratio:.3f}")
     phase(13, "deform_conv: DeformConvBlock(256, 3) forward and backward on "
               "the five CenterNet levels of a 480x640 frame (60x80 to 4x5), "
-              "modulated and not, offsets of std ~2; the im2col kernel and "
-              "the op within 1e-6 of the plain version's largest, "
+              "modulated and not, offsets of std ~2; the im2col kernel's "
+              "columns equal to the plain version's, the op within 1e-6 "
+              "of the plain version's largest, "
               "grad_offset, grad_mask, grad_weight and grad_bias within "
               "1e-5 of the plain autograd's largest, grad_x and the plain "
               "autograd's within contributions x 2^-24 x sum|contribution| "
@@ -4292,7 +4317,8 @@ def read_backward_cases(rng, device="cuda", cells=8192, d=512, h=480,
 def check_read_backward(cases):
     """Phase 13b: `torch.autograd.grad` of the memory read in `features`
     (the single read on random and coherent ids, the batched read), with
-    launches counted; then each gradient against the exact (f64) sum:
+    launches counted; then each gradient bit-equal to the window-order
+    sum and to a second call, and against the exact (f64) sum:
     the kernel's within the bound of its own arithmetic (an f32 sum
     rounded once to bf16), the plain autograd's (a bf16 sum, as JAX's)
     within the bf16-accumulation bound."""
@@ -4316,6 +4342,14 @@ def check_read_backward(cases):
                                  f"{launches[name]} times, expected {want}")
     worst = 0.0
     for (name, feats, obs, proj, grad), got in zip(cases, grads):
+        ordered = mo.memory_read_grad_window_order(grad, obs, proj)
+        again = mo.memory_read_backward_cuda(grad, obs, proj)
+        if not torch.equal(got, ordered) or not torch.equal(got, again):
+            raise AssertionError(
+                f"phase 13b {name}: {int((got != ordered).sum())} elements "
+                f"differ from the window-order sum, "
+                f"{int((got != again).sum())} from a second call "
+                f"(tolerance 0)")
         exact, bound, tight, count = mo.memory_read_grad_exact(grad, obs,
                                                                proj)
         err = (got.double() - exact).abs()
@@ -4324,7 +4358,8 @@ def check_read_backward(cases):
         plain_err = (plain.double() - exact).abs()
         plain_ratio = float((plain_err / bound.clamp(min=1e-300)).max())
         worst = max(worst, float(err.max()))
-        print(f"  {name}: max err {float(err.max()):.3e} from the exact "
+        print(f"  {name}: equal to the window-order sum and to a second "
+              f"call; max err {float(err.max()):.3e} from the exact "
               f"sum, max err / its f32-sum bound {ratio:.3f} (up to "
               f"{int(count.max())} contributions on one row); the plain "
               f"autograd's max err / the bf16-sum bound {plain_ratio:.3f}; "
@@ -4335,7 +4370,8 @@ def check_read_backward(cases):
                                  f"{ratio:.3f}, plain {plain_ratio:.3f}")
     phase("13b", "the memory read's gradient in features at 8192 x 512 and "
                  "480x640 ids (random, coherent) and the batched read at "
-                 f"B = {READ_BATCH}, against the exact sum s of the n "
+                 f"B = {READ_BATCH}: the kernel equal to the window-order "
+                 "sum and to a second call; against the exact sum s of the n "
                  "bf16(g / 16) contributions c: the kernel within "
                  "((2^-8 + 2^-23)|s| + (1 + 2^-7) n 2^-24 sum|c|) / "
                  "denominator (an f32 sum rounded once to bf16), the plain "

@@ -22,13 +22,18 @@
 // Each corner reads x at its index clipped into the image, as the plain
 // version does, so the columns are its bits.
 //
-// What bounds it on Hopper: bytes. Each (pixel, tap) reads 4 corner rows of
-// Cin contiguous f32 (from L2: x is 4.9 MB at the largest CenterNet level)
-// and writes Cin f32 of the columns, the stream that device memory must
-// take (44 MB at 60 x 80 x 9 taps x 256 channels). One thread per column
-// element: neighbouring threads take neighbouring channels, so each corner
-// read and the column write are coalesced, and the threads of a warp read
-// the same offset and mask (a broadcast).
+// What bounds it on Hopper: bytes. Device memory must take the columns'
+// stream (44.2 MB at 60 x 80 x 9 taps x 256 channels) and read x, the
+// offsets and the mask once; each (pixel, tap) also reads 4 corner rows of
+// Cin contiguous f32 (177 MB at that level), mostly from L1 and L2 (x is
+// 4.9 MB there, and neighbouring samples share corners). A warp owns a
+// (pixel, tap): it does the corner set-up once (the sample's coordinates,
+// floors, hats, validity and clipped pixels, in 32-bit index arithmetic),
+// and its lanes take the channels as float4 quads (lane + 32 j), two
+// quads' four corner rows loaded with 16-byte __ldg before any arithmetic,
+// each column row stored with 16-byte streaming stores (__stcs). A Cin %
+// 4 != 0 or a pointer off a 16-byte boundary takes the same kernel with
+// one channel a lane a step.
 //
 // Backward, for a loss through the columns (grad_columns = grad_out @
 // weight^T, a matmul in the wrapper), as JAX's autodiff differentiates the
@@ -44,8 +49,13 @@
 //                             gradient, not mmcv's)
 // One warp owns each (pixel, tap): lanes stride over the channels, and the
 // five sums over Cin are __shfl_xor_sync reductions, deterministic and
-// without atomics.
+// without atomics. What bounds the backward: bytes in principle (x and
+// the columns' gradient read once, the three gradients written once), in
+// practice its scalar loads and its scalar f32 atomics into grad_x, one a
+// valid corner and channel; it is still the first, simple kernel.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -93,31 +103,72 @@ __device__ __forceinline__ Corners corners(const Geometry& g, int i, int j,
   return c;
 }
 
+// the column value of one channel: the corners in order, then the mask
+__device__ __forceinline__ float sample(float v0, float v1, float v2,
+                                        float v3, const Corners& cr,
+                                        bool masked, float m) {
+  float s = __fmul_rn(v0, cr.wgt[0]);
+  s = __fadd_rn(s, __fmul_rn(v1, cr.wgt[1]));
+  s = __fadd_rn(s, __fmul_rn(v2, cr.wgt[2]));
+  s = __fadd_rn(s, __fmul_rn(v3, cr.wgt[3]));
+  return masked ? __fmul_rn(s, m) : s;
+}
+
+__device__ __forceinline__ float4 sample4(const float4 (&v)[4],
+                                          const Corners& cr, bool masked,
+                                          float m) {
+  return make_float4(sample(v[0].x, v[1].x, v[2].x, v[3].x, cr, masked, m),
+                     sample(v[0].y, v[1].y, v[2].y, v[3].y, cr, masked, m),
+                     sample(v[0].z, v[1].z, v[2].z, v[3].z, cr, masked, m),
+                     sample(v[0].w, v[1].w, v[2].w, v[3].w, cr, masked, m));
+}
+
+// a warp a (pixel, tap) pk = p * K + k; kQuads: 16-byte lanes
+template <bool kQuads>
 __global__ void __launch_bounds__(kThreads)
     deform_im2col_fwd(const float* __restrict__ x,
                       const float* __restrict__ offset,
                       const float* __restrict__ mask,
                       float* __restrict__ cols, const Geometry g,
-                      long long total) {
+                      int pairs) {
+  const int pk = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (pk >= pairs) return;           // whole warps leave together
   const int taps = g.kh * g.kw;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(e % g.cin);
-    const long long pk = e / g.cin;          // p * K + k
-    const int k = (int)(pk % taps);
-    const int p = (int)(pk / taps);
-    const int i = p / g.wo, j = p - (p / g.wo) * g.wo;
-    const int a = k / g.kw, b = k - (k / g.kw) * g.kw;
-    const Corners cr = corners(g, i, j, a, b, __ldg(offset + 2 * pk),
-                               __ldg(offset + 2 * pk + 1));
-    float s = 0.f;
+  const int p = pk / taps, k = pk - p * taps;
+  const int i = p / g.wo, j = p - i * g.wo;
+  const int a = k / g.kw, b = k - a * g.kw;
+  const Corners cr = corners(g, i, j, a, b, __ldg(offset + 2LL * pk),
+                             __ldg(offset + 2LL * pk + 1));
+  const bool masked = mask != nullptr;
+  const float m = masked ? __ldg(mask + pk) : 1.f;
+  const float* row[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float tap =
-          __fmul_rn(__ldg(x + (long long)cr.pix[q] * g.cin + c), cr.wgt[q]);
-      s = q ? __fadd_rn(s, tap) : tap;
+  for (int q = 0; q < 4; ++q) row[q] = x + (long long)cr.pix[q] * g.cin;
+  float* out = cols + (long long)pk * g.cin;
+  if (kQuads) {
+    const int quads = g.cin >> 2;
+    const float4* r4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) r4[q] = reinterpret_cast<const float4*>(row[q]);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int c = lane; c < quads; c += 64) {
+      const bool two = c + 32 < quads;
+      float4 v[4], u[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = __ldg(r4[q] + c);
+      if (two) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) u[q] = __ldg(r4[q] + c + 32);
+      }
+      __stcs(o4 + c, sample4(v, cr, masked, m));
+      if (two) __stcs(o4 + c + 32, sample4(u, cr, masked, m));
     }
-    cols[e] = mask ? __fmul_rn(s, __ldg(mask + pk)) : s;
+  } else {
+    for (int c = lane; c < g.cin; c += 32)
+      __stcs(out + c, sample(__ldg(row[0] + c), __ldg(row[1] + c),
+                             __ldg(row[2] + c), __ldg(row[3] + c), cr,
+                             masked, m));
   }
 }
 
@@ -208,14 +259,23 @@ extern "C" int deform_im2col_launch(const void* x, const void* offset,
   if (!make_geometry(h, w, cin, ho, wo, kh, kw, stride, padding, dilation,
                      &g))
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)ho * wo * kh * kw * cin;
-  if (total == 0) return 0;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  deform_im2col_fwd<<<(unsigned int)blocks, kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)offset, (const float*)mask,
-      (float*)columns, g, total);
+  const long long pairs = (long long)ho * wo * kh * kw;
+  if (pairs == 0) return 0;
+  // 32-bit (pixel, tap) indices and pixel indices
+  if (pairs > 0x7fffffffLL - kWarps || (long long)h * w > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((pairs + kWarps - 1) / kWarps);
+  const bool quads = cin % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                     (uintptr_t)columns % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (quads)
+    deform_im2col_fwd<true><<<blocks, kThreads, 0, s>>>(
+        (const float*)x, (const float*)offset, (const float*)mask,
+        (float*)columns, g, (int)pairs);
+  else
+    deform_im2col_fwd<false><<<blocks, kThreads, 0, s>>>(
+        (const float*)x, (const float*)offset, (const float*)mask,
+        (float*)columns, g, (int)pairs);
   return (int)cudaGetLastError();
 }
 

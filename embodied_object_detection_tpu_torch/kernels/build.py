@@ -85,11 +85,12 @@ ENTRY_POINTS = {
     "ms_deform_attn_backward": ("ms_deform_attn_backward_launch",
                                 (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _P)),
-    # (grad_out, obs_count, proj, grad_features (zeroed f32 [B * cells,
-    #  D], finished in place), dim, height, width, pool, batch, cells,
-    #  stream)
+    # (grad_out, obs_count, proj, grad_features (f32 [B * cells, D],
+    #  written whole), scratch, its bytes, dim, height, width, pool, batch,
+    #  cells, stream)
     "memory_read_backward": ("memory_read_backward_launch",
-                             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+                             (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                              _I, _I, _I, _I, _P)),
     # (x, offset, mask (null for DCNv1), columns, height, width, in
     #  channels, out height, out width, kernel h, kernel w, stride,
     #  padding, dilation, stream)

@@ -214,6 +214,24 @@ def memory_read_backward_plain(grad_out: torch.Tensor,
         return torch.autograd.grad(out, leaf, grad_out)[0]
 
 
+def read_backward_scratch_bytes(d: int, h: int, w: int, pool: int,
+                                batch: int, cells: int) -> int:
+    """Bytes of kernel 2b's scratch (`csrc/memory_read.cu:scratch_bytes`):
+    the bf16 table of the windows' contributions [windows, D], the keys
+    uint32 [windows * pool^2], the row counters int32 [rows + 2], the
+    offsets within a scan block int32 [rows + 1] and the 1024-row scan
+    blocks' prefixes, each from a 256-byte boundary."""
+    def up(n):
+        return -(-n // 256) * 256
+
+    windows = batch * (h // pool) * (w // pool)
+    entries = windows * pool * pool
+    rows = batch * cells
+    return (up(windows * d * 2) + up(entries * 4) +
+            up((rows + 2) * 4) + up((rows + 1) * 4) +
+            up((rows + 1024) // 1024 * 4))
+
+
 @torch.library.custom_op("eodt::memory_read_backward", mutates_args=())
 def _memory_read_backward_op(grad_out: torch.Tensor, obs_count: torch.Tensor,
                              proj_indices: torch.Tensor,
@@ -241,12 +259,17 @@ def _memory_read_backward_op(grad_out: torch.Tensor, obs_count: torch.Tensor,
                          f"{tuple(obs_count.shape)} and "
                          f"{tuple(proj_indices.shape)}")
     launch = build.load("memory_read_backward")
-    grad = torch.zeros(obs_count.shape + (d,), dtype=torch.float32,
+    # every row is written, empty ones as 0: no fill
+    grad = torch.empty(obs_count.shape + (d,), dtype=torch.float32,
                        device=grad_out.device)
+    scratch = torch.empty(
+        read_backward_scratch_bytes(d, h, w, pool, batch, cells),
+        dtype=torch.uint8, device=grad_out.device)
     build.check_launch(
         launch(grad_out.data_ptr(), obs_count.data_ptr(),
-               proj_indices.data_ptr(), grad.data_ptr(), d, h, w, pool,
-               batch, cells, build.stream_handle()), "memory_read_backward")
+               proj_indices.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
+               scratch.numel(), d, h, w, pool, batch, cells,
+               build.stream_handle()), "memory_read_backward")
     memory_read_backward_cuda.launches += 1
     return grad
 
@@ -262,8 +285,13 @@ def memory_read_backward_cuda(grad_out: torch.Tensor,
                               pool: int = 4) -> torch.Tensor:
     """The read's transpose on the card (`csrc/memory_read.cu`, kernel
     2b), for `memory_read` (proj [H, W]) and `memory_read_batched` (proj
-    [B, H, W]): the gradient in `features`, summed with f32 atomics over
-    each window's distinct rows and rounded to bf16 once."""
+    [B, H, W]): the gradient in `features`, a gather by row with no
+    atomics on the data. Each window's distinct rows become entries,
+    bucketed by row with a counting sort; a warp a row adds its entries'
+    bf16(g / pool^2) x multiplicity in f32 in window order and rounds to
+    bf16 once, so the result is `memory_read_grad_window_order`'s bit for
+    bit, from run to run. The bytes of grad_out and the gradient bound
+    it."""
     return _memory_read_backward_op(grad_out, obs_count, proj_indices, pool)
 
 
@@ -336,6 +364,67 @@ def memory_read_grad_exact(grad_out: torch.Tensor, obs_count: torch.Tensor,
     return ((exact / denom).reshape(shape),
             (count * 2.0 ** -8 * abs_sum / denom).reshape(shape),
             tight.reshape(shape), count.reshape(obs_count.shape + (1,)))
+
+
+def read_window_entries(proj_indices: torch.Tensor, cells: int,
+                        pool: int = 4
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each pool x pool window's distinct rows, windows in order (frame by
+    frame, row-major): (window, row, multiplicity), int64 [E] each, frame
+    b's rows offset by b * cells. proj [H, W] or [B, H, W]."""
+    proj = proj_indices if proj_indices.dim() == 3 else proj_indices[None]
+    b, h, w = proj.shape
+    idx = proj.long() + (torch.arange(b, device=proj.device) *
+                         cells)[:, None, None]
+    idx = idx.reshape(b, h // pool, pool, w // pool, pool).permute(
+        0, 1, 3, 2, 4).reshape(-1, pool * pool)
+    taps = idx.sort(dim=1).values
+    first = torch.ones_like(taps, dtype=torch.bool)
+    first[:, 1:] = taps[:, 1:] != taps[:, :-1]
+    window = torch.arange(taps.shape[0], device=proj.device)[:, None]
+    starts = torch.nonzero(first.reshape(-1)).squeeze(1)
+    mult = torch.diff(starts, append=starts.new_tensor([taps.numel()]))
+    return window.expand_as(taps)[first], taps[first], mult
+
+
+def memory_read_grad_window_order(grad_out: torch.Tensor,
+                                  obs_count: torch.Tensor,
+                                  proj_indices: torch.Tensor,
+                                  pool: int = 4) -> torch.Tensor:
+    """The read's gradient in `features` with each row's f32 sum taken in
+    window order: every window adds bf16(g / pool^2) x its multiplicity of
+    the row once, from 0, windows in order; the sum is rounded to bf16
+    once and divided by the obs denominator. A checker, as
+    `memory_read_grad_exact` is: kernel 2b's arithmetic, bit for bit.
+    Step k adds the k-th entry of every row in one `index_add_` (one add
+    an element). The batched form takes proj [B, H, W], obs [B, cells]."""
+    b = proj_indices.shape[0] if proj_indices.dim() == 3 else 1
+    cells = obs_count.shape[-1]
+    d = grad_out.shape[-1]
+    g = grad_out.reshape(-1, d)
+    # a tensor divisor: the card divides by it, not by its reciprocal
+    c = (g / torch.full_like(g, float(pool * pool))).to(
+        torch.bfloat16).float()
+    window, row, mult = read_window_entries(proj_indices, cells, pool)
+    acc = torch.zeros((b * cells, d), dtype=torch.float32,
+                      device=grad_out.device)
+    if row.numel():
+        order = torch.sort(row, stable=True).indices
+        grouped = row[order]
+        pos = torch.arange(row.numel(), device=row.device)
+        first = torch.ones_like(grouped, dtype=torch.bool)
+        first[1:] = grouped[1:] != grouped[:-1]
+        start = torch.cummax(torch.where(first, pos, 0), 0).values
+        rank = torch.empty_like(pos)
+        rank[order] = pos - start
+        for k in range(int(rank.max()) + 1):
+            at = torch.nonzero(rank == k).squeeze(1)
+            acc.index_add_(0, row[at],
+                           c[window[at]] * mult[at, None].float())
+    obs = obs_count.reshape(-1, 1)
+    denom = torch.where(obs > 1, obs, torch.ones_like(obs))
+    return (acc.to(torch.bfloat16).float() / denom).reshape(
+        obs_count.shape + (d,))
 
 
 def pyramid_pool(ego: torch.Tensor, num_levels: int

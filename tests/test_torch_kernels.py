@@ -613,11 +613,14 @@ def test_ms_deform_attn_counting_build_counts_the_design(d):
 
 @pytest.mark.parametrize("h,w,cin,stride,dilation,modulated", [
     (60, 80, 256, 1, 1, True), (15, 20, 256, 1, 1, False),
-    (9, 7, 40, 2, 2, True), (4, 5, 33, 1, 2, False)])
+    (9, 7, 40, 2, 2, True), (4, 5, 33, 1, 2, False),
+    (9, 7, 30, 2, 2, True), (12, 10, 520, 1, 1, False)])
 def test_deform_conv_kernels_vs_plain(h, w, cin, stride, dilation,
                                       modulated):
-    """The im2col kernel equals the plain columns within 1e-6 of their
-    largest (it repeats their arithmetic op for op); the backward kernel's
+    """The im2col kernel equals the plain columns bit for bit (it repeats
+    their arithmetic op for op), on float4 lanes (Cin % 4 == 0, 130 quads
+    at Cin 520) and on single channels (Cin 30 and 33, and x off a 16-byte
+    boundary); the backward kernel's
     grad_offset and grad_mask within 1e-5 of the plain autograd's
     largest, grad_x within contributions x 2^-24 x sum|contribution| of
     the exact sum; offsets of std 2 cross every border."""
@@ -635,8 +638,11 @@ def test_deform_conv_kernels_vs_plain(h, w, cin, stride, dilation,
     geo = (stride, pad, dilation)
     cols = deform_conv.deform_im2col_cuda(x, off, mask, 3, 3, *geo)
     plain = deform_conv.deform_im2col_plain(x, off, mask, 3, 3, *geo)
-    assert float((cols - plain).abs().max()) <= \
-        1e-6 * float(plain.abs().max())
+    assert torch.equal(cols, plain)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x)
+    shifted.copy_(x)
+    assert torch.equal(deform_conv.deform_im2col_cuda(
+        shifted, off, mask, 3, 3, *geo), plain)
     gcols = torch.from_numpy(rng.randn(*cols.shape).astype(np.float32)).cuda()
     gx, goff, gm = deform_conv.deform_im2col_backward_cuda(
         gcols, x, off, mask, 3, 3, *geo)
@@ -654,6 +660,27 @@ def test_deform_conv_kernels_vs_plain(h, w, cin, stride, dilation,
     assert bool(((gx.double() - exact).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("pool,d", [(2, 8), (3, 20), (8, 512)])
+def test_memory_read_backward_kernel_pools(pool, d):
+    """Kernel 2b at other pools (p^2 = 4 and 9: 8 and 3 windows a warp in
+    its merge; 64: one window a warp in two steps) and D % 8 != 0, with
+    half the frame on one cell (at pools 2 and 3 its row of more than 256
+    windows takes the swept path): bit-equal to the window-order sum."""
+    _need_card()
+    rng = np.random.RandomState(23 + pool)
+    cells, h, w = 40, 48, 96
+    proj = rng.randint(0, cells, (h, w)).astype(np.int32)
+    proj[: h // 2] = 7
+    proj = torch.from_numpy(proj).cuda()
+    grad = torch.from_numpy(rng.randn(h // pool, w // pool, d).astype(
+        np.float32)).cuda()
+    obs = torch.from_numpy(rng.choice([0.0, 1.0, 3.0], cells).astype(
+        np.float32)).cuda()
+    got = memory_ops.memory_read_backward_cuda(grad, obs, proj, pool)
+    want = memory_ops.memory_read_grad_window_order(grad, obs, proj, pool)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("batch,ids", [(None, "random"), (None, "coherent"),
                                        (4, "random")])
 def test_memory_read_backward_kernel_vs_exact(batch, ids):
@@ -662,7 +689,8 @@ def test_memory_read_backward_kernel_vs_exact(batch, ids):
     the kernel within ((2^-8 + 2^-23)|s| + (1 + 2^-7) n 2^-24 sum|c|) /
     denominator (an f32 sum rounded once to bf16), the plain autograd
     within n 2^-8 sum|c| / denominator (a bf16 sum); one launch a
-    gradient."""
+    gradient. The kernel equals the window-order sum and a second call
+    bit for bit."""
     _need_card()
     rng = np.random.RandomState(22)
     n = batch or 1
@@ -692,3 +720,7 @@ def test_memory_read_backward_kernel_vs_exact(batch, ids):
     plain = memory_ops.memory_read_backward_plain(grad, feats, obs, proj)
     assert bool(((got.double() - exact).abs() <= tight).all())
     assert bool(((plain.double() - exact).abs() <= bound).all())
+    assert torch.equal(got, memory_ops.memory_read_grad_window_order(
+        grad, obs, proj))
+    assert torch.equal(got, memory_ops.memory_read_backward_cuda(
+        grad, obs, proj))

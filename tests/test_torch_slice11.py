@@ -500,10 +500,9 @@ def read_inputs(rng, b, cells, d, h, w, ids):
 
 
 def _emulate_read_backward(grad, obs, proj, pool=4):
-    """`csrc/memory_read.cu`'s scatter and finish: each window's distinct
-    rows with their multiplicities, bf16(g / p^2) x multiplicity added in
-    f32 (here in window order; the kernel's atomics take any), one bf16
-    rounding, then the division."""
+    """Kernel 2b's arithmetic (`csrc/memory_read.cu`): each window's
+    distinct rows with their multiplicities, bf16(g / p^2) x multiplicity
+    added in f32 in window order, one bf16 rounding, then the division."""
     b, hp, wp, d = grad.shape
     cells = obs.shape[-1]
     acc = torch.zeros((b * cells, d))
