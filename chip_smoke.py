@@ -212,7 +212,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      grad_mask, grad_weight and grad_bias within 1e-5 of the plain
      autograd's largest, grad_x and the plain autograd's within
      contributions x 2^-24 x sum|contribution| of the exact (f64) sum;
-     each level's im2col and backward kernel times (CUDA graphs)
+     each level's im2col and backward kernel times (CUDA graphs), and the
+     backward's float4 REDs and loaded bytes from its counting build,
+     equal to its design's count (one RED a valid corner and 4 channels)
   13b. the memory read's transpose (kernel 2b): `torch.autograd.grad` of
      `memory_read` in features at 8192 x 512 with 480x640 random and
      coherent ids, and of `memory_read_batched` at B = 4, launches counted
@@ -386,8 +388,9 @@ def phase(n: int, text: str) -> None:
 def build_kernels():
     from embodied_object_detection_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    # and kernel 8's counting build, which phase 7 reads its gathers from
-    report = build.build(counting=("ms_deform_attn",))
+    # and the counting builds of kernel 8 (phase 7 reads its gathers from
+    # it) and of 9b (phase 13 reads its REDs from it)
+    report = build.build(counting=("ms_deform_attn", "deform_conv"))
     for name, (secs, log) in report.items():
         print(f"  built {name} in {secs:.1f} s")
         for line in log.splitlines():
@@ -397,7 +400,8 @@ def build_kernels():
     phase(2, f"kernels ready in {time.perf_counter() - t0:.1f} s "
              f"({len(report) - counting} of "
              f"{len(set(map(build.source, build.ENTRY_POINTS)))} sources "
-             f"and {counting} counting build compiled, "
+             f"and {counting} counting build"
+             f"{'' if counting == 1 else 's'} compiled, "
              f"{len(build.ENTRY_POINTS)} entry points)")
 
 
@@ -4210,8 +4214,7 @@ def dcn_check(block, x, grad_out):
     off_rel = rel_err(got[1], want[1])
     mask_rel = rel_err(got[2], want[2]) if mask is not None else 0.0
     w_rel, b_rel = rel_err(got[-2], want[-2]), rel_err(got[-1], want[-1])
-    gcols = dc._matmul_f32(grad_out.reshape(-1, w.shape[-1]),
-                           w.reshape(-1, w.shape[-1]).t()).contiguous()
+    gcols = dcn_grad_columns(block, grad_out)
     exact, bound, count = dc.deform_conv_grad_x_exact(x, off, mask, gcols,
                                                       kh, kw, *geo)
     err = (got[0].double() - exact).abs()
@@ -4235,17 +4238,44 @@ def dcn_check(block, x, grad_out):
             ratio, plain_ratio, w_rel, b_rel, int(count.max()))
 
 
+def dcn_grad_columns(block, grad_out):
+    """The columns' gradient of the block's op for grad_out, as its
+    backward computes it (grad_out @ weight^T in f32)."""
+    from embodied_object_detection_tpu_torch.ops import deform_conv as dc
+    w = block.weight.detach()
+    return dc._matmul_f32(grad_out.reshape(-1, w.shape[-1]),
+                          w.reshape(-1, w.shape[-1]).t()).contiguous()
+
+
+def dcn_counts(block, x, grad_out):
+    """(what the backward kernel issued at one level, from its counting
+    build (`deform_im2col_backward_tally`), and what its design issues on
+    these inputs (`deform_im2col_backward_design`)); they must be equal.
+    The columns' gradient is the op's, aligned, so float4 lanes."""
+    from embodied_object_detection_tpu_torch.ops import deform_conv as dc
+    off, mask = dcn_offsets(block, x)
+    kh = kw = block.kernel_size
+    geo = (block.stride, block.padding, block.dilation)
+    gcols = dcn_grad_columns(block, grad_out)
+    tally = dc.deform_im2col_backward_tally(x, off, mask, gcols, kh, kw,
+                                            *geo)
+    design = dc.deform_im2col_backward_design(x, off, kh, kw, *geo,
+                                              quads=x.shape[-1] % 4 == 0)
+    if tally != design:
+        raise AssertionError(f"phase 13: at {tuple(x.shape)} the backward "
+                             f"kernel issued {tally}, its design {design}")
+    return tally, design
+
+
 def dcn_level_ms(block, x, grad_out):
     """(the im2col kernel's ms, the backward kernel's ms on the columns'
     gradient) at one level on the block's own offsets and mask, each in a
     CUDA graph."""
     from embodied_object_detection_tpu_torch.ops import deform_conv as dc
     off, mask = dcn_offsets(block, x)
-    w = block.weight.detach()
     kh = kw = block.kernel_size
     geo = (block.stride, block.padding, block.dilation)
-    gcols = dc._matmul_f32(grad_out.reshape(-1, w.shape[-1]),
-                           w.reshape(-1, w.shape[-1]).t()).contiguous()
+    gcols = dcn_grad_columns(block, grad_out)
     return (graph_ms(lambda: dc.deform_im2col_cuda(x, off, mask, kh, kw,
                                                    *geo)),
             graph_ms(lambda: dc.deform_im2col_backward_cuda(
@@ -4266,9 +4296,15 @@ def check_deform_conv(blocks, inputs):
             worst_cols, worst_gx = max(worst_cols, col_err), max(worst_gx,
                                                                  gx_err)
             col_ms, bwd_ms = dcn_level_ms(block, x, grad_out)
+            tally, design = dcn_counts(block, x, grad_out)
             print(f"  {'modulated' if modulated else 'unmodulated'} "
                   f"{tuple(x.shape)}: im2col kernel {col_ms * 1e3:.1f} us, "
-                  f"backward kernel {bwd_ms * 1e3:.1f} us; columns max err "
+                  f"backward kernel {bwd_ms * 1e3:.1f} us, "
+                  f"{tally['reds']} float4 REDs counted (design "
+                  f"{design['reds']}), {tally['grad_columns_bytes'] / 1e6:.2f}"
+                  f" MB of grad_columns and "
+                  f"{tally['corner_bytes'] / 1e6:.1f} MB of corner rows "
+                  f"loaded; columns max err "
                   f"{col_err:.3e} "
                   f"({unequal} unequal elements), output {op_rel:.2e} of "
                   f"the plain version's largest; grad_offset {off_rel:.2e}, "
@@ -4285,7 +4321,9 @@ def check_deform_conv(blocks, inputs):
               "grad_offset, grad_mask, grad_weight and grad_bias within "
               "1e-5 of the plain autograd's largest, grad_x and the plain "
               "autograd's within contributions x 2^-24 x sum|contribution| "
-              "of the exact sum")
+              "of the exact sum; the backward's REDs and loaded bytes, "
+              "counted by its counting build, equal to its design's (one "
+              "float4 RED a valid corner and 4 channels)")
     return launches, {"deform_im2col": worst_cols,
                       "deform_im2col_backward": worst_gx}
 

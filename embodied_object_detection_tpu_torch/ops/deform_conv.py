@@ -21,11 +21,15 @@ it, whatever the caller set), so the op is f32 when used alone.
 On a CPU tensor it takes `modulated_deform_conv_plain` (the JAX package's
 gather form, differentiated by torch autograd), which is also the kernels'
 yardstick on the card.
+`deform_im2col_backward_tally` runs the backward once from its source's
+counting build to measure the bytes it loads and the REDs it issues;
+`deform_im2col_backward_design` gives what its design should issue.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -194,22 +198,28 @@ def deform_im2col_cuda(x: torch.Tensor, offset: torch.Tensor,
 deform_im2col_cuda.launches = 0
 
 
+def _check_backward(name, x, offset, mask, grad_columns, kernel_h,
+                    kernel_w, stride, dilation):
+    ho, wo, k, cin = _check(name, x, offset, mask, kernel_h, kernel_w,
+                            stride, dilation)
+    if grad_columns.shape != (ho * wo, k * cin) or \
+            grad_columns.dtype != torch.float32 or \
+            not grad_columns.is_contiguous() or \
+            grad_columns.device != x.device:
+        raise ValueError(f"{name}: grad_columns must be contiguous float32 "
+                         f"[{ho * wo}, {k * cin}], got {grad_columns.dtype} "
+                         f"{tuple(grad_columns.shape)}")
+    return ho, wo, k, cin
+
+
 @torch.library.custom_op("eodt::deform_im2col_backward", mutates_args=())
 def _deform_im2col_backward_op(
         x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor],
         grad_columns: torch.Tensor, kernel_h: int, kernel_w: int,
         stride: int, padding: int, dilation: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    ho, wo, k, cin = _check("deform_im2col_backward", x, offset, mask,
-                            kernel_h, kernel_w, stride, dilation)
-    if grad_columns.shape != (ho * wo, k * cin) or \
-            grad_columns.dtype != torch.float32 or \
-            not grad_columns.is_contiguous() or \
-            grad_columns.device != x.device:
-        raise ValueError(f"deform_im2col_backward: grad_columns must be "
-                         f"contiguous float32 [{ho * wo}, {k * cin}], got "
-                         f"{grad_columns.dtype} "
-                         f"{tuple(grad_columns.shape)}")
+    _check_backward("deform_im2col_backward", x, offset, mask, grad_columns,
+                    kernel_h, kernel_w, stride, dilation)
     launch = build.load("deform_im2col_backward")
     grad_x = torch.zeros_like(x)
     grad_offset = torch.empty_like(offset)
@@ -217,17 +227,26 @@ def _deform_im2col_backward_op(
         x.new_empty((0,))
     if grad_columns.numel() == 0:
         return grad_x, grad_offset.zero_(), grad_mask.zero_()
+    _launch_backward(launch, "deform_im2col_backward", x, offset, mask,
+                     grad_columns, grad_x, grad_offset, grad_mask, kernel_h,
+                     kernel_w, stride, padding, dilation)
+    deform_im2col_backward_cuda.launches += 1
+    return grad_x, grad_offset, grad_mask
+
+
+def _launch_backward(launch, name, x, offset, mask, grad_columns, grad_x,
+                     grad_offset, grad_mask, kernel_h, kernel_w, stride,
+                     padding, dilation):
+    """One launch of the backward's entry point `launch` (the wrapper's, or
+    the counting build's) on the current stream."""
     build.check_launch(
         launch(x.data_ptr(), offset.data_ptr(),
                None if mask is None else mask.data_ptr(),
                grad_columns.data_ptr(), grad_x.data_ptr(),
                grad_offset.data_ptr(),
                None if mask is None else grad_mask.data_ptr(),
-               x.shape[0], x.shape[1], cin, ho, wo, kernel_h, kernel_w,
-               stride, padding, dilation, build.stream_handle()),
-        "deform_im2col_backward")
-    deform_im2col_backward_cuda.launches += 1
-    return grad_x, grad_offset, grad_mask
+               *x.shape, *offset.shape[:2], kernel_h, kernel_w, stride,
+               padding, dilation, build.stream_handle()), name)
 
 
 @_deform_im2col_backward_op.register_fake
@@ -245,9 +264,9 @@ def deform_im2col_backward_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The backward kernel on the card: grad_columns [Ho * Wo, K * Cin] ->
     (grad_x [H, W, Cin], grad_offset [Ho, Wo, 2K], grad_mask [Ho, Wo, K]
-    or None). grad_x sums its contributions with f32 atomics, in no fixed
-    order; grad_offset and grad_mask are each one warp's sums over Cin,
-    the same every run."""
+    or None). grad_x sums its contributions with f32 atomics (a float4
+    RED a valid corner and 4 channels), in no fixed order; grad_offset and
+    grad_mask are each one warp's sums over Cin, the same every run."""
     gx, goff, gm = _deform_im2col_backward_op(
         x, offset, mask, grad_columns, kernel_h, kernel_w, stride, padding,
         dilation)
@@ -255,6 +274,27 @@ def deform_im2col_backward_cuda(
 
 
 deform_im2col_backward_cuda.launches = 0
+
+
+def _sample_corners(offset: torch.Tensor, kernel_h: int, kernel_w: int,
+                    stride: int, padding: int, dilation: int):
+    """Every (pixel, tap)'s top-left corner y0, x0 and fractional parts
+    ly, lx [Ho, Wo, K], in the plain version's f32 arithmetic."""
+    ho, wo = offset.shape[:2]
+    dev = offset.device
+    k = kernel_h * kernel_w
+    a = torch.arange(k, device=dev) // kernel_w
+    b = torch.arange(k, device=dev) % kernel_w
+    iy = torch.arange(ho, device=dev)[:, None, None]
+    jx = torch.arange(wo, device=dev)[None, :, None]
+    off = offset.reshape(ho, wo, k, 2)
+    sy = (iy * stride - padding + a * dilation).float() + off[..., 0]
+    sx = (jx * stride - padding + b * dilation).float() + off[..., 1]
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    return y0, x0, sy - y0, sx - x0
+
+
+CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 def deform_conv_grad_x_exact(
@@ -271,21 +311,14 @@ def deform_conv_grad_x_exact(
     ho, wo = offset.shape[:2]
     dev = x.device
     k = kernel_h * kernel_w
-    a = torch.arange(k, device=dev) // kernel_w
-    b = torch.arange(k, device=dev) % kernel_w
-    iy = torch.arange(ho, device=dev)[:, None, None]
-    jx = torch.arange(wo, device=dev)[None, :, None]
-    off = offset.reshape(ho, wo, k, 2)
-    sy = (iy * stride - padding + a * dilation).float() + off[..., 0]
-    sx = (jx * stride - padding + b * dilation).float() + off[..., 1]
-    y0, x0 = torch.floor(sy), torch.floor(sx)
-    ly, lx = sy - y0, sx - x0
+    y0, x0, ly, lx = _sample_corners(offset, kernel_h, kernel_w, stride,
+                                     padding, dilation)
     g = grad_columns.reshape(ho, wo, k, cin)
     if mask is not None:
         g = g * mask[..., None]
     idx, contrib = [], []
-    for dy, dx, hat in ((0, 0, (1 - ly) * (1 - lx)), (0, 1, (1 - ly) * lx),
-                        (1, 0, ly * (1 - lx)), (1, 1, ly * lx)):
+    hats = ((1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx)
+    for (dy, dx), hat in zip(CORNERS, hats):
         yi, xi = y0.long() + dy, x0.long() + dx
         ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
         wgt = hat * ok.to(hat.dtype)
@@ -302,6 +335,58 @@ def deform_conv_grad_x_exact(
     return (exact.view(h, w, cin),
             (count * 2.0 ** -24 * abs_sum).view(h, w, cin),
             count.view(h, w, 1))
+
+
+def deform_im2col_backward_design(x: torch.Tensor, offset: torch.Tensor,
+                                  kernel_h: int, kernel_w: int,
+                                  stride: int = 1, padding: int = 1,
+                                  dilation: int = 1,
+                                  quads: bool = True) -> dict:
+    """What the backward kernel's design issues on these inputs, in the
+    keys of `deform_im2col_backward_tally`: every (pixel, tap) loads its
+    Cin x 4 bytes of grad_columns and its four corner rows (clipped into
+    the image, valid or not), and issues one RED a valid corner and quad
+    of 4 channels (`quads`: Cin % 4 == 0 and x, grad_columns and grad_x on
+    16-byte boundaries), else one a valid corner and channel."""
+    h, w, cin = x.shape
+    y0, x0, _, _ = _sample_corners(offset, kernel_h, kernel_w, stride,
+                                   padding, dilation)
+    valid = sum(int(((y0 + dy >= 0) & (y0 + dy < h) & (x0 + dx >= 0) &
+                     (x0 + dx < w)).sum()) for dy, dx in CORNERS)
+    pairs = y0.numel()
+    return {"grad_columns_bytes": pairs * cin * 4,
+            "corner_bytes": 4 * pairs * cin * 4,
+            "reds": valid * (cin // 4 if quads else cin)}
+
+
+def deform_im2col_backward_tally(
+        x: torch.Tensor, offset: torch.Tensor, mask: Optional[torch.Tensor],
+        grad_columns: torch.Tensor, kernel_h: int, kernel_w: int,
+        stride: int = 1, padding: int = 1, dilation: int = 1) -> dict:
+    """The backward kernel once from the counting build of its source (not
+    the wrapper: no launch is counted), on the card: {"grad_columns_bytes",
+    "corner_bytes": the bytes of grad_columns and of the corner rows its
+    lanes loaded, "reds": the REDs it issued into grad_x}. The counts are
+    what the kernel issued, tallied by its lanes."""
+    _check_backward("deform_im2col_backward_tally", x, offset, mask,
+                    grad_columns, kernel_h, kernel_w, stride, dilation)
+    lib = build.library("deform_im2col_backward", counting=True)
+    symbol, argtypes = build.ENTRY_POINTS["deform_im2col_backward"]
+    launch = getattr(lib, symbol)
+    launch.argtypes = argtypes
+    tally = lib.deform_conv_tally
+    tally.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    counts = (ctypes.c_ulonglong * 3)()
+    grad_x = torch.zeros_like(x)
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask) if mask is not None else None
+    build.check_launch(tally(counts), "deform_conv_tally")      # zeroes
+    _launch_backward(launch, "deform_im2col_backward (counting)", x, offset,
+                     mask, grad_columns, grad_x, grad_offset, grad_mask,
+                     kernel_h, kernel_w, stride, padding, dilation)
+    build.check_launch(tally(counts), "deform_conv_tally")
+    return {"grad_columns_bytes": int(counts[0]),
+            "corner_bytes": int(counts[1]), "reds": int(counts[2])}
 
 
 class DeformConvFunction(torch.autograd.Function):

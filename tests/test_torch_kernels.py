@@ -620,10 +620,12 @@ def test_deform_conv_kernels_vs_plain(h, w, cin, stride, dilation,
     """The im2col kernel equals the plain columns bit for bit (it repeats
     their arithmetic op for op), on float4 lanes (Cin % 4 == 0, 130 quads
     at Cin 520) and on single channels (Cin 30 and 33, and x off a 16-byte
-    boundary); the backward kernel's
-    grad_offset and grad_mask within 1e-5 of the plain autograd's
-    largest, grad_x within contributions x 2^-24 x sum|contribution| of
-    the exact sum; offsets of std 2 cross every border."""
+    boundary); the backward kernel, on float4 lanes and with x or
+    grad_columns off a 16-byte boundary (one channel a lane): grad_offset
+    and grad_mask within 1e-5 of the plain autograd's largest and equal
+    from call to call, grad_x within contributions x 2^-24 x
+    sum|contribution| of the exact sum; offsets of std 2 cross every
+    border."""
     from embodied_object_detection_tpu_torch.ops import deform_conv
     _need_card()
     rng = np.random.RandomState(21)
@@ -644,20 +646,61 @@ def test_deform_conv_kernels_vs_plain(h, w, cin, stride, dilation,
     assert torch.equal(deform_conv.deform_im2col_cuda(
         shifted, off, mask, 3, 3, *geo), plain)
     gcols = torch.from_numpy(rng.randn(*cols.shape).astype(np.float32)).cuda()
-    gx, goff, gm = deform_conv.deform_im2col_backward_cuda(
-        gcols, x, off, mask, 3, 3, *geo)
     leaves = [t.clone().requires_grad_() for t in (x, off) +
               ((mask,) if modulated else ())]
     want = torch.autograd.grad(deform_conv.deform_im2col_plain(
         leaves[0], leaves[1], leaves[2] if modulated else None, 3, 3, *geo),
         leaves, gcols)
-    for got, ref in ((goff, want[1]),) + (((gm, want[2]),) if modulated
-                                          else ()):
-        assert float((got - ref).abs().max()) <= \
-            1e-5 * float(ref.abs().max())
     exact, bound, _ = deform_conv.deform_conv_grad_x_exact(
         x, off, mask, gcols, 3, 3, *geo)
-    assert bool(((gx.double() - exact).abs() <= bound).all())
+    gcols_off = torch.empty(gcols.numel() + 1, device="cuda")[1:].view_as(
+        gcols)
+    gcols_off.copy_(gcols)
+    # aligned (float4 lanes where Cin % 4 == 0), then x and grad_columns
+    # each off a 16-byte boundary (one channel a lane)
+    for xs, gc in ((x, gcols), (shifted, gcols), (x, gcols_off)):
+        gx, goff, gm = deform_conv.deform_im2col_backward_cuda(
+            gc, xs, off, mask, 3, 3, *geo)
+        for got, ref in ((goff, want[1]),) + (((gm, want[2]),) if modulated
+                                              else ()):
+            assert float((got - ref).abs().max()) <= \
+                1e-5 * float(ref.abs().max())
+        assert bool(((gx.double() - exact).abs() <= bound).all())
+        _, goff2, gm2 = deform_conv.deform_im2col_backward_cuda(
+            gc, xs, off, mask, 3, 3, *geo)
+        assert torch.equal(goff2, goff)
+        if modulated:
+            assert torch.equal(gm2, gm)
+
+
+@pytest.mark.parametrize("cin,misaligned", [(256, False), (30, False),
+                                            (256, True)])
+def test_deform_conv_counting_build_counts_the_design(cin, misaligned):
+    """The backward's counting build (`deform_im2col_backward_tally`):
+    Cin x 4 bytes of grad_columns and 4 x Cin x 4 of corner rows loaded a
+    (pixel, tap), and one float4 RED a valid corner and 4 channels (one a
+    channel where Cin % 4 != 0 or x is off a 16-byte boundary), as
+    `deform_im2col_backward_design` counts them; its launch leaves the
+    wrapper's counter alone. Offsets of std 2 cross every border."""
+    from embodied_object_detection_tpu_torch.ops import deform_conv
+    _need_card()
+    rng = np.random.RandomState(29)
+    h, w = 30, 40
+    x = torch.from_numpy(rng.randn(h, w, cin).astype(np.float32)).cuda()
+    if misaligned:
+        x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+    off = torch.from_numpy((rng.randn(h, w, 18) * 2).astype(
+        np.float32)).cuda()
+    mask = torch.from_numpy(rng.rand(h, w, 9).astype(np.float32)).cuda()
+    gcols = torch.from_numpy(rng.randn(h * w, 9 * cin).astype(
+        np.float32)).cuda()
+    launches = deform_conv.deform_im2col_backward_cuda.launches
+    tally = deform_conv.deform_im2col_backward_tally(x, off, mask, gcols, 3,
+                                                     3)
+    design = deform_conv.deform_im2col_backward_design(
+        x, off, 3, 3, quads=cin % 4 == 0 and not misaligned)
+    assert tally == design
+    assert deform_conv.deform_im2col_backward_cuda.launches == launches
 
 
 @pytest.mark.parametrize("pool,d", [(2, 8), (3, 20), (8, 512)])
