@@ -224,6 +224,38 @@ Phases (each prints its own lines; any failure exits non-zero):
      (an f32 sum rounded once to bf16) within ((2^-8 + 2^-23)|s| +
      (1 + 2^-7) n 2^-24 sum|c|) / denominator, the plain autograd (bf16
      accumulation, as JAX's) within n 2^-8 sum|c| / denominator
+  14. the single-frame evaluation (`engine/coco.py:evaluate_coco`) at the
+     default config with memory_type image_only over 16 in-memory images
+     of 480x640, 480x500, 400x640 and 360x640 (letterboxed into 480x640
+     with no resize) with 1-20 GT boxes each: a warm-up run under the sync
+     debug mode "warn" (host syncs listed; none inside a frame), a timed
+     run with launches counted (2 NMS and 3 ROIAlign an image, nothing
+     else), ms an image and images/s, the device busy share (a profiled
+     run), peak memory, finite AP under the COCO protocol (raw ids) and
+     the LVIS-federated one (a 1-based json with neg_category_ids,
+     remapped); then, where PIL is present, `python -m
+     embodied_object_detection_tpu_torch.run --coco-json J
+     --coco-json-test J2 --max-iter 3` on PNGs in a temporary directory
+     (a printed line says it was skipped where PIL is absent)
+  14b. Detic's co-training at the default config (image_only, the wsddn
+     prop heads, lr 1e-4 from the first step), B = 4: box batches through
+     `make_train_step` and image-label (max_size, wsddn), caption and
+     captiontag batches (a caption-less row and a padding row) through
+     their loss steps, 3 AdamW steps each, all drawn from one
+     `multi_source_train_batches` stream over four in-memory sources with
+     the seeded caption stand-in: finite losses, parameters moved, ms a
+     step (steps 2-3), peak memory, launches a step (box, image and
+     captiontag 4 NMS, 12 ROIAlign and 12 backward; caption 4 and 4 at
+     R = 1), the host syncs of one more step
+  14c. the 64x96 f32 miniature on the card and on the CPU from the same
+     weights: `evaluate_coco`'s detections and AP under both protocols,
+     held as phase 10b holds image_only; the max_size and wsddn weak
+     losses, the caption and the captiontag losses within rtol 1e-4 and
+     their gradients within 1e-3 of each tensor's largest
+  7 also holds kernels 4 and 4b at the co-training pools, R = 129 (128
+  random ROIs and the whole-image box) and R = 1 (the whole-image box),
+  to the plain tap form as phases 4b and 4f do, and times them beside it
+  and their bounds;
   7 also times both deformable attention kernels (the encoder's shape in
   the JSON line, the decoder's printed, both also on the model's
   locations; the bytes gathered and the backward's float4 REDs, counted
@@ -981,6 +1013,17 @@ def backward_atomics(levels, boxes, lvl, c, size=7):
     live = wgt.reshape(r, -1) != 0
     return (int(live.sum()) * c,
             int(torch.unique(key[live]).numel()) * (c // 4))
+
+
+def forward_read_bytes(levels, boxes, lvl, size=7):
+    """The bytes of the level positions the ROIs' taps read with a
+    nonzero weight, each once (the least a forward must read: a box on
+    p5 reads nothing of p3 or p4), from the plain tap form."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes.cpu(),
+                                  STRIDES, size, 2, lvl.cpu())
+    row_bytes = levels[0].shape[-1] * levels[0].element_size()
+    return int(torch.unique(rows[wgt != 0]).numel()) * row_bytes
 
 
 def exact_contributions(levels, boxes, lvl, grad, size):
@@ -2594,8 +2637,8 @@ def time_roi_align(rng, launches, errs):
         c = levels[0].shape[-1]
         out_elems = r * size * size * c
         b_ms, b_by = bound_ms(
-            sum(f.numel() * 2 for f in levels) + r * 20 + out_elems * 2,
-            out_elems * (4 * 8 + 1))
+            forward_read_bytes(levels, boxes, lvl, size) + r * 20 +
+            out_elems * 2, out_elems * (4 * 8 + 1))
         print(f"  roi_align, R = {r}, {size}x{size}, bf16: {ms * 1e3:.1f} us "
               f"kernel, {plain_ms * 1e3:.1f} us plain v1, "
               f"{v4_ms * 1e3:.1f} us plain v4, bound {b_ms * 1e3:.2f} us "
@@ -4621,6 +4664,683 @@ def time_read_backward(cases, launches, errs):
     return [entry]
 
 
+# ------------------------------------------------------------ slice 15
+
+# phase 14's image sizes: letterboxed into 480x640 without a resize (their
+# scale is 1), so the in-memory dataset needs no PIL
+COCO_SIZES = ((480, 640), (480, 500), (400, 640), (360, 640))
+COCO_IMAGES = 16
+# launches an image of the single-frame evaluation: proposal and final NMS,
+# three cascade stages (no write: no write NMS, mask pooler or paste)
+COCO_LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 3}
+COTRAIN_B = 4
+COTRAIN_STEPS = 3
+# launches a co-training step at B = 4: box and image-label batches the
+# proposal NMS at the training top-k and three stages' pools and their
+# backward a frame (the image-label pools hold R = 129: 128 proposals and
+# the whole-image box); caption batches one R = 1 pool and its backward a
+# frame
+COTRAIN_LAUNCHES = {
+    "box": {"nms": 4, "roi_align": 12, "roi_align_backward": 12},
+    "image": {"nms": 4, "roi_align": 12, "roi_align_backward": 12},
+    "caption": {"roi_align": 4, "roi_align_backward": 4},
+    "captiontag": {"nms": 4, "roi_align": 12, "roi_align_backward": 12},
+}
+
+
+def coco_jsons(rng, n, sizes, classes, max_boxes=20):
+    """(raw json, federated json, {file_name: uint8 image}): n random
+    images of `sizes` in turn with 1 to `max_boxes` GT boxes each. The raw
+    json's category ids are the model's class indices (mp3d-style); the
+    federated one's are the same classes 1-based, each image with two
+    absent classes as neg_category_ids."""
+    arrays, images, raw_anns = {}, [], []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        name = f"im{i:03d}.png"
+        arrays[name] = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
+        g = 1 + i * (max_boxes - 1) // max(n - 1, 1)
+        cls = rng.randint(0, classes, g)
+        absent = [c for c in range(classes) if c not in set(cls.tolist())]
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w,
+                           neg_category_ids=[c + 1 for c in absent[:2]]))
+        for c in cls:
+            bw, bh = rng.uniform(w / 16, w / 2), rng.uniform(h / 16, h / 2)
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            raw_anns.append(dict(id=len(raw_anns) + 1, image_id=i + 1,
+                                 category_id=int(c), bbox=[x, y, bw, bh],
+                                 iscrowd=0, area=bw * bh))
+    raw = dict(images=images, annotations=raw_anns,
+               categories=[dict(id=c, name=f"class{c}")
+                           for c in range(classes)])
+    fed = dict(images=images,
+               annotations=[dict(a, category_id=a["category_id"] + 1)
+                            for a in raw_anns],
+               categories=[dict(id=c + 1, name=f"class{c}")
+                           for c in range(classes)])
+    return raw, fed, arrays
+
+
+def coco_datasets(cfg, raw, fed, arrays):
+    """The two protocols' in-memory datasets: (COCO: raw ids, federated:
+    1-based ids remapped)."""
+    from embodied_object_detection_tpu_torch.data.catalog import (
+        ArrayCocoDataset, DatasetEntry)
+    kw = dict(height=cfg.input.height, width=cfg.input.width,
+              max_gt=cfg.input.max_gt_boxes)
+    return (ArrayCocoDataset(DatasetEntry("", ""), arrays, coco=raw,
+                             remap_ids=False, **kw),
+            ArrayCocoDataset(DatasetEntry("", ""), arrays, coco=fed,
+                             remap_ids=True, **kw))
+
+
+def image_only(cfg):
+    """`cfg` as the single-frame path builds it: image_only, with no
+    memory write."""
+    return cfg.replace(memory=dataclasses.replace(
+        cfg.memory, memory_type="image_only", write_memory=False))
+
+
+def run_coco_eval():
+    """Phase 14: `engine/coco.py:evaluate_coco` at the default config
+    (480x640, ResNet-50, bf16, 20 classes with raw ids, image_only) over
+    COCO_IMAGES in-memory images, under the COCO and the federated
+    protocol."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.engine.coco import evaluate_coco
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+
+    cfg = image_only(DetectorConfig())
+    model = build_detector(cfg, seed=0, device="cuda")
+    zs = random_zs(np.random.RandomState(14), cfg)
+    raw, fed, arrays = coco_jsons(np.random.RandomState(14), COCO_IMAGES,
+                                  COCO_SIZES, cfg.roi.num_classes)
+    coco_ds, fed_ds = coco_datasets(cfg, raw, fed, arrays)
+    n = len(coco_ds)
+
+    def run(ds=coco_ds, federated=False):
+        return evaluate_coco(model, cfg, ds, zs, verbose=False,
+                             federated=federated)
+
+    syncs = sync_sites(run)
+    batches = -(-n // 8)
+    # the sites inside a frame: any whose innermost frame of this
+    # repository is not the engine's own loop or its detections copy
+    in_frame = {s: k for s, k in syncs.items()
+                if not s.startswith(("coco.py:", "eval.py:"))}
+    print(f"  warm-up run under the sync debug mode 'warn': "
+          f"{sum(syncs.values())} synchronising calls ({batches} batches "
+          f"of 8)")
+    for site, k in syncs.items():
+        print(f"    {k} x {site}")
+    if in_frame:
+        raise AssertionError(f"phase 14: synchronising calls inside a frame: "
+                             f"{in_frame}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {k: COCO_LAUNCHES_PER_IMAGE.get(k, 0) * n for k in launches}
+    if launches != expected:
+        raise AssertionError(f"phase 14: launches {launches}, expected "
+                             f"{expected}")
+    _, busy, _ = device_busy(profile_events(run))
+    ms = secs / n * 1e3
+    busy_ms = busy / 1e3 / n
+    fed_res = run(fed_ds, federated=True)
+    for name, r in (("COCO", res), ("federated", fed_res)):
+        if not r or not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"phase 14 {name}: AP {r}")
+    print(f"  COCO protocol: AP {res['AP']:.4f}, AP50 {res['AP50']:.4f}; "
+          f"federated (1-based ids remapped, neg_category_ids, 300 "
+          f"detections): AP {fed_res['AP']:.4f} (random weights: no "
+          f"quality)")
+    print(f"  {n} images at {sorted(set(COCO_SIZES))}: {ms:.2f} ms/image "
+          f"({1e3 / ms:.2f} images/s, host clock over the run, data and "
+          f"scoring included); device busy {busy_ms:.2f} ms/image "
+          f"(profiled run), busy share {busy_ms / ms:.3f}; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches an image "
+          f"{ {k: v // n for k, v in launches.items() if v} }")
+    phase(14, f"single-frame evaluation at 480x640 over {n} images: "
+              f"{ms:.2f} ms/image, busy share {busy_ms / ms:.3f}, launches "
+              f"an image {COCO_LAUNCHES_PER_IMAGE}, "
+              f"{sum(syncs.values())} host syncs in {batches} batches, none "
+              f"inside a frame; AP finite under both protocols")
+    return launches
+
+
+def cotraining_sources(rng, cfg, n=8):
+    """Four in-memory sources at 480x640 (raw ids, no resize): box
+    (1-12 GT boxes), image labels (1-3 tags, no boxes), captions (two an
+    image) and captions with tags (image 0 without a caption)."""
+    from embodied_object_detection_tpu_torch.data.catalog import (
+        ArrayCocoDataset, DatasetEntry)
+    h, w, c = cfg.input.height, cfg.input.width, cfg.roi.num_classes
+    raw, _, arrays = coco_jsons(rng, n, ((h, w),), c, max_boxes=12)
+    cats = raw["categories"]
+    plain = [dict(id=im["id"], file_name=im["file_name"], height=h,
+                  width=w) for im in raw["images"]]
+    tags = [dict(im, pos_category_ids=[int(x) for x in rng.choice(
+        c, 1 + i % 3, replace=False)]) for i, im in enumerate(plain)]
+    caps = [dict(im, captions=[f"a photo of scene {i}",
+                               f"object {i} in a room"])
+            for i, im in enumerate(plain)]
+    captags = [dict(t, captions=[] if i == 0 else [f"things {i} on a desk"])
+               for i, t in enumerate(tags)]
+    kw = dict(height=h, width=w, max_gt=cfg.input.max_gt_boxes,
+              remap_ids=False)
+    return [ArrayCocoDataset(DatasetEntry("", ""), arrays, coco=coco, **kw)
+            for coco in (raw, dict(images=tags, categories=cats),
+                         dict(images=caps, categories=cats),
+                         dict(images=captags, categories=cats))]
+
+
+COTRAIN_KINDS = ("box", "image", "caption", "captiontag")
+
+
+def cotraining_batches(cfg, seed=14):
+    """COTRAIN_STEPS batches of each ann type at B = COTRAIN_B, from one
+    `multi_source_train_batches` stream over the four sources."""
+    from embodied_object_detection_tpu_torch.data.catalog import (
+        MultiDatasetSampler)
+    from embodied_object_detection_tpu_torch.engine.coco import (
+        multi_source_train_batches, stand_in_caption_embedding)
+    srcs = cotraining_sources(np.random.RandomState(seed), cfg)
+    sampler = MultiDatasetSampler(srcs, [1.0] * 4, seed=seed)
+    stream = multi_source_train_batches(
+        sampler, srcs, list(COTRAIN_KINDS), cfg, COTRAIN_B,
+        embed_fn=stand_in_caption_embedding, seed=seed)
+    got = {k: [] for k in COTRAIN_KINDS}
+    draws = 0
+    while min(len(v) for v in got.values()) < COTRAIN_STEPS:
+        kind, batch = next(stream)
+        draws += 1
+        if len(got[kind]) < COTRAIN_STEPS:
+            got[kind].append(batch)
+    return got, draws
+
+
+def cotraining_inputs(kind, batch, zs):
+    """A batch of the stream as the step's tensors on zs's device. A
+    captiontag batch's row 1 loses its caption (weight 0; it keeps its
+    tags) and its row 3 becomes a padding row (frame_valid False), as a
+    batch padded to a divisible size carries."""
+    from embodied_object_detection_tpu_torch.parallel.train_step import (
+        batch_to_device)
+    device = zs.device
+    if kind == "box":
+        return (batch_to_device(batch, device), zs)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+         for x in batch]
+    if kind == "image":
+        images, labels, lv = t
+        return (images, labels, lv, zs)
+    if kind == "caption":
+        return tuple(t)
+    images, feats, weight, labels, lv = t
+    weight = weight.clone()
+    weight[1] = 0.0
+    weight[3] = 0.0
+    fv = torch.ones((images.shape[0],), dtype=torch.bool, device=device)
+    fv[3] = False
+    return (images, feats, weight, labels, lv, zs, fv)
+
+
+def cotraining_steps(model, cfg, optimizer):
+    """{label: (kind, step_fn)} of phase 14b's five co-training steps."""
+    from embodied_object_detection_tpu_torch.parallel import train_step as ts
+    loss_step = {
+        "image max_size": ("image", ts.make_image_label_train_step(
+            model, cfg, "max_size")),
+        "image wsddn": ("image", ts.make_image_label_train_step(
+            model, cfg, "wsddn")),
+        "caption": ("caption", ts.make_caption_train_step(model, cfg)),
+        "captiontag": ("captiontag", ts.make_captiontag_train_step(
+            model, cfg)),
+    }
+    steps = {"box": ("box", ts.make_train_step(model, cfg, optimizer)[1])}
+    for label, (kind, fn) in loss_step.items():
+        steps[label] = (kind, ts.make_loss_step(
+            model, cfg, lambda step, *x, fn=fn: fn(*x), optimizer)[1])
+    return steps
+
+
+# the parameter prefixes each co-training step must give a nonzero
+# gradient: the trunk and FPN always; the three stage heads where the step
+# pools through the cascade (the caption region pools through stage 0
+# only); wsddn's prop heads; CenterNet under box supervision alone
+_STAGES = tuple(f"roi_heads.box_head{k}" for k in range(3))
+COTRAIN_TRAINS = {
+    "box": ("backbone.", "fpn.", "centernet.") + _STAGES,
+    "image max_size": ("backbone.", "fpn.") + _STAGES,
+    "image wsddn": ("backbone.", "fpn.") + _STAGES + tuple(
+        f"prop_score{k}." for k in range(3)),
+    "caption": ("backbone.", "fpn.", "roi_heads.box_head0"),
+    "captiontag": ("backbone.", "fpn.") + _STAGES,
+}
+
+
+def grad_names(model):
+    """The names of the parameters whose gradient has a nonzero entry,
+    read in one copy."""
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None]
+    nonzero = torch.stack([g.ne(0).any() for _, g in named]).tolist()
+    return {n for (n, _), nz in zip(named, nonzero) if nz}
+
+
+def cotrain_config():
+    """The default config, image_only, with the wsddn prop heads, at an
+    lr the steps move the parameters at (1e-4 from the first step)."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    cfg = image_only(DetectorConfig())
+    return cfg.replace(
+        roi=dataclasses.replace(cfg.roi, with_softmax_prop=True),
+        solver=dataclasses.replace(cfg.solver, base_lr=1e-4,
+                                   warmup_factor=1.0))
+
+
+def run_cotraining():
+    """Phase 14b: Detic's co-training at 480x640 (bf16), B = 4: three AdamW
+    steps of each of box batches (`make_train_step`, the CLI's step),
+    image-label batches (max_size, and wsddn with the softmax-prop heads),
+    caption and captiontag batches, all drawn from one
+    `multi_source_train_batches` stream over four in-memory sources."""
+    from embodied_object_detection_tpu_torch.engine.solver import (
+        build_optimizer)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.parallel.train_step import (
+        TrainState)
+
+    cfg = cotrain_config()
+    batches, draws = cotraining_batches(cfg)
+    model = build_detector(cfg, seed=0, device="cuda")
+    optimizer = build_optimizer(model, cfg.solver)
+    state = TrainState(model=model, optimizer=optimizer, step=0)
+    zs = torch.from_numpy(random_zs(np.random.RandomState(15), cfg)).cuda()
+    out = {}
+    for label, (kind, step) in cotraining_steps(model, cfg,
+                                                optimizer).items():
+        inputs = [cotraining_inputs(kind, b, zs)
+                  for b in batches[kind]]
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        graded = set()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        ms, values = [], []
+        for x in inputs:
+            t0 = time.perf_counter()
+            state, losses = step(state, *x)
+            # the step's one host read: every loss in one copy
+            values.append(dict(zip(losses, torch.stack(
+                list(losses.values())).float().tolist())))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            graded |= grad_names(model)
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: COTRAIN_LAUNCHES[kind].get(k, 0) * COTRAIN_STEPS
+                    for k in launches}
+        if launches != expected:
+            raise AssertionError(f"phase 14b {label}: launches {launches}, "
+                                 f"expected {expected}")
+        bad = [v for v in values if not all(math.isfinite(x)
+                                            for x in v.values())]
+        moved = {n for n, p in model.named_parameters()
+                 if not torch.equal(p.detach(), before[n])}
+        unmoved = sorted(graded - moved)
+        untrained = [g for g in COTRAIN_TRAINS[label]
+                     if not any(n.startswith(g) for n in graded)]
+        if bad or unmoved or untrained:
+            raise AssertionError(
+                f"phase 14b {label}: losses {values}; with a gradient but "
+                f"not moved: {unmoved}; no gradient in {untrained}")
+        syncs = sync_sites(lambda: step(state, *inputs[0]))
+        if syncs:
+            raise AssertionError(f"phase 14b {label}: synchronising calls "
+                                 f"in a step: {dict(syncs)}")
+        per_step = {k: v // COTRAIN_STEPS for k, v in launches.items() if v}
+        print(f"  {label}: losses {[round(v['total_loss'], 4) for v in values]}"
+              f"; ms a step {', '.join(f'{x:.1f}' for x in ms)} (steps 2-3 "
+              f"mean {np.mean(ms[1:]):.1f}; host clock to the loss read); "
+              f"peak {peak / 2 ** 30:.2f} GiB; launches a step {per_step}; "
+              f"{sum(syncs.values())} synchronising calls in a step; "
+              f"{len(moved)} parameter tensors moved, every one of the "
+              f"{len(graded)} with a nonzero gradient")
+        out[label] = (np.mean(ms[1:]), peak, per_step, sum(syncs.values()))
+    phase("14b", f"co-training at 480x640 bf16, B = {COTRAIN_B}, "
+                 f"{COTRAIN_STEPS} AdamW steps each from one multi-source "
+                 f"stream ({draws} draws): " + "; ".join(
+                     f"{k} {v[0]:.1f} ms/step, {v[3]} syncs"
+                     for k, v in out.items()) +
+          "; losses finite, every parameter with a gradient moved, no "
+          "synchronising call in a step, launches as designed")
+    return out
+
+
+def coco_recorder(module):
+    """A subclass of `module.COCOEvaluator` that keeps each image's
+    detections, and the evaluator, for phase 14c."""
+    seen = {}
+
+    class Recorder(module.COCOEvaluator):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["evaluator"] = self
+
+        def add_detections(self, image_id, boxes_xyxy, scores, classes):
+            seen.setdefault("dets", {})[image_id] = (
+                np.asarray(boxes_xyxy), np.asarray(scores),
+                np.asarray(classes))
+            super().add_detections(image_id, boxes_xyxy, scores, classes)
+
+    return Recorder, seen
+
+
+def weak_grads(model, fn):
+    """(loss values, {name: gradient on the CPU}) of fn() on `model`."""
+    model.zero_grad(set_to_none=True)
+    total, parts = fn()
+    total.backward()
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in parts.items()}, grads
+
+
+COTRAIN_CHECKS = ("max_size", "wsddn", "caption", "captiontag")
+
+
+def cotraining_miniature():
+    """(config, inputs) of phase 14c: the 64x96 f32 miniature of phase
+    14b's config (ResNet depths (1, 1, 1, 1), 5 classes, training top-k
+    64 -> 16) and three frames with labels, captions (frame 1 without
+    one) and a padding row (frame 2)."""
+    from embodied_object_detection_tpu_torch.engine.coco import (
+        stand_in_caption_embedding)
+    cfg = miniature(cotrain_config(), 1)
+    cfg = cfg.replace(centernet=dataclasses.replace(
+        cfg.centernet, pre_nms_topk_train=64, post_nms_topk_train=16))
+    rng = np.random.RandomState(18)
+    inputs = dict(
+        images=rng.randint(0, 255, (3, 64, 96, 3)).astype(np.float32),
+        labels=np.array([[1, 3, 0], [4, 0, 0], [2, 2, 1]], np.int32),
+        lv=np.array([[True, True, False], [True, False, False],
+                     [True, True, True]]),
+        feats=stand_in_caption_embedding(["a chair", "", "a lamp"]),
+        weight=np.array([1.0, 0.0, 1.0], np.float32),
+        fv=np.array([True, True, False]),
+        zs=random_zs(np.random.RandomState(17), cfg))
+    return cfg, inputs
+
+
+def cotraining_losses(model, cfg, x, label):
+    """(loss values, gradients) of one of COTRAIN_CHECKS on `model`'s
+    device: frame 0's `frame_train_weak` (max_size, wsddn), or the
+    caption or captiontag step over the three frames."""
+    from embodied_object_detection_tpu_torch.parallel import train_step as ts
+    dev = next(model.parameters()).device
+
+    def t(name):
+        return torch.from_numpy(x[name]).to(dev)
+
+    def fn():
+        if label in ("max_size", "wsddn"):
+            losses = model.frame_train_weak(
+                t("images")[0], t("zs"), t("labels")[0], t("lv")[0],
+                variant=label)
+            return sum(losses.values()), losses
+        if label == "caption":
+            return ts.make_caption_train_step(model, cfg)(
+                t("images"), t("feats"), t("weight"))
+        return ts.make_captiontag_train_step(model, cfg)(
+            t("images"), t("feats"), t("weight"), t("labels"), t("lv"),
+            t("zs"), frame_valid=t("fv"))
+    return weak_grads(model, fn)
+
+
+def grad_rtol(label, name):
+    """The gradient tolerance of `hold_cotraining`: 1e-3 of a tensor's
+    largest for the prop heads under wsddn, whose gradient is a
+    softmax-weighted sum over proposals that cancels (read 4.32e-4 on the
+    card), 1e-4 for every other tensor and label (read at most 3.2e-6)."""
+    return 1e-3 if label.endswith("wsddn") and name.startswith(
+        "prop_score") else 1e-4
+
+
+def hold_cotraining(label, card, cpu):
+    """The card's losses within rtol 1e-4 (+ 1e-7) of the CPU's and its
+    gradients within `grad_rtol` of each tensor's largest on the CPU plus
+    1e-6 of the largest of any tensor (gradients 0 in exact arithmetic);
+    the prop heads' fc2 bias, 0 in exact arithmetic (the softmax over
+    proposals is shift-invariant), held under 1e-3 of its head's weight
+    gradient on both. Returns the largest relative loss error and the
+    largest relative gradient errors of the prop heads and of the other
+    tensors."""
+    (l_g, g_g), (l_c, g_c) = card, cpu
+    worst_l, worst_g = 0.0, {"prop": 0.0, "other": 0.0}
+    for k in l_c:
+        err = abs(l_g[k] - l_c[k])
+        if not err <= 1e-4 * abs(l_c[k]) + 1e-7:
+            raise AssertionError(f"{label} {k}: card {l_g[k]} vs CPU "
+                                 f"{l_c[k]}")
+        worst_l = max(worst_l, err / max(abs(l_c[k]), 1e-30))
+    if set(g_g) != set(g_c):
+        raise AssertionError(f"{label}: the devices differ on which "
+                             "parameters get a gradient")
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_c.values())
+    for n, gc in g_c.items():
+        gg = g_g[n]
+        if n.startswith("prop_score") and n.endswith("fc2.bias"):
+            head = float(g_c[n.replace("bias", "weight")].abs().max())
+            if not max(float(gg.abs().max()),
+                       float(gc.abs().max())) <= 1e-3 * head:
+                raise AssertionError(f"{label}: {n} is not 0")
+            continue
+        scale = float(gc.abs().max())
+        err = float((gg - gc).abs().max())
+        rtol = grad_rtol(label, n)
+        if not err <= rtol * scale + floor:
+            raise AssertionError(f"{label}: {n} gradient differs by "
+                                 f"{err:.3e} (largest {scale:.3e}, "
+                                 f"tolerance {rtol:g})")
+        group = "prop" if n.startswith("prop_score") else "other"
+        if scale > floor:
+            worst_g[group] = max(worst_g[group], err / scale)
+    return worst_l, worst_g
+
+
+def check_cotraining_against_cpu():
+    """Phase 14c: the 64x96 f32 miniature (`cotraining_miniature`) from
+    the same seeded weights on the card and on the CPU: `evaluate_coco`'s
+    detections and AP over 4 images under both protocols, held as phase
+    10b holds image_only (each image's scores, ranked, within rtol 1e-4,
+    atol 1e-5, its classes and boxes within 1e-2 px + 1e-3 of the
+    coordinate, AP within 0.1 points, of the card's detections ranked by
+    the CPU's scores always and of the card's own where no detection
+    changes its rank); then the image-label (max_size, wsddn), caption and
+    captiontag losses and gradients (`hold_cotraining`: the ROIAlign
+    backward's float atomics sum in any order, so the card is held within
+    a bound, not bitwise)."""
+    from embodied_object_detection_tpu_torch.engine import coco as ecoco
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+
+    cfg, x = cotraining_miniature()
+    raw, fed, arrays = coco_jsons(np.random.RandomState(16), 4,
+                                  ((64, 96), (64, 75), (54, 96), (48, 96)),
+                                  cfg.roi.num_classes, max_boxes=6)
+    coco_ds, fed_ds = coco_datasets(cfg, raw, fed, arrays)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_detector(cfg, seed=3, device=dev)
+        real = ecoco.COCOEvaluator
+        evals = {}
+        try:
+            for name, ds, federated in (("COCO", coco_ds, False),
+                                        ("federated", fed_ds, True)):
+                rec, seen = coco_recorder(ecoco)
+                ecoco.COCOEvaluator = rec
+                res = ecoco.evaluate_coco(model, cfg, ds, x["zs"], batch=3,
+                                          verbose=False, federated=federated)
+                evals[name] = (res, seen["dets"], seen["evaluator"])
+        finally:
+            ecoco.COCOEvaluator = real
+        runs[dev] = (evals, {label: cotraining_losses(model, cfg, x, label)
+                             for label in COTRAIN_CHECKS})
+
+    (ev_g, weak_g), (ev_c, weak_c) = runs["cuda"], runs["cpu"]
+    lines = []
+    for name in ("COCO", "federated"):
+        (res_g, dets_g, evg), (res_c, dets_c, _) = ev_g[name], ev_c[name]
+        if sorted(dets_g) != sorted(dets_c):
+            raise AssertionError(f"phase 14c {name}: images differ")
+        for im in dets_c:
+            s_g = np.sort(dets_g[im][1])[::-1]
+            s_c = np.sort(dets_c[im][1])[::-1]
+            if len(s_g) != len(s_c):
+                raise AssertionError(f"phase 14c {name}: image {im}: "
+                                     f"{len(s_g)} vs {len(s_c)} detections")
+            np.testing.assert_allclose(s_g, s_c, rtol=1e-4, atol=1e-5)
+            check_boxes_classes(dets_g[im], dets_c[im],
+                                f"phase 14c {name}: image {im}")
+        swaps = rank_swaps(dets_g, dets_c)
+        ap_r = ap_ranked_by(evg, dets_g, dets_c)
+        if not abs(ap_r - res_c["AP"]) <= 0.1 or (
+                swaps == 0 and not abs(res_g["AP"] - res_c["AP"]) <= 0.1):
+            raise AssertionError(f"phase 14c {name}: AP {res_g['AP']} "
+                                 f"(ranked by the CPU's scores {ap_r}) vs "
+                                 f"{res_c['AP']}")
+        lines.append(f"{name} AP card {res_g['AP']:.4f}, CPU "
+                     f"{res_c['AP']:.4f} ({swaps} rank swaps, "
+                     f"{sum(len(d[1]) for d in dets_c.values())} "
+                     "detections held)")
+    worst_l, worst_g = 0.0, {"prop": 0.0, "other": 0.0}
+    for label in COTRAIN_CHECKS:
+        wl, wg = hold_cotraining(f"phase 14c {label}", weak_g[label],
+                                 weak_c[label])
+        worst_l = max(worst_l, wl)
+        worst_g = {k: max(v, wg[k]) for k, v in worst_g.items()}
+        lines.append(f"{label}: losses {weak_g[label][0]} on the card, "
+                     f"{weak_c[label][0]} on the CPU; "
+                     f"{len(weak_c[label][1])} gradient tensors, within "
+                     f"{wg['other']:.2e} of each tensor's largest "
+                     f"(tolerance 1e-4), the prop heads' within "
+                     f"{wg['prop']:.2e} (tolerance "
+                     f"{grad_rtol(label, 'prop_score'):g})")
+    for line in lines:
+        print(f"  {line}")
+    phase("14c", f"the card against the CPU at 64x96 f32: evaluate_coco's "
+                 f"detections and AP (COCO and federated) within phase 10b's "
+                 f"tolerances; image-label (max_size, wsddn), caption and "
+                 f"captiontag losses within {worst_l:.2e} relative "
+                 f"(tolerance 1e-4), gradients within {worst_g['other']:.2e} "
+                 f"of each tensor's largest (tolerance 1e-4), wsddn's prop "
+                 f"heads' within {worst_g['prop']:.2e} (tolerance 1e-3)")
+
+
+def run_coco_cli():
+    """The on-disk path where PIL is present: `python -m
+    embodied_object_detection_tpu_torch.run --coco-json J --coco-json-test
+    J2 --max-iter 3` on PNGs in a temporary directory."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[phase 14] PIL is absent on this machine: the on-disk "
+              "`run.py --coco-json` training and evaluation is skipped")
+        return
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, _, arrays = coco_jsons(np.random.RandomState(19), 6,
+                                    COCO_SIZES, 20)
+        for name, arr in arrays.items():
+            Image.fromarray(arr).save(Path(tmp) / name)
+        train_json = Path(tmp) / "train.json"
+        test_json = Path(tmp) / "test.json"
+        train_json.write_text(json.dumps(raw))
+        test_json.write_text(json.dumps(dict(
+            raw, images=raw["images"][:4],
+            annotations=[a for a in raw["annotations"]
+                         if a["image_id"] <= 4])))
+        cmd = [sys.executable, "-m", "embodied_object_detection_tpu_torch.run",
+               "--coco-json", str(train_json), "--coco-json-test",
+               str(test_json), "--image-root", tmp, "--max-iter", "3",
+               "--output-dir", str(Path(tmp) / "out")]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        secs = time.perf_counter() - t0
+    tail = out.stdout.strip().splitlines()[-3:]
+    if out.returncode != 0 or not any(x.startswith("coco:") for x in tail):
+        raise AssertionError(f"run.py --coco-json exited {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    print("\n".join(f"  {x}" for x in tail))
+    phase(14, f"run.py --coco-json on 6 PNGs trained 3 iterations and "
+              f"evaluated 4 images in {secs:.1f} s")
+
+
+def check_roi_align_cotraining(rng):
+    """Phase 7's co-training shapes of kernels 4 and 4b: R = 129 (128
+    training-mix ROIs and the whole-image box, 7 x 7) and R = 1 (the
+    whole-image box, the caption region), each held to the plain tap form
+    (forward as phase 4b, backward as phase 4f) and timed beside it and
+    its bound."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    levels32, boxes = roi_inputs(rng, 128, torch.float32)
+    whole = torch.tensor([[0.0, 0.0, 640.0, 480.0]]).cuda()
+    rows = []
+    for name, b in (("R = 129", torch.cat([boxes, whole])), ("R = 1", whole)):
+        r = b.shape[0]
+        err32, err_v1, err_v4, _, _, _ = check_roi_case(levels32, b, 7)
+        grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32)
+                                ).cuda()
+        _, s32, s_plain, s_ref, s16, most = check_backward_case(
+            levels32, b, grad, strict_plain=False)
+        levels = [f.to(torch.bfloat16) for f in levels32]
+        lvl = roi_levels(b)
+        ms = graph_ms(lambda: ra.roi_align_cuda(levels, b, lvl, STRIDES, 7,
+                                                2))
+        plain_ms = graph_ms(lambda: ra._roi_align_taps(levels, b, STRIDES, 7,
+                                                       2, lvl))
+        c = 256
+        out_elems = r * 49 * c
+        b_ms, b_by = bound_ms(forward_read_bytes(levels, b, lvl) + r * 20 +
+                              out_elems * 2, out_elems * (4 * 8 + 1))
+        g16 = grad.to(torch.bfloat16)
+        shapes = [f.shape[:2] for f in levels]
+        bms = graph_ms(lambda: ra.roi_align_backward_cuda(
+            g16, shapes, b, lvl, STRIDES, 2, torch.bfloat16))
+        leaves = [f.detach().clone().requires_grad_(True) for f in levels]
+        bplain = event_ms(lambda: torch.autograd.grad(
+            ra._roi_align_taps(leaves, b, STRIDES, 7, 2, lvl), leaves,
+            g16.float()))
+        scalar, vector = backward_atomics(levels, b, lvl, c)
+        bb_ms, bb_by = bound_ms(g16.numel() * 2 + r * 20 +
+                                sum(f.numel() * 2 for f in levels),
+                                2 * float(scalar))
+        print(f"  roi_align {name}, 7x7 (levels "
+              f"{sorted(set((lvl + 3).tolist()))}): forward f32 vs v1 (CPU) "
+              f"{err32:.2e}, bf16 vs v1 {err_v1:.2e}, vs v4 {err_v4:.2e}; "
+              f"bf16 {ms * 1e3:.1f} us kernel, {plain_ms * 1e3:.1f} us plain "
+              f"v1, bound {b_ms * 1e3:.2f} us ({b_by}); backward f32 max "
+              f"err / bound {s32:.3f} from the exact sum ({s_plain:.3f} "
+              f"the CPU autograd's), bf16 {s_ref:.3f} and {s16:.3f}, up to "
+              f"{most} contributions on one position; bf16 "
+              f"{bms * 1e3:.1f} us kernel ({vector} float4 atomics), "
+              f"{bplain * 1e3:.1f} us plain v1 autograd, bound "
+              f"{bb_ms * 1e3:.2f} us ({bb_by})")
+        rows.append(f"{name} {ms * 1e3:.1f} / {bms * 1e3:.1f} us")
+    phase(7, "roi_align forward / backward at the co-training shapes, held "
+             "to the plain tap form as phases 4b and 4f: " + "; ".join(rows))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -4672,10 +5392,15 @@ def main() -> int:
     dcn_launches, dcn_errs = check_deform_conv(blocks, dcn_inputs)
     read_cases = read_backward_cases(np.random.RandomState(14))
     read_launches, read_errs = check_read_backward(read_cases)
+    run_coco_eval()
+    run_coco_cli()
+    run_cotraining()
+    check_cotraining_against_cpu()
     kernels = time_kernels(rng, launches, train_launches, errs,
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \
         time_read_backward(read_cases, read_launches, read_errs)
+    check_roi_align_cotraining(np.random.RandomState(15))
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

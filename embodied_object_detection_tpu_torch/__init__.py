@@ -11,16 +11,25 @@ counterpart is easy to find:
                              kernels in csrc/ beside plain PyTorch versions
   models/                    ResNet-50, FPN with memory fusion, CenterNet,
                              cascade heads, the detector and episode
-                             runner, the training losses
-  parallel/train_step.py     the batch loss and optimizer step
+                             runner, the training losses (with Detic's
+                             image-label and caption losses)
+  parallel/train_step.py     the batch loss and optimizer step, the
+                             caption, captiontag and image-label steps
   engine/                    solver (AdamW groups, schedules, clipping),
                              checkpoints and memory snapshots, the
                              training loop, the serial evaluation protocol
-                             (engine/eval.py:evaluate_dataset)
+                             (engine/eval.py:evaluate_dataset), the
+                             single-frame COCO batches and evaluation
+                             (engine/coco.py)
   data/                      the h5 episode dataset and its prefetcher,
                              synthetic episodes and training batches made
-                             from a seed, the vendored class table
-  evaluation/coco_eval.py    COCO bbox AP on the host
+                             from a seed, the vendored class table; the
+                             dataset catalog, COCO-json dataset and
+                             multi-dataset sampler (catalog.py), the
+                             resize-crop and multi-source mapper
+                             (augment.py), the tar ImageNet reader
+  evaluation/                COCO bbox AP on the host (coco_eval.py), the
+                             OpenImages evaluator (oid_eval.py)
   native/                    its C++ core (g++ + ctypes, built on first use)
   convert/                   carry the JAX package's parameters across
                              (from_jax.py), load detectron2 .pth files
@@ -33,8 +42,8 @@ counterpart is easy to find:
                              classifier weights
   serve/                     the HTTP server and the frame step's
                              torch.export program
-  data/catalog.py            built-in vocabularies (class names, tables)
-  run.py                     the CLI: --eval-only, --dry-run
+  run.py                     the CLI: training, --eval-only, --dry-run,
+                             --coco-json
   kernels/build.py           nvcc build + ctypes binding of csrc/*.cu
 
 Entry points run on the card ("cuda") unless the caller passes

@@ -73,7 +73,7 @@ class CenterNetConfig:
 @dataclass(frozen=True)
 class ROIHeadsConfig:
     """3-stage cascade heads + zero-shot classifier + class-agnostic masks."""
-    # "cascade"; "res5" (the single-frame variant) is not ported (raises)
+    # "cascade"; "res5" (the single-frame variant, item 12c) raises
     head_type: str = "cascade"
     strides: Tuple[int, ...] = (8, 16, 32)
     num_classes: int = 20
@@ -102,6 +102,9 @@ class ROIHeadsConfig:
     # backward (torch.utils.checkpoint)
     train_stage_remat: bool = False
     mult_proposal_score: bool = True
+    # WITH_SOFTMAX_PROP (detic_fast_rcnn.py:118-125): a per-proposal score
+    # head a stage, which the wsddn / wsod image-label loss needs
+    with_softmax_prop: bool = False
     one_class_per_proposal: bool = False
     cascade_ious: Tuple[float, ...] = (0.6, 0.7, 0.8)
     cascade_bbox_reg_weights: Tuple[Tuple[float, ...], ...] = (
@@ -229,7 +232,7 @@ def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
     if cfg.roi.head_type != "cascade":
         raise NotImplementedError(
             f"roi.head_type={cfg.roi.head_type!r}: the port has the cascade "
-            "heads; the res5 variant comes with ROADMAP queue 1 item 12")
+            "heads; the res5 variant comes with ROADMAP queue 1 item 12c")
     if cfg.roi.align_impl not in ("v1", "v4"):
         raise NotImplementedError(
             f"roi.align_impl={cfg.roi.align_impl!r}: the port has v1 and v4")

@@ -19,8 +19,10 @@ The one permutation: each box head's fc1 reads the pooled [R, 7, 7, C]
 map, which detectron2 flattens c-major and the port flattens HWC
 (`convert/from_jax.py`), so its (out, C*7*7) weight becomes (out, 7*7*C).
 The classifier's `zs_weight` buffers are a runtime input, returned apart.
-Swin backbone keys come with the port's Swin backbone (ROADMAP queue 1
-item 12); until then they are unmapped.
+A checkpoint trained with WITH_SOFTMAX_PROP carries each stage's
+`prop_score` head, mapped to the port's `prop_score{k}`. Swin backbone
+keys come with the port's Swin backbone (ROADMAP queue 1 item 12c); until
+then they are unmapped.
 """
 
 from __future__ import annotations
@@ -90,6 +92,11 @@ _RULES = [
      "roi_heads.box_predictor{0}.bbox_fc1.{1}", None),
     (rf"roi_heads\.box_predictor\.(\d)\.bbox_pred\.2\.{_WB}",
      "roi_heads.box_predictor{0}.bbox_fc2.{1}", None),
+    # WITH_SOFTMAX_PROP score heads (detic_fast_rcnn.py:118-125)
+    (rf"roi_heads\.box_predictor\.(\d)\.prop_score\.0\.{_WB}",
+     "prop_score{0}.fc1.{1}", None),
+    (rf"roi_heads\.box_predictor\.(\d)\.prop_score\.2\.{_WB}",
+     "prop_score{0}.fc2.{1}", None),
     # mask head
     (rf"roi_heads\.mask_head\.mask_fcn(\d)\.{_WB}",
      "roi_heads.mask_head.mask_fcn{0}.{1}", None),

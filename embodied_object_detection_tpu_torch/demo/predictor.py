@@ -42,7 +42,7 @@ def get_clip_embeddings(vocabulary: List[str], prompt: str = "a ",
     no CLIP weights yet: raises."""
     raise NotImplementedError(
         "get_clip_embeddings needs the CLIP text encoder, which is not "
-        "ported yet (ROADMAP queue 1 item 12), and CLIP weights, which the "
+        "ported yet (ROADMAP queue 1 item 12c), and CLIP weights, which the "
         "repository does not hold; use a built-in vocabulary or pass a "
         "zs_weight")
 

@@ -13,7 +13,9 @@ the memory carried, under every episode protocol (test_type "default",
 `make_pipelined_episode_runner` splits the chunk into its trunk and its
 frame loop, and `make_batched_episode_runner` runs B scene streams, each
 with its own memory. `frame_train` gives the losses of one frame that
-reads a precomputed memory. Public tensors keep the JAX package's
+reads a precomputed memory; `frame_train_weak` the image-label losses of
+Detic's weak co-training and `image_box_embedding` the caption region's
+CLIP embedding, both without memory. Public tensors keep the JAX package's
 channels-last layout. Everything runs on the card unless the caller asks
 for the CPU.
 """
@@ -42,8 +44,9 @@ from .resnet import ResNet50
 from .losses import (add_gt_to_proposals, add_more_pos, centernet_normalize,
                      centernet_raw_losses, centernet_targets,
                      fed_loss_class_weight, fed_uniform, match_proposals,
-                     sample_proposals, stage_losses)
-from .roi_heads import CascadeOutputs, CascadeROIHeads, apply_deltas
+                     image_label_loss, sample_proposals, stage_losses)
+from .roi_heads import (CascadeOutputs, CascadeROIHeads, SoftmaxPropHead,
+                        apply_deltas)
 
 
 def grad_scale(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -82,6 +85,18 @@ class EpisodeOutputs(NamedTuple):
     first_memory: MemoryState     # memory right after the chunk's frame 0
 
 
+def image_box(h: int, w: int, image_box_size: float,
+              device: "torch.device | str") -> torch.Tensor:
+    """[1, 4] the centred box covering `image_box_size` of each side of
+    the image (ref: _add_image_box, detic_roi_heads.py:271-295), filled on
+    the device from Python numbers (no host-to-device copy)."""
+    f = image_box_size
+    corners = (w * (1 - f) / 2, h * (1 - f) / 2, w * (1 - (1 - f) / 2),
+               h * (1 - (1 - f) / 2))
+    return torch.stack([torch.full((), v, device=device)
+                        for v in corners])[None]
+
+
 def recompute(fn, *args):
     """fn(*args) with its activations recomputed in the backward instead
     of kept (`torch.utils.checkpoint`, non-reentrant): the JAX package's
@@ -112,6 +127,11 @@ class EmbodiedDetector(nn.Module):
             cfg.centernet.num_box_convs, dtype=dtype)
         self.roi_heads = CascadeROIHeads(cfg.roi, cfg.backbone.fpn_channels,
                                          dtype=dtype)
+        if cfg.roi.with_softmax_prop:
+            # the wsddn / wsod loss's score heads, one a stage
+            for k in range(len(cfg.roi.cascade_ious)):
+                self.add_module(f"prop_score{k}", SoftmaxPropHead(
+                    cfg.roi.fc_dim, cfg.roi.num_classes))
         self.register_buffer("pixel_mean", torch.tensor(
             cfg.input.pixel_mean, dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(
@@ -293,6 +313,99 @@ class EmbodiedDetector(nn.Module):
             prev_boxes = apply_deltas(deltas, boxes,
                                       roi.cascade_bbox_reg_weights[k])
         return losses
+
+    def frame_train_weak(self, image: torch.Tensor, zs_weight: torch.Tensor,
+                         labels: torch.Tensor, labels_valid: torch.Tensor,
+                         variant: str = "max_size",
+                         image_loss_weight: float = 0.1,
+                         ws_num_props: int = 128,
+                         image_box_size: float = 1.0,
+                         return_image_box_embedding: bool = False,
+                         backbone_feats: Optional[tuple] = None):
+        """Image-label weak supervision of one frame (ref: CustomRCNN with
+        ann_type 'image', custom_rcnn.py:188-278; get_top_proposals and
+        _add_image_box, detic_roi_heads.py:239, 271-295): the frame reads
+        no memory; its top `ws_num_props` training proposals (the proposal
+        NMS at the training top-k), clipped, plus the whole-image box go
+        through the three stages, each stage's pool scaled by 1 /
+        num_stages in the backward and its boxes taking no gradient, with
+        empty boxes dropped from stage 1 on; each stage's
+        `image_label_loss` under "image_loss_stage{s}". labels /
+        labels_valid [L]. With `return_image_box_embedding`, also the
+        whole-image box's stage-0 CLIP feature (the caption region, from
+        this one forward). `backbone_feats` (C3, C4, C5) skips the trunk
+        when it ran batched."""
+        cfg = self.cfg
+        h, w = cfg.input.height, cfg.input.width
+        if variant in ("wsddn", "wsod") and not cfg.roi.with_softmax_prop:
+            raise ValueError(f"variant {variant!r} needs "
+                             "roi.with_softmax_prop=True")
+        if backbone_feats is None:
+            backbone_feats = self.backbone_raw(image)
+        p3, p4, p5, p6, p7 = self.fpn(*backbone_feats, None)
+        # the proposals take no gradient (the JAX package stops it)
+        with torch.no_grad():
+            agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
+            proposals = decode_proposals(agn_hms, regs, cfg.centernet,
+                                         training=True)
+        k = min(ws_num_props, proposals.boxes.shape[0])
+        device = proposals.boxes.device
+        boxes = torch.cat([clip_boxes(proposals.boxes[:k], h, w),
+                           image_box(h, w, image_box_size, device)])
+        valid = torch.cat([proposals.valid[:k],
+                           torch.ones((1,), dtype=torch.bool,
+                                      device=device)])
+        roi = cfg.roi
+        num_stages = len(roi.cascade_ious)
+        losses = {}
+        emb = None
+        for s in range(num_stages):
+            if s > 0:
+                # empty boxes leave every training forward
+                # (detic_roi_heads.py:314-318)
+                valid = valid & nonempty(boxes)
+            pooled = self.roi_heads._pool((p3, p4, p5), boxes,
+                                          roi.pooler_resolution)
+            pooled = grad_scale(pooled, 1.0 / num_stages)
+            x = getattr(self.roi_heads, f"box_head{s}")(pooled)
+            logits, deltas, clip_feats = getattr(
+                self.roi_heads, f"box_predictor{s}")(x, zs_weight)
+            if s == 0:
+                emb = clip_feats[-1]
+            prop_logits = getattr(self, f"prop_score{s}")(x) \
+                if variant in ("wsddn", "wsod") else None
+            losses[f"image_loss_stage{s}"] = image_label_loss(
+                logits, boxes, valid, labels, labels_valid, roi.num_classes,
+                variant=variant, image_loss_weight=image_loss_weight,
+                prop_logits=prop_logits)
+            boxes = clip_boxes(apply_deltas(
+                deltas, boxes, roi.cascade_bbox_reg_weights[s]).detach(),
+                h, w)
+        if return_image_box_embedding:
+            return losses, emb
+        return losses
+
+    def image_box_embedding(self, image: torch.Tensor,
+                            image_box_size: float = 1.0,
+                            backbone_feats: Optional[tuple] = None
+                            ) -> torch.Tensor:
+        """The whole-image box's CLIP-space embedding [zs_dim], the
+        caption region (ref: the caption path's score[-1:],
+        detic_fast_rcnn.py:477): one box pooled on the frame's FPN
+        (no memory), stage 0's box head and its zero-shot projection
+        against a [zs_dim, 1] zero classifier."""
+        cfg = self.cfg
+        h, w = cfg.input.height, cfg.input.width
+        if backbone_feats is None:
+            backbone_feats = self.backbone_raw(image)
+        p3, p4, p5, _, _ = self.fpn(*backbone_feats, None)
+        box = image_box(h, w, image_box_size, p3.device)
+        pooled = self.roi_heads._pool((p3, p4, p5), box,
+                                      cfg.roi.pooler_resolution)
+        x = self.roi_heads.box_head0(pooled)
+        zs_dummy = torch.zeros((cfg.roi.zs_weight_dim, 1), device=p3.device)
+        _, _, feat = self.roi_heads.box_predictor0(x, zs_dummy)
+        return feat[0]
 
     def _memory_write(self, proposals: Detections, cascade: CascadeOutputs,
                       features, proj_indices: torch.Tensor,
@@ -593,7 +706,8 @@ def init_weights(model: EmbodiedDetector, seed: int) -> None:
     convs with the focal prior bias on the heatmap and 8.0 on the
     regression, c2_xavier box FCs, PyTorch's default Linear init for the
     zero-shot projection, normal(0.001) delta and mask predictors,
-    c2_msra mask convs. Norm statistics and scales stay at identity."""
+    c2_msra mask convs; the softmax-prop heads c2_xavier fc1 and
+    normal(0.001) fc2. Norm statistics and scales stay at identity."""
     gen = torch.Generator().manual_seed(seed)
     prior = model.cfg.centernet.prior_prob
     with torch.no_grad():
@@ -621,6 +735,11 @@ def init_weights(model: EmbodiedDetector, seed: int) -> None:
                 _fill(p, gen, "uniform", bound=math.sqrt(3.0 / fan_in))
             elif ".cls_linear." in name:
                 _fill(p, gen, "uniform", bound=math.sqrt(1.0 / fan_in))
+            elif name.startswith("prop_score"):
+                if ".fc1." in name:
+                    _fill(p, gen, "uniform", bound=math.sqrt(3.0 / fan_in))
+                else:
+                    _fill(p, gen, "normal", std=0.001)
             elif ".bbox_fc2." in name or "mask_head.predictor" in name:
                 _fill(p, gen, "normal", std=0.001)
             elif ".mask_head." in name:

@@ -6,8 +6,10 @@ gather or select of the reference's dynamic-shape indexing is a where or
 argmin over the [M, G] interaction matrix, so nothing here waits for the
 host. With them: the MORE_POS assignment (`add_more_pos`, the indexed
 focal loss) and the federated loss's class mask (`fed_loss_class_weight`,
-its uniform draw taken as an input). The image-label and caption losses
-are not ported yet.
+its uniform draw taken as an input). Detic's co-training losses: the
+image-label loss in all seven proposal-selection variants
+(`image_label_loss`) and the region-caption contrastive loss
+(`caption_loss`).
 """
 
 from __future__ import annotations
@@ -464,3 +466,129 @@ def stage_losses(logits: torch.Tensor, deltas: torch.Tensor,
     giou = giou_xyxy(pred_boxes, matched.gt_boxes)
     loss_box = torch.where(fg, 1 - giou, zero).sum() / b
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
+
+
+def _bce_logits(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid BCE of logits x against target, in the JAX
+    package's form."""
+    return x.clamp(min=0) - x * target + torch.log1p(torch.exp(-x.abs()))
+
+
+IMAGE_LABEL_VARIANTS = ("max_size", "max_score", "first", "image",
+                        "min_loss", "wsddn", "wsod")
+
+
+def image_label_selection(logits: torch.Tensor, boxes: torch.Tensor,
+                          valid: torch.Tensor, labels: torch.Tensor,
+                          num_classes: int, variant: str) -> torch.Tensor:
+    """[L] the proposal row `image_label_loss` picks for each label under
+    a selection variant (max_size, max_score, first, image, min_loss);
+    ties take the first index."""
+    r = logits.shape[0]
+    with torch.no_grad():
+        if variant == "max_size":
+            areas = (boxes[:, 2] - boxes[:, 0]).clamp(min=0) * \
+                (boxes[:, 3] - boxes[:, 1]).clamp(min=0)
+            areas = torch.where(valid, areas, -1.0)
+            areas = torch.cat([areas[:r - 1], areas.new_full((1,), -1.0)])
+            return areas.argmax().expand(labels.shape[0])
+        if variant == "max_score":
+            score = torch.where(valid[:, None], logits[:, labels.long()],
+                                -1e10)
+            return score.argmax(dim=0)
+        if variant == "first":
+            return torch.zeros_like(labels, dtype=torch.long)
+        if variant == "image":
+            return torch.full_like(labels, r - 1, dtype=torch.long)
+        if variant == "min_loss":
+            target = (labels.long()[:, None] == torch.arange(
+                num_classes + 1, device=logits.device)).float()
+            bce_all = _bce_logits(logits[None], target[:, None])  # [L, R, C+1]
+            row_loss = torch.where(valid[None], bce_all.sum(-1), 1e10)
+            return row_loss.argmin(dim=1)
+    raise ValueError(f"{variant!r} is no selection variant")
+
+
+def image_label_loss(logits: torch.Tensor, boxes: torch.Tensor,
+                     valid: torch.Tensor, labels: torch.Tensor,
+                     labels_valid: torch.Tensor, num_classes: int,
+                     variant: str = "max_size",
+                     image_loss_weight: float = 0.1,
+                     prop_logits: "torch.Tensor | None" = None
+                     ) -> torch.Tensor:
+    """Weak supervision from image-level labels (ref:
+    DeticFastRCNNOutputLayers.image_label_losses and its selection
+    variants, detic_fast_rcnn.py:342-434, 509-581). logits [R, C+1] of R
+    proposals whose last row is the whole-image box, boxes [R, 4], valid
+    [R], labels / labels_valid [L]. For each valid label one proposal is
+    picked and its full class row takes the BCE against the label:
+      max_size   the largest valid proposal, the image box excluded (:572)
+      max_score  the valid proposal scoring highest for the label (:524)
+      first      proposal 0 (:547)
+      image      the whole-image box (:557)
+      min_loss   the proposal whose full-row BCE (no gradient) is least
+                 (:534)
+    wsddn / wsod (:509-522): sigmoid(logits) times a softmax over the
+    valid proposals of `prop_logits` [R, C+1] (the WITH_SOFTMAX_PROP head;
+    padded rows at -1e10), summed over proposals and clipped to [1e-10,
+    1 - 1e-7], then F.binary_cross_entropy's mean over C+1 for each
+    label. Ties take the first index. Returns the summed loss over the
+    valid labels' count (at least 1) times `image_loss_weight`."""
+    if variant not in IMAGE_LABEL_VARIANTS:
+        raise ValueError(f"image_label_loss variant {variant!r} is not one "
+                         f"of {IMAGE_LABEL_VARIANTS}")
+    c = num_classes
+    dev = logits.device
+    zero = torch.zeros((), device=dev)
+    # a compare, not F.one_hot (its range check reads back to the host)
+    target = (labels.long()[:, None] ==
+              torch.arange(c + 1, device=dev)).float()          # [L, C+1]
+    n = labels_valid.float().sum().clamp(min=1.0)
+    if variant in ("wsddn", "wsod"):
+        if prop_logits is None:
+            raise ValueError("the wsddn / wsod image-label loss needs the "
+                             "softmax-prop head (roi.with_softmax_prop)")
+        pl = torch.where(valid[:, None], prop_logits, -1e10)
+        final = torch.sigmoid(logits) * torch.softmax(pl, dim=0)
+        img_score = torch.where(valid[:, None], final, zero).sum(0).clamp(
+            1e-10, 1 - 1e-7)                                    # [C+1]
+        bce = -(target * torch.log(img_score) +
+                (1 - target) * torch.log(1 - img_score))        # [L, C+1]
+        per = torch.where(labels_valid, bce.mean(dim=1), zero)
+        return per.sum() / n * image_loss_weight
+
+    row = logits[image_label_selection(logits, boxes, valid, labels,
+                                       num_classes, variant)]  # [L, C+1]
+    per = torch.where(labels_valid, _bce_logits(row, target).sum(-1), zero)
+    return per.sum() / n * image_loss_weight
+
+
+def caption_loss(region_embeddings: torch.Tensor,
+                 caption_features: torch.Tensor, image_index: int,
+                 norm_temperature: float = 50.0,
+                 neg_cap_weight: float = 1.0,
+                 caption_valid: "torch.Tensor | None" = None
+                 ) -> torch.Tensor:
+    """Region-caption contrastive loss (ref: DeticFastRCNNOutputLayers.
+    _caption_loss, detic_fast_rcnn.py:469-506): the last row of
+    `region_embeddings` [R, D] (the whole-image box), scaled to norm
+    `norm_temperature` (the norm clamped at 1e-12), is scored against
+    every caption embedding of the batch, caption_features [B, D], in f32
+    as elementwise products and sums (no tensor core, the JAX package's
+    Precision.HIGHEST); BCE with caption `image_index` the positive, the
+    negatives weighted by `neg_cap_weight` and masked by `caption_valid`
+    [B] (padding rows are no negatives)."""
+    emb = region_embeddings[-1].float()
+    emb = norm_temperature * emb / torch.linalg.vector_norm(emb).clamp(
+        min=1e-12)
+    scores = (caption_features.float() * emb).sum(-1)          # [B]
+    b = scores.shape[0]
+    target = (torch.arange(b, device=scores.device) ==
+              image_index).float()
+    bce = _bce_logits(scores, target)
+    valid = torch.ones_like(bce) if caption_valid is None \
+        else caption_valid.float()
+    pos = (bce * target).sum()
+    neg = (bce * (1 - target) * valid).sum()
+    return pos + neg_cap_weight * neg
+

@@ -88,6 +88,20 @@ class ZeroShotPredictor(nn.Module):
         return logits, deltas, feat_n
 
 
+class SoftmaxPropHead(nn.Module):
+    """The WITH_SOFTMAX_PROP score head of the wsddn / wsod image-label
+    loss (ref: detic_fast_rcnn.py:118-125): Linear -> ReLU -> Linear(C+1),
+    in f32."""
+
+    def __init__(self, in_dim: int, num_classes: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, in_dim)
+        self.fc2 = nn.Linear(in_dim, num_classes + 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.relu(self.fc1(x.float())))
+
+
 class MaskHead(nn.Module):
     """Class-agnostic mask head: 4x (3x3 conv + ReLU), a 2x2 stride-2
     deconv (f32) + ReLU and a 1x1 f32 predictor: [R, 14, 14, C] pooled ->

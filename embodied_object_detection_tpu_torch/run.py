@@ -10,12 +10,19 @@ each chunk's precomputed memory from `--semmap-path` snapshots), for
 overall and quartile COCO bbox AP with the timing split; `--dry-run`
 checks the four golden configurations and the three GT-memory baselines
 end to end on synthetic stand-ins and prints the golden commands.
-Everything runs on the card (`--device cuda`, the default) unless
-`--device cpu` is given; without a card, `cuda` raises.
+`--coco-json` is the vanilla single-frame path (the reference's
+Detic/train_net.py): the detector with `memory_type` image_only (unless
+`--opts` sets one) trains box-supervised over a COCO json's images
+(`--image-root`, else `--data-path`) in epoch permutations and then, with
+`--coco-json-test`, evaluates; with `--eval-only` it evaluates the json
+(`engine/coco.py:evaluate_coco`); `--lvis-eval` remaps the category ids
+to a contiguous 0-based space and scores under the LVIS-federated
+protocol. Everything runs on the card (`--device cuda`, the default)
+unless `--device cpu` is given; without a card, `cuda` raises.
 
 Paths the port does not have yet raise `NotImplementedError` naming their
 ROADMAP queue 1 item: `--eval-streams` above 1 and `--coordinator` (item
-10), `--coco-json` and `roi.head_type=res5` (item 12).
+10), `roi.head_type=res5` (item 12c).
 
 Examples:
   # eval, implicit object memory, on the card:
@@ -29,6 +36,9 @@ Examples:
   python -m embodied_object_detection_tpu_torch.run \\
       --data-path embodied_data/mp3d_example --semmap-path SNAPSHOTS \\
       --output-dir output/train --max-iter 1000
+  # single-frame training on a COCO json, then its test json's AP:
+  python -m embodied_object_detection_tpu_torch.run --coco-json TRAIN.json \\
+      --coco-json-test VAL.json --image-root IMAGES --max-iter 1000
 """
 
 from __future__ import annotations
@@ -89,7 +99,17 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the eval here")
     p.add_argument("--coco-json", default="",
-                   help="single-frame COCO dataset (not ported yet)")
+                   help="vanilla single-frame train/eval over a COCO-format "
+                        "json (the train_net.py path)")
+    p.add_argument("--coco-json-test", default="",
+                   help="after --coco-json training, evaluate this json")
+    p.add_argument("--image-root", default="",
+                   help="image directory of --coco-json (default: "
+                        "--data-path)")
+    p.add_argument("--lvis-eval", action="store_true",
+                   help="remap category ids to a contiguous 0-based space "
+                        "and score with the LVIS federated protocol "
+                        "(neg_category_ids, 300 detections an image)")
     p.add_argument("--opts", nargs="*", default=[],
                    help="config overrides: section.field=value")
     return p
@@ -300,10 +320,6 @@ def parity_dry_run(args) -> dict:
 
 def _not_ported(args) -> None:
     """Raise on every path the port does not have, before any work."""
-    if args.coco_json:
-        raise NotImplementedError(
-            "--coco-json (the single-frame COCO path) is not ported yet: "
-            "ROADMAP queue 1 item 12")
     if args.coordinator or args.eval_streams > 1:
         raise NotImplementedError(
             "--coordinator and --eval-streams > 1 (the sharded evaluation) "
@@ -343,10 +359,80 @@ def load_weights(model, cfg, path: str):
     return None
 
 
+def coco_epoch_indices(it: int, n: int, batch: int,
+                       rng: np.random.RandomState) -> np.ndarray:
+    """The images of iteration `it` over a dataset of `n`: detectron2's
+    TrainingSampler, an endless run of permutations without replacement
+    (samplers/distributed_sampler.py), each epoch's permutation keyed on
+    the epoch so that a resumed run reads the same one; `rng` draws with
+    replacement when the dataset is smaller than a batch."""
+    if n < batch:
+        return rng.choice(n, batch, replace=True)
+    per_epoch = max(n // batch, 1)
+    epoch, slot = divmod(it, per_epoch)
+    perm = np.random.RandomState(np.random.SeedSequence(
+        [0x5EED, epoch]).generate_state(1)[0]).permutation(n)
+    return perm[slot * batch:(slot + 1) * batch]
+
+
+def coco_main(args, model, cfg, zs_weight):
+    """The `--coco-json` branch: evaluation with `--eval-only`, else
+    box-supervised training (then `--coco-json-test`'s evaluation). Ids
+    stay raw (the mp3d jsons use vocabulary indices as ids) unless
+    `--lvis-eval` remaps them; training raises when a raw id does not fit
+    `roi.num_classes`."""
+    from .data.catalog import CocoDetectionDataset, DatasetEntry
+    from .engine.coco import evaluate_coco, items_to_train_batch
+
+    def coco_ds(json_file):
+        return CocoDetectionDataset(
+            DatasetEntry(json_file, args.image_root or args.data_path),
+            height=cfg.input.height, width=cfg.input.width,
+            max_gt=cfg.input.max_gt_boxes, remap_ids=args.lvis_eval)
+
+    def evaluate(json_file):
+        res = evaluate_coco(model, cfg, coco_ds(json_file), zs_weight,
+                            federated=args.lvis_eval)
+        print("coco:", {k: round(v, 3) for k, v in res.items()
+                        if not k.startswith("AP-")})
+        return res
+
+    if args.eval_only:
+        return evaluate(args.coco_json)
+    from .engine.train import train
+    ds = coco_ds(args.coco_json)
+    max_cid = max(ds.entry.id_map.values(), default=0)
+    if max_cid >= cfg.roi.num_classes:
+        # raw ids beyond the classifier's columns would train nothing
+        # while the loss stays finite
+        raise SystemExit(
+            f"--coco-json training: max category id {max_cid} in "
+            f"{args.coco_json} does not fit roi.num_classes="
+            f"{cfg.roi.num_classes}. For 1-based / non-contiguous jsons "
+            "(COCO, LVIS) pass --lvis-eval to remap ids to a contiguous "
+            "0-based space, or set --opts roi.num_classes="
+            f"{max_cid + 1} to keep raw ids (mp3d-style jsons)")
+    bsz = cfg.solver.ims_per_batch
+
+    def coco_batch(it, rng, dp):
+        idx = coco_epoch_indices(it, len(ds), bsz, rng)
+        return items_to_train_batch([ds[int(i)] for i in idx], cfg,
+                                    pad_to_multiple=dp)
+
+    state = train(model, cfg, None, zs_weight, max_iter=args.max_iter,
+                  resume=args.resume, batch_fn=coco_batch)
+    if args.coco_json_test:
+        return state, evaluate(args.coco_json_test)
+    print("no --coco-json-test given; skipping the post-training eval")
+    return state
+
+
 def main(argv=None):
     """CLI entry point. Returns {preset: overall AP} for --dry-run, the
     `EvalResults` for --eval-only and the final `TrainState` for
-    training."""
+    training; with --coco-json the AP dict for --eval-only, else the
+    final `TrainState`, with the test json's AP dict beside it when
+    --coco-json-test is given."""
     from .models.detector import resolve_device
     args = argument_parser().parse_args(argv)
     _not_ported(args)
@@ -367,6 +453,23 @@ def main(argv=None):
         memory=dataclasses.replace(cfg.memory, test_type=args.test_type,
                                    save_semmap=args.save_semmap))
     cfg = apply_opts(cfg, args.opts)
+    if args.coco_json and not args.parity_config and not any(
+            str(o).startswith("memory.memory_type") for o in args.opts):
+        # the reference's single-frame path leaves MODEL.MEMORY_TYPE at ''
+        # (no FPN memory merge, timm.py:142); an explicit --opts or a
+        # golden preset wins
+        cfg = cfg.replace(memory=dataclasses.replace(
+            cfg.memory, memory_type="image_only"))
+        print("--coco-json: memory_type defaulted to image_only "
+              "(single-frame contract; override via --opts)")
+    elif args.coco_json and cfg.memory.reads_memory():
+        print(f"warning: --coco-json with memory_type="
+              f"{cfg.memory.memory_type!r} runs the FPN memory merge "
+              "against all-zero memory every frame")
+    if args.coco_json:
+        # no memory is carried from image to image: the write is dead work
+        cfg = cfg.replace(memory=dataclasses.replace(cfg.memory,
+                                                     write_memory=False))
     if cfg.output_dir.endswith("/auto"):
         # ref: train_mp3d.py:678-689, a config-derived dated run directory
         import datetime
@@ -383,6 +486,8 @@ def main(argv=None):
     zs_weight = find_zs_weight(args, cfg.roi.num_classes,
                                cfg.zeroshot_weight_path)
 
+    if args.coco_json:
+        return coco_main(args, model, cfg, zs_weight)
     clip_path = ""
     if cfg.memory.memory_type in ("semantic_gt", "map_gt"):
         # these baselines read the CLIP class table through the dataset

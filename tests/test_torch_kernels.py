@@ -767,3 +767,46 @@ def test_memory_read_backward_kernel_vs_exact(batch, ids):
         grad, obs, proj))
     assert torch.equal(got, memory_ops.memory_read_backward_cuda(
         grad, obs, proj))
+
+
+@pytest.mark.parametrize("r", [129, 1])
+def test_roi_align_cotraining_shapes_vs_plain(r):
+    """Kernels 4 and 4b at the co-training pools: R = 129 (128 random
+    ROIs and the whole-image box, the weak path's) and R = 1 (the
+    whole-image box alone, the caption region, one ROI over all of p5):
+    the forward in f32 within rtol/atol 1e-5 of the plain tap form on
+    the CPU, the backward within the bounds of `_check_backward`."""
+    _need_card()
+    rng = np.random.RandomState(25)
+    levels = [torch.from_numpy(rng.randn(h, w, 256).astype(np.float32))
+              for h, w in ((60, 80), (30, 40), (15, 20))]
+    boxes = torch.from_numpy(np.concatenate(
+        [_random_rois(rng, r - 1), [[0.0, 0.0, 640.0, 480.0]]]).astype(
+            np.float32))
+    lvl = (roi_align.assign_levels(boxes, 3, 5) - 3).contiguous()
+    assert int(lvl[-1]) == 2
+    strides = (8, 16, 32)
+    got = roi_align.roi_align_cuda([f.cuda() for f in levels], boxes.cuda(),
+                                   lvl.cuda(), strides, 7, 2).cpu()
+    want = roi_align._roi_align_taps(levels, boxes, strides, 7, 2, lvl)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    grad = torch.from_numpy(rng.randn(r, 7, 7, 256).astype(np.float32))
+    _check_backward(levels, boxes, grad, strict_plain=False)
+
+
+@pytest.mark.parametrize("label", ["max_size", "wsddn", "captiontag"])
+def test_cotraining_losses_card_vs_cpu(label):
+    """One weak frame (`frame_train_weak`, max_size and wsddn) and one
+    captiontag step (a caption-less frame and a padding row) at the 64x96
+    f32 miniature on the card against the CPU from the same weights:
+    losses within rtol 1e-4, gradients within 1e-4 of each tensor's
+    largest, wsddn's prop heads within 1e-3 (`chip_smoke.hold_cotraining`,
+    `grad_rtol`)."""
+    _need_card()
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    cfg, x = chip_smoke.cotraining_miniature()
+    runs = [chip_smoke.cotraining_losses(
+        build_detector(cfg, seed=3, device=dev), cfg, x, label)
+        for dev in ("cuda", "cpu")]
+    chip_smoke.hold_cotraining(label, *runs)

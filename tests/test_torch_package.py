@@ -54,7 +54,7 @@ def test_port_file_imports_nothing_of_jax(path):
 def test_import_leaves_jax_unloaded():
     """Every port module imports without JAX, and without h5py, PIL or
     cv2, which the data layer and the demos import where they read h5,
-    JPEG or video files or draw (the card's machine has none of them),
+    JPEG or video files or draw (the card's machine has no h5py),
     and without triton or nvcc: no module imports triton or builds a
     kernel when it is imported (the Deformable-DETR family's too)."""
     modules = [m.name for m in pkgutil.walk_packages(

@@ -27,11 +27,14 @@
     baselines and prints the port's golden commands; `--eval-only
     --device cpu` on a synthetic root prints overall and quartile AP and
     writes the semmap snapshots, from a `.pth` and from a checkpoint
-    directory; every path not ported raises `NotImplementedError`, and
-    `--device cuda` without a card raises.
+    directory; `--coco-json` on a synthesized json evaluates and trains
+    (2 iterations, then `--coco-json-test`) with a finite AP; every path
+    not ported raises `NotImplementedError`, and `--device cuda` without
+    a card raises.
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -522,11 +525,7 @@ NOT_PORTED = {
     "eval_streams": (["--eval-only", "--eval-streams", "2"], "item 10"),
     "coordinator": (["--eval-only", "--coordinator", "host:1234"],
                     "item 10"),
-    "coco_json": (["--eval-only", "--coco-json", "a.json"], "item 12"),
-    # training over an h5 root is ported (slice 11); training over a
-    # single-frame COCO json is not
-    "training": (["--coco-json", "a.json"], "item 12"),
-    "res5": (["--eval-only", "--opts", "roi.head_type=res5"], "item 12"),
+    "res5": (["--eval-only", "--opts", "roi.head_type=res5"], "item 12c"),
 }
 
 
@@ -537,7 +536,56 @@ def test_cli_paths_not_ported_raise(case, tmp_path):
         run.main(["--device", "cpu", "--output-dir", str(tmp_path)] + argv)
 
 
-@pytest.mark.parametrize("argv", [["--eval-only"], ["--dry-run"]])
+def _coco_json(root):
+    """A COCO json over 3 PNGs of 64x96, 60x80 (scaled up, bilinear) and
+    64x80, 1-3 boxes each with raw ids 0-4 (the miniature's classes)."""
+    from PIL import Image
+    rng = np.random.RandomState(12)
+    images, anns = [], []
+    for i, (h, w) in enumerate([(64, 96), (60, 80), (64, 80)]):
+        Image.fromarray(rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
+                        ).save(os.path.join(root, f"{i}.png"))
+        images.append(dict(id=i + 1, file_name=f"{i}.png", height=h,
+                           width=w))
+        for _ in range(i + 1):
+            x, y = rng.uniform(0, w / 2), rng.uniform(0, h / 2)
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                             category_id=int(rng.randint(5)),
+                             bbox=[x, y, rng.uniform(8, w / 2),
+                                   rng.uniform(8, h / 2)], iscrowd=0))
+    path = os.path.join(root, "ann.json")
+    with open(path, "w") as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=c, name=f"c{c}")
+                                   for c in range(5)]), f)
+    return path
+
+
+@pytest.mark.parametrize("mode", ["eval_only", "training"])
+def test_cli_coco_json(mode, tmp_path, capsys):
+    """`--coco-json` on the CPU at the 64x96 miniature: evaluation alone,
+    and 2 training iterations followed by `--coco-json-test`; each
+    prints the image_only default and a finite AP."""
+    path = _coco_json(str(tmp_path))
+    argv = ["--device", "cpu", "--coco-json", path, "--image-root",
+            str(tmp_path), "--zs-weight", "random", "--output-dir",
+            str(tmp_path / "out")]
+    opts = ["--opts"] + MINI_OPTS + ["centernet.pre_nms_topk_train=64",
+                                     "centernet.post_nms_topk_train=16",
+                                     "solver.ims_per_batch=2",
+                                     "solver.checkpoint_period=100"]
+    if mode == "eval_only":
+        res = run.main(argv + ["--eval-only"] + opts)
+    else:
+        state, res = run.main(argv + ["--max-iter", "2", "--coco-json-test",
+                                      path] + opts)
+        assert state.step == 2
+    assert "memory_type defaulted to image_only" in capsys.readouterr().out
+    assert "AP" in res and all(np.isfinite(v) for v in res.values())
+
+
+@pytest.mark.parametrize("argv", [["--eval-only"], ["--dry-run"],
+                                  ["--coco-json", "a.json"]])
 def test_cli_without_card_raises(argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
