@@ -242,8 +242,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      `make_train_step` and image-label (max_size, wsddn), caption and
      captiontag batches (a caption-less row and a padding row) through
      their loss steps, 3 AdamW steps each, all drawn from one
-     `multi_source_train_batches` stream over four in-memory sources with
-     the seeded caption stand-in: finite losses, parameters moved, ms a
+     `multi_source_train_batches` stream over four in-memory sources, the
+     captions embedded by the CLIP text tower of phase 15c on the card:
+     finite losses, parameters moved, ms a
      step (steps 2-3), peak memory, launches a step (box, image and
      captiontag 4 NMS, 12 ROIAlign and 12 backward; caption 4 and 4 at
      R = 1), the host syncs of one more step
@@ -252,10 +253,45 @@ Phases (each prints its own lines; any failure exits non-zero):
      held as phase 10b holds image_only; the max_size and wsddn weak
      losses, the caption and the captiontag losses within rtol 1e-4 and
      their gradients within 1e-3 of each tensor's largest
+  15. the Res5 single-frame detector (`roi.head_type=res5`: ResNet-50
+     (3, 4, 6, 3) to C4, a one-level CenterNet, 14 x 14 pools on C4
+     through the trunk's own stage 4) at 480x640 bf16: `evaluate_coco`
+     over phase 14's 16 images under the COCO and the federated protocol
+     (a warm-up under the sync debug mode "warn", no synchronising call
+     inside a frame; a timed run with launches counted, 2 NMS and 1
+     ROIAlign an image; ms an image, the busy share of a profiled run,
+     peak memory); then 3 `frame_train` + AdamW steps, one image a step
+     (1 NMS, 1 ROIAlign and 1 backward a step at R = 512; finite losses;
+     a nonzero gradient in layer4_0.conv1, which only the ROI path
+     reaches); then the 64x96 f32 miniature on the card against the CPU:
+     detections held as phase 14c holds them, losses within rtol 1e-5,
+     gradients within 1e-4 of each tensor's largest
+  15b. the Swin-B trunk (`backbone.name=swin_b`, full width) at 480x640
+     bf16: the recurrent eval chunk of phase 5 with the default memory
+     (no host sync under the sync debug mode "error", launches a frame as
+     phase 5's, ms a frame, busy share and the device time by op group of
+     a profiled chunk, peak memory); 3 flagship steps at B = 4 through
+     `engine/train.py:train` with drop_path_rate 0.2, train_remat off and
+     on (as phase 8); one flagship batch loss in f32 with train_remat off
+     and on from one coin seed: losses within rtol 1e-6, gradients within
+     1e-4 of each tensor's largest; one caption and one max_size
+     image-label step; the 64x96 f32 miniature at rate 0 on the card
+     against the CPU (detections as 14c, losses rtol 1e-4, gradients 1e-4)
+  15c. the CLIP text tower at full width (512 wide, 12 layers, 8 heads) on
+     a seeded synthesised state dict and a merges table learned from the
+     LVIS names: the 1203 LVIS names with prompt "a " through
+     `get_clip_embeddings` on the card and on the CPU (within 1e-5, unit
+     norms), ms for the vocabulary; their `build_zs_weight` into one Res5
+     image (1203 classes, 2 NMS and 1 ROIAlign)
   7 also holds kernels 4 and 4b at the co-training pools, R = 129 (128
   random ROIs and the whole-image box) and R = 1 (the whole-image box),
   to the plain tap form as phases 4b and 4f do, and times them beside it
-  and their bounds;
+  and their bounds; and at the Res5 shapes, one C4 level of 30 x 40 x
+  1024 (stride 16), 14 x 14, s = 2: the forward at R = 256 on random and
+  on whole-image boxes (banded) and at R = 512, as phase 4b holds it
+  (with the share of outputs bit-equal to the plain tap form), the
+  backward at R = 512 as phase 4f holds it (its exact sums taken on the
+  card in f64), each beside the plain tap form and its bound;
   7 also times both deformable attention kernels (the encoder's shape in
   the JSON line, the decoder's printed, both also on the model's
   locations; the bytes gathered and the backward's float4 REDs, counted
@@ -677,29 +713,44 @@ def staged_grids(stats):
             int((st[:, 2] > 0).sum()))
 
 
-def check_roi_case(levels, boxes, size):
-    """The kernel in f32 against the plain tap form on the CPU, in bf16
-    against it and the plain v4; returns (f32 error, bf16 errors, stats)."""
+def plain_taps_cpu(levels, boxes, strides, size, lvl, chunk=64):
+    """The plain tap form on the CPU, `chunk` ROIs at a time (each ROI's
+    output is its own, so the chunks change nothing but the memory)."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
-    lvl = roi_levels(boxes)
+    levels = [f.cpu() for f in levels]
+    boxes, lvl = boxes.cpu(), lvl.cpu()
+    return torch.cat([ra._roi_align_taps(levels, boxes[i:i + chunk], strides,
+                                         size, 2, lvl[i:i + chunk])
+                      for i in range(0, boxes.shape[0], chunk)])
+
+
+def check_roi_case(levels, boxes, size, strides=STRIDES, lvl=None,
+                   report=None):
+    """The kernel in f32 against the plain tap form on the CPU, in bf16
+    against it and the plain v4; returns (f32 error, bf16 errors, stats).
+    `lvl` defaults to the FPN assignment over p3-p5; `report`, a dict,
+    receives the share of f32 outputs equal to the plain form's bit for
+    bit."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    lvl = roi_levels(boxes) if lvl is None else lvl
     r = boxes.shape[0]
     # the tap form is held on the CPU: there `/ output_size` is a true
     # division, as in the kernel and the JAX package, while PyTorch's
     # CUDA division by a Python scalar multiplies by its reciprocal,
     # which moves bin_w, and so the sample coordinates, by an ulp
-    cpu = ([f.cpu() for f in levels], boxes.cpu(), lvl.cpu())
     stats = torch.zeros((r, 3), dtype=torch.int32, device="cuda")
-    got = ra.roi_align_cuda(levels, boxes, lvl, STRIDES, size, 2,
+    got = ra.roi_align_cuda(levels, boxes, lvl, strides, size, 2,
                             stats=stats).cpu()
-    want = ra._roi_align_taps(cpu[0], cpu[1], STRIDES, size, 2, cpu[2])
+    want = plain_taps_cpu(levels, boxes, strides, size, lvl)
     err32 = float((got - want).abs().max())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if report is not None:
+        report["bit_equal"] = float((got == want).float().mean())
 
     levels16 = [f.to(torch.bfloat16) for f in levels]
-    got16 = ra.roi_align_cuda(levels16, boxes, lvl, STRIDES, size, 2)
-    v1 = ra._roi_align_taps([f.cpu() for f in levels16], cpu[1],
-                            STRIDES, size, 2, cpu[2])
-    v4 = ra._roi_align_matmul(levels16, boxes, STRIDES, size, 2, lvl)
+    got16 = ra.roi_align_cuda(levels16, boxes, lvl, strides, size, 2)
+    v1 = plain_taps_cpu(levels16, boxes, strides, size, lvl)
+    v4 = ra._roi_align_matmul(levels16, boxes, strides, size, 2, lvl)
     torch.cuda.synchronize()
     fmax = max(float(f.float().abs().max()) for f in levels16)
     err_v1 = (got16.float().cpu() - v1).abs()
@@ -999,14 +1050,14 @@ def flat_levels(grads):
                       for g in grads])
 
 
-def backward_atomics(levels, boxes, lvl, c, size=7):
+def backward_atomics(levels, boxes, lvl, c, size=7, strides=STRIDES):
     """(scalar, vector): the atomic adds a kernel that adds every nonzero
     tap's contribution issues (taps x C), and those the staged-grid
     kernel's flush issues (each distinct position a ROI touches with a
     nonzero weight, once per 4 channels), from the plain tap form."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
     rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes.cpu(),
-                                  STRIDES, size, 2, lvl.cpu())
+                                  strides, size, 2, lvl.cpu())
     total = sum(f.shape[0] * f.shape[1] for f in levels)
     r = boxes.shape[0]
     key = rows.reshape(r, -1) + total * torch.arange(r)[:, None]
@@ -1015,35 +1066,39 @@ def backward_atomics(levels, boxes, lvl, c, size=7):
             int(torch.unique(key[live]).numel()) * (c // 4))
 
 
-def forward_read_bytes(levels, boxes, lvl, size=7):
+def forward_read_bytes(levels, boxes, lvl, size=7, strides=STRIDES):
     """The bytes of the level positions the ROIs' taps read with a
     nonzero weight, each once (the least a forward must read: a box on
     p5 reads nothing of p3 or p4), from the plain tap form."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
     rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes.cpu(),
-                                  STRIDES, size, 2, lvl.cpu())
+                                  strides, size, 2, lvl.cpu())
     row_bytes = levels[0].shape[-1] * levels[0].element_size()
     return int(torch.unique(rows[wgt != 0]).numel()) * row_bytes
 
 
-def exact_contributions(levels, boxes, lvl, grad, size):
+def exact_contributions(levels, boxes, lvl, grad, size, strides=STRIDES,
+                        device="cpu"):
     """(count [P], exact [P, C], magnitude [P, C]) over the flattened
     levels: the nonzero tap contributions (grad / s^2) * w of the plain
     tap form on each position, each the f32 product the kernel forms, and
-    their sum and the sum of their magnitudes taken exactly (f64). Summed
-    in any order in f32, n contributions stay within (n - 1) 2^-24
-    sum|c| of the exact sum, so within the n 2^-24 sum|c| bound; two f32
-    orders may differ from each other by up to twice that."""
+    their sum and the sum of their magnitudes taken exactly (f64), on
+    `device`; the taps come from the CPU, whose divisions are the
+    kernel's. Summed in any order in f32, n contributions stay within
+    (n - 1) 2^-24 sum|c| of the exact sum, so within the n 2^-24 sum|c|
+    bound; two f32 orders may differ from each other by up to twice
+    that."""
     from embodied_object_detection_tpu_torch.ops import roi_align as ra
     rows, wgt = ra.roi_align_taps([f.shape[:2] for f in levels], boxes.cpu(),
-                                  STRIDES, size, 2, lvl.cpu())
+                                  strides, size, 2, lvl.cpu())
+    rows, wgt = rows.to(device), wgt.to(device)
     total = sum(f.shape[0] * f.shape[1] for f in levels)
     c = grad.shape[-1]
-    g = grad.float().cpu() / 4.0        # s^2 = 4: exact, as __fdiv_rn
-    count = torch.zeros(total).index_add_(0, rows.reshape(-1),
-                                          (wgt.reshape(-1) != 0).float())
-    exact = torch.zeros((total, c), dtype=torch.float64)
-    mag = torch.zeros((total, c), dtype=torch.float64)
+    g = grad.float().to(device) / 4.0   # s^2 = 4: exact, as __fdiv_rn
+    count = torch.zeros(total, device=device).index_add_(
+        0, rows.reshape(-1), (wgt.reshape(-1) != 0).float())
+    exact = torch.zeros((total, c), dtype=torch.float64, device=device)
+    mag = torch.zeros_like(exact)
     for i in range(0, boxes.shape[0], 32):
         prod = (g[i:i + 32, :, None, :, None, None, :] *
                 wgt[i:i + 32, ..., None]).reshape(-1, c).double()
@@ -4846,16 +4901,18 @@ COTRAIN_KINDS = ("box", "image", "caption", "captiontag")
 
 def cotraining_batches(cfg, seed=14):
     """COTRAIN_STEPS batches of each ann type at B = COTRAIN_B, from one
-    `multi_source_train_batches` stream over the four sources."""
+    `multi_source_train_batches` stream over the four sources, the
+    captions embedded by the CLIP text tower on the card
+    (`clip_text_encoder`)."""
     from embodied_object_detection_tpu_torch.data.catalog import (
         MultiDatasetSampler)
     from embodied_object_detection_tpu_torch.engine.coco import (
-        multi_source_train_batches, stand_in_caption_embedding)
+        multi_source_train_batches)
     srcs = cotraining_sources(np.random.RandomState(seed), cfg)
     sampler = MultiDatasetSampler(srcs, [1.0] * 4, seed=seed)
     stream = multi_source_train_batches(
         sampler, srcs, list(COTRAIN_KINDS), cfg, COTRAIN_B,
-        embed_fn=stand_in_caption_embedding, seed=seed)
+        embed_fn=clip_text_encoder("cuda"), seed=seed)
     got = {k: [] for k in COTRAIN_KINDS}
     draws = 0
     while min(len(v) for v in got.values()) < COTRAIN_STEPS:
@@ -5063,8 +5120,6 @@ def cotraining_miniature():
     14b's config (ResNet depths (1, 1, 1, 1), 5 classes, training top-k
     64 -> 16) and three frames with labels, captions (frame 1 without
     one) and a padding row (frame 2)."""
-    from embodied_object_detection_tpu_torch.engine.coco import (
-        stand_in_caption_embedding)
     cfg = miniature(cotrain_config(), 1)
     cfg = cfg.replace(centernet=dataclasses.replace(
         cfg.centernet, pre_nms_topk_train=64, post_nms_topk_train=16))
@@ -5074,7 +5129,7 @@ def cotraining_miniature():
         labels=np.array([[1, 3, 0], [4, 0, 0], [2, 2, 1]], np.int32),
         lv=np.array([[True, True, False], [True, False, False],
                      [True, True, True]]),
-        feats=stand_in_caption_embedding(["a chair", "", "a lamp"]),
+        feats=clip_text_encoder("cpu")(["a chair", "", "a lamp"]),
         weight=np.array([1.0, 0.0, 1.0], np.float32),
         fv=np.array([True, True, False]),
         zs=random_zs(np.random.RandomState(17), cfg))
@@ -5116,44 +5171,31 @@ def grad_rtol(label, name):
 
 
 def hold_cotraining(label, card, cpu):
-    """The card's losses within rtol 1e-4 (+ 1e-7) of the CPU's and its
-    gradients within `grad_rtol` of each tensor's largest on the CPU plus
-    1e-6 of the largest of any tensor (gradients 0 in exact arithmetic);
-    the prop heads' fc2 bias, 0 in exact arithmetic (the softmax over
+    """The prop heads' fc2 bias, 0 in exact arithmetic (the softmax over
     proposals is shift-invariant), held under 1e-3 of its head's weight
-    gradient on both. Returns the largest relative loss error and the
-    largest relative gradient errors of the prop heads and of the other
+    gradient on both devices; every other tensor and the losses as
+    `hold_losses_grads` holds them, at loss rtol 1e-4 and each tensor's
+    `grad_rtol`. Returns the largest relative loss error and the largest
+    relative gradient errors of the prop heads and of the other
     tensors."""
     (l_g, g_g), (l_c, g_c) = card, cpu
-    worst_l, worst_g = 0.0, {"prop": 0.0, "other": 0.0}
-    for k in l_c:
-        err = abs(l_g[k] - l_c[k])
-        if not err <= 1e-4 * abs(l_c[k]) + 1e-7:
-            raise AssertionError(f"{label} {k}: card {l_g[k]} vs CPU "
-                                 f"{l_c[k]}")
-        worst_l = max(worst_l, err / max(abs(l_c[k]), 1e-30))
-    if set(g_g) != set(g_c):
-        raise AssertionError(f"{label}: the devices differ on which "
-                             "parameters get a gradient")
-    floor = 1e-6 * max(float(g.abs().max()) for g in g_c.values())
-    for n, gc in g_c.items():
-        gg = g_g[n]
-        if n.startswith("prop_score") and n.endswith("fc2.bias"):
-            head = float(g_c[n.replace("bias", "weight")].abs().max())
-            if not max(float(gg.abs().max()),
-                       float(gc.abs().max())) <= 1e-3 * head:
-                raise AssertionError(f"{label}: {n} is not 0")
-            continue
-        scale = float(gc.abs().max())
-        err = float((gg - gc).abs().max())
-        rtol = grad_rtol(label, n)
-        if not err <= rtol * scale + floor:
-            raise AssertionError(f"{label}: {n} gradient differs by "
-                                 f"{err:.3e} (largest {scale:.3e}, "
-                                 f"tolerance {rtol:g})")
+    g_g, g_c = dict(g_g), dict(g_c)
+    for n in [n for n in g_c if n.startswith("prop_score")
+              and n.endswith("fc2.bias")]:
+        gc, gg = g_c.pop(n), g_g.pop(n, None)
+        if gg is None:
+            raise AssertionError(f"{label}: the devices differ on which "
+                                 "parameters get a gradient")
+        head = float(g_c[n.replace("bias", "weight")].abs().max())
+        if not max(float(gg.abs().max()),
+                   float(gc.abs().max())) <= 1e-3 * head:
+            raise AssertionError(f"{label}: {n} is not 0")
+    worst_l, rel = hold_losses_grads(label, (l_g, g_g), (l_c, g_c), 1e-4,
+                                     lambda n: grad_rtol(label, n))
+    worst_g = {"prop": 0.0, "other": 0.0}
+    for n, e in rel.items():
         group = "prop" if n.startswith("prop_score") else "other"
-        if scale > floor:
-            worst_g[group] = max(worst_g[group], err / scale)
+        worst_g[group] = max(worst_g[group], e)
     return worst_l, worst_g
 
 
@@ -5341,6 +5383,780 @@ def check_roi_align_cotraining(rng):
              "to the plain tap form as phases 4b and 4f: " + "; ".join(rows))
 
 
+# ------------------------------------------------------------ slice 16
+
+C4_SHAPE = (30, 40)         # the Res5 heads' one level: C4 of 480x640
+C4_STRIDES = (16,)
+RES5_POOL = 14
+# launches a Res5 image: the proposal NMS and the final multiclass NMS,
+# one 14 x 14 pool of the proposals on C4
+RES5_LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 1}
+# a Res5 training frame: the proposal NMS, the pool of the sampled ROIs
+# (512 of the 2000 proposals and the GT) and its backward
+RES5_LAUNCHES_PER_STEP = {"nms": 1, "roi_align": 1, "roi_align_backward": 1}
+RES5_STEPS = 3
+TEXT_MERGES = 300
+LVIS_CATEGORIES = (REPO / "embodied_object_detection_tpu_torch" / "data" /
+                   "metadata" / "lvis_v1_categories.json")
+
+
+def c4_inputs(rng, r, whole=0):
+    """A C4 level [30, 40, 1024] f32 on the card, and [r, 4] boxes of
+    sides 16-900 px that cross the image border, the last `whole` of them
+    over the whole 480x640 image (each corner moved up to 8 px)."""
+    level = torch.from_numpy(rng.randn(*C4_SHAPE, 1024).astype(np.float32)
+                             ).cuda()
+    side = np.exp(rng.uniform(np.log(16), np.log(900), r))
+    aspect = np.exp(rng.uniform(-0.7, 0.7, r))
+    bw, bh = side * np.sqrt(aspect), side / np.sqrt(aspect)
+    cx, cy = rng.uniform(-40, 680, r), rng.uniform(-40, 520, r)
+    boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
+    if whole:
+        boxes[-whole:] = np.array([0.0, 0.0, 640.0, 480.0]) + \
+            rng.uniform(-8, 8, (whole, 4))
+    return [level], torch.from_numpy(boxes.astype(np.float32)).cuda()
+
+
+def check_backward_c4(levels, boxes, lvl, grad):
+    """Kernel 4b on C4 at 14 x 14, 1024 channels, in f32 within
+    contributions x 2^-24 x sum|contribution| of the exact sum of the
+    plain tap form's f32 contributions, and in bf16 within 2^-8 |ref| +
+    (1 + 2^-8) contributions x 2^-24 x sum|contribution| of the exact sum
+    of the bf16 gradient's contributions (phase 4f's bounds, the sums
+    taken on the card in f64). Returns (f32 error, its share of the
+    bound, the bf16 share, the most contributions on one position)."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    shapes = [f.shape[:2] for f in levels]
+    count, exact, mag = exact_contributions(levels, boxes, lvl, grad,
+                                            RES5_POOL, C4_STRIDES, "cuda")
+    bound = count[:, None].double() * 2.0 ** -24 * mag
+    got = ra.roi_align_backward_cuda(grad, shapes, boxes, lvl, C4_STRIDES, 2,
+                                     torch.float32)[0].reshape(exact.shape)
+    err = (got.double() - exact).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"roi_align backward on C4, f32: max err "
+                             f"{float(err.max())} from the exact sum beyond "
+                             f"n 2^-24 sum|c|")
+    g16 = grad.to(torch.bfloat16)
+    got16 = ra.roi_align_backward_cuda(g16, shapes, boxes, lvl, C4_STRIDES,
+                                       2, torch.bfloat16)[0]
+    _, exact16, mag16 = exact_contributions(levels, boxes, lvl, g16,
+                                            RES5_POOL, C4_STRIDES, "cuda")
+    err16 = (got16.reshape(exact16.shape).double() - exact16).abs()
+    tight = 2.0 ** -8 * exact16.abs() + \
+        (1 + 2.0 ** -8) * count[:, None].double() * 2.0 ** -24 * mag16
+    if not bool((err16 <= tight).all()):
+        raise AssertionError(f"roi_align backward on C4, bf16: max err "
+                             f"{float(err16.max())} beyond 2^-8 |ref| + "
+                             f"n 2^-24 sum|c|")
+
+    def share(e, b):
+        return float((e / b.clamp(min=1e-30)).max())
+
+    return (float(err.max()), share(err, bound), share(err16, tight),
+            int(count.max()))
+
+
+def check_roi_align_res5(rng):
+    """Phase 7's Res5 shapes of kernels 4 and 4b: one C4 level (30 x 40 x
+    1024, stride 16), 14 x 14, s = 2, every ROI on level 0. The forward
+    at R = 256 on random boxes and on whole-image boxes (the banded plan)
+    and at R = 512, held as phase 4b holds; the backward at R = 512 as
+    phase 4f holds; each timed beside the plain tap form and its bound.
+    Returns {case: (kernel us, plain us, bound us)}."""
+    from embodied_object_detection_tpu_torch.ops import roi_align as ra
+    out = {}
+    for name, r, whole in (("R = 256 random", 256, 0),
+                           ("R = 256 whole-image", 256, 256),
+                           ("R = 512 random", 512, 0)):
+        levels32, boxes = c4_inputs(rng, r, whole)
+        lvl = torch.zeros((r,), dtype=torch.int32, device="cuda")
+        if not torch.equal(ra.assign_levels(boxes, 4, 4) - 4, lvl):
+            raise AssertionError(f"{name}: a one-level assignment gave a "
+                                 "ROI a level other than 0")
+        report = {}
+        err32, err_v1, err_v4, _, _, stats = check_roi_case(
+            levels32, boxes, RES5_POOL, C4_STRIDES, lvl, report)
+        lo, med, hi, banded = staged_grids(stats)
+        levels = [f.to(torch.bfloat16) for f in levels32]
+        ms = graph_ms(lambda: ra.roi_align_cuda(levels, boxes, lvl,
+                                                C4_STRIDES, RES5_POOL, 2))
+        # the plain form gathers R x 3136 taps x 1024 channels (3.3 GB in
+        # f32 at R = 256): CUDA events around eager calls, not a graph
+        plain_ms = event_ms(lambda: ra._roi_align_taps(
+            levels, boxes, C4_STRIDES, RES5_POOL, 2, lvl), reps=5)
+        out_elems = r * RES5_POOL * RES5_POOL * 1024
+        b_ms, b_by = bound_ms(
+            forward_read_bytes(levels, boxes, lvl, RES5_POOL, C4_STRIDES) +
+            r * 20 + out_elems * 2, out_elems * (4 * 8 + 1))
+        print(f"  roi_align on C4 30x40x1024, {name}, 14x14: f32 vs v1 (CPU) "
+              f"max err {err32:.3e} ({report['bit_equal']:.4f} of the "
+              f"outputs bit-equal), bf16 vs v1 {err_v1:.3e}, vs v4 "
+              f"{err_v4:.3e}; staged grid positions {lo}-{hi} (median "
+              f"{med:g}), {banded} of {r} ROIs in bands; bf16 "
+              f"{ms * 1e3:.1f} us kernel, {plain_ms * 1e3:.1f} us plain v1, "
+              f"bound {b_ms * 1e3:.2f} us ({b_by})")
+        if whole and banded < r:
+            raise AssertionError(f"{name}: {r - banded} whole-image ROIs not "
+                                 "taken in bands")
+        out[name] = (ms * 1e3, plain_ms * 1e3, b_ms * 1e3)
+        if r != 512:
+            continue
+        grad = torch.from_numpy(rng.randn(r, RES5_POOL, RES5_POOL, 1024)
+                                .astype(np.float32)).cuda()
+        err, s32, s16, most = check_backward_c4(levels32, boxes, lvl, grad)
+        g16 = grad.to(torch.bfloat16)
+        shapes = [f.shape[:2] for f in levels]
+        bms = graph_ms(lambda: ra.roi_align_backward_cuda(
+            g16, shapes, boxes, lvl, C4_STRIDES, 2, torch.bfloat16))
+        leaves = [f.detach().clone().requires_grad_(True) for f in levels]
+        bplain = event_ms(lambda: torch.autograd.grad(
+            ra._roi_align_taps(leaves, boxes, C4_STRIDES, RES5_POOL, 2, lvl),
+            leaves, g16.float()), reps=3)
+        scalar, vector = backward_atomics(levels, boxes, lvl, 1024,
+                                          RES5_POOL, C4_STRIDES)
+        bb_ms, bb_by = bound_ms(g16.numel() * 2 + r * 20 +
+                                levels[0].numel() * 2, 2 * float(scalar))
+        print(f"  roi_align backward on C4, R = 512, 14x14x1024: f32 max err "
+              f"{err:.3e} = {s32:.3f} of the bound from the exact sum, bf16 "
+              f"{s16:.3f} (up to {most} contributions on one position); "
+              f"bf16 {bms * 1e3:.1f} us kernel ({vector} float4 atomics, "
+              f"{scalar:.3e} contributions), {bplain * 1e3:.1f} us plain v1 "
+              f"autograd, bound {bb_ms * 1e3:.2f} us ({bb_by})")
+        out["backward R = 512"] = (bms * 1e3, bplain * 1e3, bb_ms * 1e3)
+    phase(7, "roi_align forward / backward at the Res5 shapes (C4 30x40x1024 "
+             "bf16, 14x14, s = 2, one level), held as phases 4b and 4f: " +
+          "; ".join(f"{k} {v[0]:.1f} us (plain {v[1]:.1f}, bound "
+                    f"{v[2]:.2f})" for k, v in out.items()))
+    return out
+
+
+def res5_config():
+    """The default config with the Res5 heads, as `run.py --coco-json`
+    builds the single-frame model."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    cfg = image_only(DetectorConfig())
+    return cfg.replace(roi=dataclasses.replace(cfg.roi, head_type="res5"))
+
+
+def res5_train_inputs(ds, steps, device):
+    """(image [H, W, 3], GroundTruth) of the first `steps` images of a
+    COCO dataset, on `device`."""
+    from embodied_object_detection_tpu_torch.structures import GroundTruth
+    out = []
+    for i in range(steps):
+        it = ds[i]
+        out.append((torch.from_numpy(np.asarray(it["image"], np.float32)
+                                     ).to(device),
+                    GroundTruth(*(torch.from_numpy(np.asarray(it[k])).to(
+                        device) for k in ("gt_boxes", "gt_classes",
+                                          "gt_valid")))))
+    return out
+
+
+def res5_loss_fn(model, zs):
+    """A `make_loss_step` loss over one image: `frame_train` with the
+    sample drawn from a CUDA generator seeded by the step."""
+    def loss_fn(step, image, gt):
+        gen = torch.Generator(device=image.device)
+        gen.manual_seed(step)
+        losses = model.frame_train(image, zs, gt, gen)
+        return sum(losses.values()), losses
+    return loss_fn
+
+
+def run_res5():
+    """Phase 15: the Res5 detector at the default config (480x640,
+    ResNet-50 (3, 4, 6, 3), bf16, 20 classes): `evaluate_coco` over phase
+    14's COCO_IMAGES images under both protocols, then RES5_STEPS
+    `frame_train` + AdamW steps, one image a step. Returns the model,
+    its config and the phase's numbers."""
+    from embodied_object_detection_tpu_torch.engine.coco import evaluate_coco
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.models.res5_detector import (
+        Res5Detector)
+    from embodied_object_detection_tpu_torch.parallel.train_step import (
+        make_loss_step)
+
+    cfg = res5_config()
+    model = build_detector(cfg, seed=0, device="cuda")
+    if not isinstance(model, Res5Detector) or any(
+            ".res5." in n or n.startswith("res5") for n, _ in
+            model.named_parameters()):
+        raise AssertionError("phase 15: build_detector did not build the "
+                             "Res5 variant with the shared stage 4")
+    zs = random_zs(np.random.RandomState(15), cfg)
+    raw, fed, arrays = coco_jsons(np.random.RandomState(14), COCO_IMAGES,
+                                  COCO_SIZES, cfg.roi.num_classes)
+    coco_ds, fed_ds = coco_datasets(cfg, raw, fed, arrays)
+    n = len(coco_ds)
+
+    def run(ds=coco_ds, federated=False):
+        return evaluate_coco(model, cfg, ds, zs, verbose=False,
+                             federated=federated)
+
+    syncs = sync_sites(run)
+    in_frame = {s: k for s, k in syncs.items()
+                if not s.startswith(("coco.py:", "eval.py:"))}
+    if in_frame:
+        raise AssertionError(f"phase 15: synchronising calls inside a frame: "
+                             f"{in_frame}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {k: RES5_LAUNCHES_PER_IMAGE.get(k, 0) * n for k in launches}
+    if launches != expected:
+        raise AssertionError(f"phase 15: launches {launches}, expected "
+                             f"{expected}")
+    _, busy, _ = device_busy(profile_events(run))
+    ms = secs / n * 1e3
+    busy_ms = busy / 1e3 / n
+    fed_res = run(fed_ds, federated=True)
+    for name, r in (("COCO", res), ("federated", fed_res)):
+        if not r or not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"phase 15 {name}: AP {r}")
+    print(f"  evaluate_coco with the Res5 heads: COCO AP {res['AP']:.4f}, "
+          f"federated AP {fed_res['AP']:.4f} (random weights: no quality); "
+          f"{n} images: {ms:.2f} ms/image (host clock, data and scoring "
+          f"included), device busy {busy_ms:.2f} ms/image (profiled run), "
+          f"busy share {busy_ms / ms:.3f}; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches an image "
+          f"{ {k: v // n for k, v in launches.items() if v} }; "
+          f"{sum(syncs.values())} host syncs in {-(-n // 8)} batches, none "
+          f"inside a frame")
+
+    zs_d = torch.from_numpy(zs).cuda()
+    inputs = res5_train_inputs(coco_ds, RES5_STEPS + 1, "cuda")
+    init_state, step_fn = make_loss_step(model, cfg, res5_loss_fn(model,
+                                                                  zs_d))
+    state = init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    step_ms, values, l4 = [], [], []
+    for image, gt in inputs[:RES5_STEPS]:
+        t0 = time.perf_counter()
+        state, losses = step_fn(state, image, gt)
+        values.append(dict(zip(losses, torch.stack(
+            list(losses.values())).float().tolist())))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        l4.append(float(model.backbone.layer4_0.conv1.weight.grad.abs().sum()))
+    train_launches = read_counters()
+    train_peak = torch.cuda.max_memory_allocated()
+    expected = {k: RES5_LAUNCHES_PER_STEP.get(k, 0) * RES5_STEPS
+                for k in train_launches}
+    if train_launches != expected:
+        raise AssertionError(f"phase 15 training: launches {train_launches}, "
+                             f"expected {expected}")
+    if not all(math.isfinite(x) for v in values for x in v.values()) or \
+            not all(x > 0 for x in l4):
+        raise AssertionError(f"phase 15 training: losses {values}, "
+                             f"|grad layer4_0.conv1| {l4}")
+    train_syncs = sync_sites(lambda: step_fn(state, *inputs[RES5_STEPS]))
+    print(f"  {RES5_STEPS} frame_train + AdamW steps (one image a step, 512 "
+          f"sampled ROIs): total losses "
+          f"{[round(v['total_loss'], 4) for v in values]}; "
+          f"|grad layer4_0.conv1| {[f'{x:.3e}' for x in l4]} (stage 4 "
+          f"trains only through the ROI path); ms a step "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)} (host clock to the "
+          f"loss read); peak {train_peak / 2 ** 30:.2f} GiB; launches a step "
+          f"{ {k: v // RES5_STEPS for k, v in train_launches.items() if v} }"
+          f"; {sum(train_syncs.values())} synchronising calls in a step")
+    for site, k in train_syncs.items():
+        print(f"    {k} x {site}")
+    phase(15, f"Res5 at 480x640 bf16: evaluate_coco {ms:.2f} ms/image, busy "
+              f"share {busy_ms / ms:.3f}, launches an image "
+              f"{RES5_LAUNCHES_PER_IMAGE}, no host sync inside a frame, AP "
+              f"finite under both protocols; {RES5_STEPS} training steps "
+              f"{np.mean(step_ms[1:]):.1f} ms/step (steps 2-3), launches a "
+              f"step {RES5_LAUNCHES_PER_STEP}, losses finite, stage 4 "
+              f"trained through kernel 4b")
+    return model, cfg
+
+
+def hold_losses_grads(label, card, cpu, loss_rtol, grad_rtol=1e-4):
+    """The card's losses within `loss_rtol` (+ 1e-7) of the CPU's, and its
+    gradients within `grad_rtol` (a number, or a function of the tensor's
+    name) of each tensor's largest on the CPU plus 1e-6 of the largest of
+    any tensor (gradients 0 in exact arithmetic). Returns the largest
+    relative loss error and each tensor's relative gradient error (tensors
+    above that floor)."""
+    (l_g, g_g), (l_c, g_c) = card, cpu
+    rtol_of = grad_rtol if callable(grad_rtol) else lambda n: grad_rtol
+    worst_l, rel = 0.0, {}
+    for k in l_c:
+        err = abs(l_g[k] - l_c[k])
+        if not err <= loss_rtol * abs(l_c[k]) + 1e-7:
+            raise AssertionError(f"{label} {k}: card {l_g[k]} vs CPU "
+                                 f"{l_c[k]}")
+        worst_l = max(worst_l, err / max(abs(l_c[k]), 1e-30))
+    if set(g_g) != set(g_c):
+        raise AssertionError(f"{label}: the devices differ on which "
+                             "parameters get a gradient")
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_c.values())
+    for n, gc in g_c.items():
+        scale = float(gc.abs().max())
+        err = float((g_g[n].cpu() - gc.cpu()).abs().max())
+        rtol = rtol_of(n)
+        if not err <= rtol * scale + floor:
+            raise AssertionError(f"{label}: {n} gradient differs by "
+                                 f"{err:.3e} (largest {scale:.3e}, "
+                                 f"tolerance {rtol:g})")
+        if scale > floor:
+            rel[n] = err / scale
+    return worst_l, rel
+
+
+def hold_detections(label, card, cpu):
+    """One frame's detections on the card against the CPU's: the same
+    count, scores ranked within rtol 1e-4 (atol 1e-5), classes and boxes
+    as `check_boxes_classes` holds them (phases 6 and 14c). Returns the
+    count."""
+    def host(d):
+        v = d.valid.cpu().numpy()
+        return (d.boxes.cpu().numpy()[v], d.scores.cpu().numpy()[v],
+                d.classes.cpu().numpy()[v])
+    g, c = host(card), host(cpu)
+    if len(g[1]) != len(c[1]):
+        raise AssertionError(f"{label}: {len(g[1])} vs {len(c[1])} "
+                             "detections")
+    np.testing.assert_allclose(np.sort(g[1])[::-1], np.sort(c[1])[::-1],
+                               rtol=1e-4, atol=1e-5)
+    check_boxes_classes(g, c, label)
+    return len(c[1])
+
+
+def check_res5_against_cpu():
+    """Phase 15's miniature: the Res5 detector at 64x96 f32 (ResNet depths
+    (1, 1, 1, 1), 5 classes, training top-k 64 -> 16, so 16 proposals and
+    the GT stay under the sample size and no draw enters) from the same
+    seeded weights on the card and on the CPU: `frame_step`'s detections
+    (`hold_detections`), `frame_train`'s losses within rtol 1e-5 and its
+    gradients within 1e-4 of each tensor's largest."""
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.structures import GroundTruth
+    cfg = miniature(res5_config(), 1)
+    cfg = cfg.replace(centernet=dataclasses.replace(
+        cfg.centernet, pre_nms_topk_train=64, post_nms_topk_train=16))
+    rng = np.random.RandomState(20)
+    image = rng.randint(0, 255, (64, 96, 3)).astype(np.float32)
+    zs = random_zs(rng, cfg)
+    g = cfg.input.max_gt_boxes
+    boxes = np.zeros((g, 4), np.float32)
+    boxes[:3] = [[16, 16, 90, 60], [4, 30, 40, 62], [50, 2, 70, 20]]
+    gt = (boxes, np.array([2, 0, 4] + [0] * (g - 3), np.int32),
+          np.arange(g) < 3)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_detector(cfg, seed=3, device=dev)
+        x = [torch.from_numpy(a).to(dev) for a in (image, zs)]
+        dets = model.frame_step(*x).detections
+        runs[dev] = (dets, weak_grads(model, lambda: (
+            lambda losses: (sum(losses.values()), losses))(
+            model.frame_train(*x, GroundTruth(*(torch.from_numpy(a).to(dev)
+                                                for a in gt))))))
+    n = hold_detections("phase 15 miniature", runs["cuda"][0],
+                        runs["cpu"][0])
+    wl, rel = hold_losses_grads("phase 15 miniature", runs["cuda"][1],
+                                runs["cpu"][1], 1e-5)
+    wg = max(rel.values())
+    print(f"  Res5 at 64x96 f32: {n} detections held; losses within "
+          f"{wl:.2e} relative (tolerance 1e-5), gradients within {wg:.2e} "
+          f"of each tensor's largest (tolerance 1e-4)")
+    phase(15, f"the Res5 miniature (64x96 f32) on the card matches the CPU: "
+              f"{n} detections, losses within {wl:.2e}, gradients within "
+              f"{wg:.2e}")
+
+
+def swin_config(cfg=None, rate=0.2):
+    """`cfg` (default: the default config) with the Swin-B trunk at
+    stochastic-depth rate `rate`."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    cfg = cfg or DetectorConfig()
+    return cfg.replace(backbone=dataclasses.replace(
+        cfg.backbone, name="swin_b", drop_path_rate=rate))
+
+
+def run_swin_eval(profile_dir):
+    """Phase 15b's eval frame: the default config with the Swin-B trunk
+    (480x640, 8192 x 512 memory, bf16), a chunk of T_FRAMES frames through
+    `make_episode_runner` with no host sync, as phase 5 runs it."""
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector, frame_inputs, make_episode_runner)
+    from embodied_object_detection_tpu_torch.structures import MemoryState
+
+    cfg = swin_config()
+    model = build_detector(cfg, seed=0, device="cuda")
+    h, w = cfg.input.height, cfg.input.width
+    cells, dim = cfg.memory.max_cells, cfg.memory.memory_dim
+    rng = np.random.RandomState(21)
+    images = rng.randint(0, 255, (T_FRAMES, h, w, 3)).astype(np.float32)
+    projs = rng.randint(0, cells, (T_FRAMES, h, w)).astype(np.int32)
+    frames = frame_inputs(images, projs,
+                          np.array([True] + [False] * (T_FRAMES - 1)), cells,
+                          "cuda")
+    zs = torch.from_numpy(random_zs(rng, cfg)).cuda()
+    init = MemoryState.zeros(cells, dim, "cuda")
+    run = make_episode_runner(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, counted_s, launches = counted_run(
+        "swin_b", lambda: run(frames, zs, init), LAUNCHES_PER_FRAME,
+        T_FRAMES)
+    peak = torch.cuda.max_memory_allocated()
+    check_episode("swin_b", out, (T_FRAMES,), cfg)
+    chunk_s = [counted_s]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(frames, zs, out.memory)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    per_frame = [s / T_FRAMES * 1e3 for s in chunk_s]
+    events = profile_events(lambda: run(frames, zs, init))
+    ops, busy, _ = device_busy(events)
+    busy_ms = busy / 1e3 / T_FRAMES
+    groups, _ = device_op_split(events, T_FRAMES)
+    t0 = time.perf_counter()
+    model.backbone_raw(frames.image)
+    torch.cuda.synchronize()
+    trunk_ms = (time.perf_counter() - t0) / T_FRAMES * 1e3
+    print(f"  Swin-B eval frame: ms a frame over chunks of {T_FRAMES}: "
+          f"{', '.join(f'{x:.2f}' for x in per_frame)}; device busy "
+          f"{busy_ms:.2f} ms a frame ({ops // T_FRAMES} device ops a frame; "
+          f"busy share {busy_ms / min(per_frame):.3f} of the best chunk), by "
+          f"group {', '.join(f'{k} {v:.2f}' for k, v in groups.items())} "
+          f"ms; batched trunk alone {trunk_ms:.2f} ms a frame; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB; detections a frame "
+          f"{out.detections.valid.sum(dim=1).tolist()}")
+    if profile_dir:
+        profile_run(lambda: run(frames, zs, init), Path(profile_dir),
+                    "swin_chunk", T_FRAMES, "frame")
+    return min(per_frame), busy_ms, peak
+
+
+def check_swin_remat(zs):
+    """Phase 15b's stochastic-depth check: one flagship step's batch loss
+    at B = TRAIN_FRAMES, 480x640, in f32 (so that the two runs part only
+    in the f32 atomics' order), with `backbone.train_remat` off and on and
+    the coins drawn from one CUDA generator seed: the losses within rtol
+    1e-6 and the gradients within 1e-4 of each tensor's largest. Returns
+    (dropped coins of the draw, coins drawn, loss error, gradient
+    error)."""
+    from embodied_object_detection_tpu_torch.data.synthetic import (
+        synthetic_batch_fn)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.parallel.train_step import (
+        batch_losses, batch_to_device)
+    cfg = swin_config(train_config()).replace(compute_dtype="float32")
+    batch = batch_to_device(synthetic_batch_fn(cfg, TRAIN_FRAMES)(
+        0, np.random.RandomState(22), 1), "cuda")
+    zs_d = torch.from_numpy(zs).cuda()
+    runs = []
+    dropped = drawn = None
+    for remat in (False, True):
+        c = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                     train_remat=remat))
+        model = build_detector(c, seed=0, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(16)
+        total, losses = batch_losses(model, c, batch, zs_d, 0, generator=gen)
+        total.backward()
+        runs.append(({k: float(v.detach()) for k, v in losses.items()},
+                     {n: p.grad for n, p in model.named_parameters()
+                      if p.grad is not None}))
+        if dropped is None:
+            gen.manual_seed(16)
+            coins = model.drop_path_coins(TRAIN_FRAMES, gen)
+            dropped, drawn = int((~coins).sum()), coins.numel()
+        del model
+    wl, rel = hold_losses_grads("phase 15b remat", runs[1], runs[0], 1e-6)
+    wg = max(rel.values())
+    return dropped, drawn, wl, wg
+
+
+def run_swin_cotraining():
+    """Phase 15b's co-training steps with the Swin-B trunk: one caption
+    step and one max_size image-label step at B = COTRAIN_B from phase
+    14b's stream (captions embedded by the text tower), launches counted,
+    the coins drawn from each step's generator."""
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.parallel import train_step as ts
+    cfg = swin_config(cotrain_config())
+    batches, _ = cotraining_batches(cfg)
+    model = build_detector(cfg, seed=0, device="cuda")
+    zs = torch.from_numpy(random_zs(np.random.RandomState(15), cfg)).cuda()
+    out = {}
+    for label, kind, fn in (
+            ("caption", "caption", ts.make_caption_train_step(model, cfg)),
+            ("image max_size", "image", ts.make_image_label_train_step(
+                model, cfg, "max_size"))):
+        _, step = ts.make_loss_step(
+            model, cfg, lambda st, *x, fn=fn: fn(*x, step=st))
+        state = ts.TrainState(model=model, optimizer=ts.build_optimizer(
+            model, cfg.solver), step=0)
+        x = cotraining_inputs(kind, batches[kind][0], zs)
+        step(state, *x)                       # warm-up
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        state, losses = step(state, *x)
+        total = float(losses["total_loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counters()
+        expected = {k: COTRAIN_LAUNCHES[kind].get(k, 0) for k in launches}
+        if launches != expected or not math.isfinite(total):
+            raise AssertionError(f"phase 15b {label}: launches {launches} "
+                                 f"(expected {expected}), loss {total}")
+        syncs = sync_sites(lambda: step(state, *x))
+        out[label] = (ms, sum(syncs.values()))
+        print(f"  Swin-B {label} step at B = {COTRAIN_B}: loss {total:.4f}, "
+              f"{ms:.1f} ms (host clock to the loss read), launches "
+              f"{ {k: v for k, v in launches.items() if v} }, "
+              f"{sum(syncs.values())} synchronising calls")
+    return out
+
+
+def check_swin_against_cpu():
+    """Phase 15b's miniature: the Swin-B detector (full width, JAX's
+    hard-coded trunk) at 64x96 f32, drop_path_rate 0, implicit memory,
+    from the same seeded weights on the card and on the CPU: `frame_step`'s
+    detections (`hold_detections`), `frame_train`'s losses (rtol 1e-4) and
+    gradients (1e-4 of each tensor's largest), training top-k 64 -> 16."""
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.structures import GroundTruth
+    cfg = miniature(swin_config(rate=0.0), 1)
+    cfg = cfg.replace(centernet=dataclasses.replace(
+        cfg.centernet, pre_nms_topk_train=64, post_nms_topk_train=16))
+    rng = np.random.RandomState(23)
+    h, w = 64, 96
+    arrays = dict(
+        image=rng.randint(0, 255, (h, w, 3)).astype(np.float32),
+        zs=random_zs(rng, cfg),
+        memf=rng.randn(64, 512).astype(np.float32),
+        memo=rng.randint(0, 3, 64).astype(np.float32),
+        proj=rng.randint(0, 64, (h, w)).astype(np.int32),
+        outlier=np.zeros((h, w), bool))
+    g = cfg.input.max_gt_boxes
+    boxes = np.zeros((g, 4), np.float32)
+    boxes[:2] = [[8, 8, 40, 40], [30, 10, 90, 60]]
+    gt = (boxes, np.array([1, 3] + [0] * (g - 2), np.int32), np.arange(g) < 2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_detector(cfg, seed=3, device=dev)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        dets = model.frame_step(t["image"], t["zs"], t["memf"], t["memo"],
+                                t["proj"], t["outlier"]).detections
+        runs[dev] = (dets, weak_grads(model, lambda: (
+            lambda losses: (sum(losses.values()), losses))(
+            model.frame_train(t["image"], t["zs"], t["memf"], t["memo"],
+                              t["proj"], GroundTruth(*(
+                                  torch.from_numpy(a).to(dev) for a in gt))))))
+    n = hold_detections("phase 15b miniature", runs["cuda"][0],
+                        runs["cpu"][0])
+    wl, rel = hold_losses_grads("phase 15b miniature", runs["cuda"][1],
+                                runs["cpu"][1], 1e-4)
+    return n, wl, max(rel.values())
+
+
+def run_swin(profile_dir):
+    """Phase 15b: the Swin-B trunk's eval frame, TRAIN_STEPS flagship steps
+    at B = TRAIN_FRAMES with drop_path_rate 0.2 under train_remat off and
+    on (`train_steps`, as phase 8), the remat check, one caption and one
+    image-label step, and the miniature against the CPU."""
+    ms, busy_ms, peak = run_swin_eval(profile_dir)
+    zs = random_zs(np.random.RandomState(8), train_config())
+    summary = []
+    for remat in (False, True):
+        cfg = swin_config(train_config())
+        cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                       train_remat=remat))
+        label = f"swin_b train_remat={remat}"
+        _, step_ms, step_peak, syncs = train_steps(cfg, zs,
+                                                   LAUNCHES_PER_STEP, label)
+        summary.append(f"{label} {np.mean(step_ms[1:]):.1f} ms/step, peak "
+                       f"{step_peak / 2 ** 30:.2f} GiB, "
+                       f"{sum(syncs.values())} syncs a step")
+    dropped, drawn, wl, wg = check_swin_remat(zs)
+    print(f"  train_remat off and on from one coin seed ({dropped} of "
+          f"{drawn} coins dropped), f32: losses within {wl:.2e} "
+          f"(tolerance 1e-6), gradients within {wg:.2e} of each tensor's "
+          f"largest (tolerance 1e-4)")
+    co = run_swin_cotraining()
+    n, cl, cg = check_swin_against_cpu()
+    print(f"  Swin-B at 64x96 f32, rate 0: {n} detections held; losses "
+          f"within {cl:.2e} (tolerance 1e-4), gradients within {cg:.2e} "
+          f"(tolerance 1e-4)")
+    phase("15b", f"Swin-B at 480x640 bf16: eval frame {ms:.2f} ms/frame (best "
+                 f"chunk), busy {busy_ms:.2f} ms/frame, peak "
+                 f"{peak / 2 ** 30:.2f} GiB, launches a frame "
+                 f"{LAUNCHES_PER_FRAME}, no host sync; " + "; ".join(summary) +
+          f"; remat equal within {wg:.2e} ({dropped} coins dropped); " +
+          "; ".join(f"{k} {v[0]:.1f} ms, {v[1]} syncs" for k, v in co.items())
+          + f"; the 64x96 miniature matches the CPU ({n} detections)")
+
+
+def lvis_names():
+    with open(LVIS_CATEGORIES) as f:
+        return [c["name"] for c in json.load(f)]
+
+
+def write_merges(path, texts, n=TEXT_MERGES):
+    """A gzip BPE merges table in CLIP's format (a version line, then one
+    "a b" pair a line): the `n` most frequent pair merges learned from
+    the words of `texts`, ties broken by the pair's order."""
+    import gzip
+    words = collections.Counter()
+    for t in texts:
+        for w in re.findall(r"[a-z]+", t.lower()):
+            words[tuple(w[:-1]) + (w[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(n):
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        merged = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    return path
+
+
+def synthetic_clip_state_dict(seed=15, width=512, layers=12):
+    """An openai CLIP text tower's state dict at CLIP-B's shapes (width
+    512, 12 layers; the real weights are not in the repository), seeded,
+    with CLIP's init scales and norms and biases off their identities."""
+    rng = np.random.RandomState(seed)
+
+    def normal(*shape, std):
+        return (rng.randn(*shape) * std).astype(np.float32)
+
+    w = width
+    sd = {"token_embedding.weight": normal(49408, w, std=0.02),
+          "positional_embedding": normal(77, w, std=0.01),
+          "text_projection": normal(w, w, std=w ** -0.5),
+          "ln_final.weight": 1 + normal(w, std=0.1),
+          "ln_final.bias": normal(w, std=0.1)}
+    proj_std = (2 * layers) ** -0.5 * w ** -0.5
+    for i in range(layers):
+        pre = f"transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{pre}.{ln}.weight"] = 1 + normal(w, std=0.1)
+            sd[f"{pre}.{ln}.bias"] = normal(w, std=0.1)
+        sd[f"{pre}.attn.in_proj_weight"] = normal(3 * w, w, std=w ** -0.5)
+        sd[f"{pre}.attn.in_proj_bias"] = normal(3 * w, std=0.02)
+        sd[f"{pre}.attn.out_proj.weight"] = normal(w, w, std=proj_std)
+        sd[f"{pre}.attn.out_proj.bias"] = normal(w, std=0.02)
+        sd[f"{pre}.mlp.c_fc.weight"] = normal(4 * w, w, std=(2 * w) ** -0.5)
+        sd[f"{pre}.mlp.c_fc.bias"] = normal(4 * w, std=0.02)
+        sd[f"{pre}.mlp.c_proj.weight"] = normal(w, 4 * w, std=proj_std)
+        sd[f"{pre}.mlp.c_proj.bias"] = normal(w, std=0.02)
+    return sd
+
+
+def clip_text_encoder(device):
+    """The CLIP text tower on `device` from `synthetic_clip_state_dict`
+    and a merges table learned from the LVIS names, written to a
+    temporary directory that is removed once the tokenizer has read
+    it."""
+    import tempfile
+    from embodied_object_detection_tpu_torch.models.text_encoder import (
+        CLIPTextEncoder, convert_clip_text_weights)
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe = write_merges(Path(tmp) / "merges.txt.gz",
+                           [n.replace("_", " ") for n in lvis_names()])
+        return CLIPTextEncoder(
+            convert_clip_text_weights(synthetic_clip_state_dict()),
+            str(bpe), device=device)
+
+
+def run_text_tower(res5_model, res5_cfg):
+    """Phase 15c: the full-width CLIP text tower (512 wide, 12 layers, 8
+    heads) from `clip_text_encoder`: the 1203 LVIS names with prompt "a "
+    through `get_clip_embeddings` on the card and on the CPU, within 1e-5
+    of each other and of unit norm; then `build_zs_weight` of the card's
+    embeddings into one Res5 image (1203 classes)."""
+    from embodied_object_detection_tpu_torch.demo.predictor import (
+        build_zs_weight, get_clip_embeddings)
+    names = lvis_names()
+    card = clip_text_encoder("cuda")
+    texts = ["a " + n.replace("_", " ") for n in names]
+    t0 = time.perf_counter()
+    tokens = card.tokenizer.tokenize(texts)
+    tok_ms = (time.perf_counter() - t0) * 1e3
+    card.embed_tokens(tokens[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.embed_tokens(tokens)
+    torch.cuda.synchronize()
+    tower_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    emb = get_clip_embeddings(names, text_encoder=card)
+    vocab_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = get_clip_embeddings(names, text_encoder=clip_text_encoder("cpu"))
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(emb - want).max())
+    norm_err = float(np.abs(np.linalg.norm(emb, axis=-1) - 1).max())
+    if emb.shape != (len(names), 512) or not err <= 1e-5 or \
+            not norm_err <= 1e-5:
+        raise AssertionError(f"phase 15c: embeddings {emb.shape}, card vs "
+                             f"CPU {err}, norms off by {norm_err}")
+    zs = torch.from_numpy(build_zs_weight(emb)).cuda()
+    rng = np.random.RandomState(24)
+    image = torch.from_numpy(rng.randint(0, 255, (480, 640, 3)).astype(
+        np.float32)).cuda()
+    zero_counters()
+    dets = res5_model.frame_step(image, zs).detections
+    launches = read_counters()
+    n = int(dets.valid.sum())
+    classes = sorted(set(dets.classes[dets.valid].tolist()))
+    if launches != {k: RES5_LAUNCHES_PER_IMAGE.get(k, 0) for k in launches} \
+            or not bool(torch.isfinite(dets.scores).all()) or \
+            (classes and classes[-1] >= len(names)):
+        raise AssertionError(f"phase 15c: launches {launches}, {n} "
+                             f"detections of classes {classes[-5:]}")
+    print(f"  text tower on {len(names)} LVIS names: tokenizing "
+          f"{tok_ms:.1f} ms (host), the tower {tower_ms:.1f} ms on the card "
+          f"({tokens.shape[1]} positions, 256 names a forward), "
+          f"get_clip_embeddings {vocab_ms:.1f} ms end to end; the CPU's "
+          f"{cpu_s:.1f} s; card vs CPU max err {err:.2e}, norms within "
+          f"{norm_err:.2e} of 1; one Res5 image on the {len(names)}-class "
+          f"zs_weight: {n} detections of {len(classes)} classes, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    phase("15c", f"CLIP text tower (512 wide, 12 layers, 8 heads, synthesised "
+                 f"weights and merges): {len(names)} LVIS names in "
+                 f"{vocab_ms:.1f} ms on the card, within {err:.2e} of the "
+                 f"CPU; build_zs_weight into a Res5 image ({n} detections); "
+                 f"phase 14b's caption and captiontag batches were embedded "
+                 f"by this tower")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -5396,11 +6212,17 @@ def main() -> int:
     run_coco_cli()
     run_cotraining()
     check_cotraining_against_cpu()
+    res5_model, res5_cfg = run_res5()
+    check_res5_against_cpu()
+    run_swin(args.profile)
+    run_text_tower(res5_model, res5_cfg)
+    del res5_model
     kernels = time_kernels(rng, launches, train_launches, errs,
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \
         time_read_backward(read_cases, read_launches, read_errs)
     check_roi_align_cotraining(np.random.RandomState(15))
+    check_roi_align_res5(np.random.RandomState(16))
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

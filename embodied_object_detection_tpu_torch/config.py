@@ -8,10 +8,12 @@ the `--opts` overrides (`apply_opts`) and the four golden presets
 (`parity_config`). Names and defaults are the same, so a config built for
 one package can be rebuilt field by field for the other. The JAX
 package's fields that no path reads (its pinned knobs, `input.format` and
-`memory.memory_feature_weight`) are no fields here: `apply_opts` accepts
-each only at its default (`PINNED_OPTS`). Mesh settings come with the
-port of the sharded paths; `check_slice_config` raises on settings the
-port does not run and on an unknown episode protocol.
+`memory.memory_feature_weight`, `backbone.in_strides` and
+`backbone.in_channels`) are no fields here: `apply_opts` accepts each
+only at its default (`PINNED_OPTS`).
+Mesh settings come with the port of the sharded paths;
+`check_slice_config` raises on settings the port does not run and on an
+unknown episode protocol.
 """
 
 from __future__ import annotations
@@ -24,10 +26,16 @@ from typing import Any, Dict, Sequence, Tuple
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    """ResNet-50 (timm `resnet50_in21k` layout) + FPN p3-p7."""
+    """The trunk (ResNet-50 in timm's `resnet50_in21k` layout, or Swin-B)
+    + FPN p3-p7."""
+    # "resnet50", or "swin_b" (Swin-B at its published widths; `depths`
+    # are the ResNet's)
+    name: str = "resnet50"
     depths: Tuple[int, ...] = (3, 4, 6, 3)
-    in_channels: Tuple[int, ...] = (512, 1024, 2048)
     fpn_channels: int = 256
+    # swin_b only: stochastic depth, linearly decayed over the blocks to
+    # this rate at the last; train mode only
+    drop_path_rate: float = 0.2
     # recompute trunk + FPN in the backward of a training step
     # (torch.utils.checkpoint) instead of keeping their activations
     train_remat: bool = False
@@ -73,7 +81,8 @@ class CenterNetConfig:
 @dataclass(frozen=True)
 class ROIHeadsConfig:
     """3-stage cascade heads + zero-shot classifier + class-agnostic masks."""
-    # "cascade"; "res5" (the single-frame variant, item 12c) raises
+    # "cascade"; "res5": the single-frame Res5 heads
+    # (`models/res5_detector.py`)
     head_type: str = "cascade"
     strides: Tuple[int, ...] = (8, 16, 32)
     num_classes: int = 20
@@ -229,10 +238,6 @@ def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
     silently running another path, and on a `memory.test_type` that is no
     protocol at all (a typo must not select another one)."""
     validate_config(cfg)
-    if cfg.roi.head_type != "cascade":
-        raise NotImplementedError(
-            f"roi.head_type={cfg.roi.head_type!r}: the port has the cascade "
-            "heads; the res5 variant comes with ROADMAP queue 1 item 12c")
     if cfg.roi.align_impl not in ("v1", "v4"):
         raise NotImplementedError(
             f"roi.align_impl={cfg.roi.align_impl!r}: the port has v1 and v4")
@@ -270,6 +275,12 @@ PINNED_OPTS: Dict[str, Tuple[Any, str]] = {
     "backbone.freeze_at": (
         0, "freezing is solver-level: solver.freeze_backbone/"
         "unfrozen_layers"),
+    "backbone.in_strides": (
+        (8, 16, 32), "the FPN reads the trunk's stride-8/16/32 stages; no "
+        "path reads the field"),
+    "backbone.in_channels": (
+        (512, 1024, 2048), "the FPN laterals take the trunk's own channels "
+        "(ResNet-50 or Swin-B); no path reads the field"),
     "roi.add_feature_to_prop": (
         True, "roi_heads always appends the pooled feature to proposals"),
     "roi.cls_agnostic_bbox_reg": (

@@ -16,10 +16,14 @@ that tree, so the conversion is per leaf:
                                           -> Linear weight [C,
                                              heads*head_dim]
   attention bias [heads, head_dim]        -> flat bias
+  `embedding` table [vocab, width]        -> nn.Embedding weight (the
+                                             CLIP text tower's
+                                             token_embedding)
   FrozenBN weight / bias / running_mean / running_var, other biases, the
-  CenterNet `Scale` scalars (modules `scale{i}`) and the Deformable-DETR's
-  plain parameters (`level_embed{i}`, `query_embed`) are copied as they
-  are.
+  CenterNet `Scale` scalars (modules `scale{i}`), the Deformable-DETR's
+  plain parameters (`level_embed{i}`, `query_embed`), the Swin trunk's
+  `relative_position_bias_table`s and the text tower's
+  `positional_embedding` and `text_projection` are copied as they are.
 
 The box head's fc1 needs no permutation: the port flattens the pooled
 [R, 7, 7, C] map in the same HWC order as the JAX package.
@@ -49,6 +53,8 @@ def _leaf(path: tuple, value: np.ndarray):
         raise ValueError(f"unexpected kernel rank {value.ndim} at {path}")
     if leaf == "bias" and value.ndim == 2:
         return mods + ["bias"], value.reshape(-1)
+    if leaf == "embedding":
+        return mods + ["weight"], value
     if leaf == "deconv_kernel":
         return mods + ["deconv", "weight"], value.transpose(2, 3, 0, 1)
     if leaf == "deconv_bias":
@@ -60,8 +66,9 @@ def _leaf(path: tuple, value: np.ndarray):
 
 def load_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX params (nested dicts of numpy arrays, with or without the
-    top-level "params" key) -> state dict for `EmbodiedDetector` or a
-    Deformable-DETR module; load it
+    top-level "params" key) -> state dict for `EmbodiedDetector`,
+    `Res5Detector`, a Swin trunk, the CLIP text tower or a Deformable-DETR
+    module; load it
     with `model.load_state_dict(sd)`, which casts to each parameter's
     dtype and device."""
     if "params" in params:

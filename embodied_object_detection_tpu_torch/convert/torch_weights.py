@@ -20,9 +20,10 @@ map, which detectron2 flattens c-major and the port flattens HWC
 (`convert/from_jax.py`), so its (out, C*7*7) weight becomes (out, 7*7*C).
 The classifier's `zs_weight` buffers are a runtime input, returned apart.
 A checkpoint trained with WITH_SOFTMAX_PROP carries each stage's
-`prop_score` head, mapped to the port's `prop_score{k}`. Swin backbone
-keys come with the port's Swin backbone (ROADMAP queue 1 item 12c); until
-then they are unmapped.
+`prop_score` head, mapped to the port's `prop_score{k}`. A Swin-B trunk's
+keys (`backbone.bottom_up.{patch_embed, layers.{s}.blocks.{b}, layers.{s}.
+downsample, norm{s}}`, the vendored swintransformer.py's names) map to
+`models/swin.py`'s modules.
 """
 
 from __future__ import annotations
@@ -62,6 +63,26 @@ _RULES = [
      "backbone.layer{0}_{1}.downsample_conv.weight", None),
     (rf"backbone\.bottom_up\.base\.layer(\d)\.(\d+)\.downsample\.1\.{_BN}",
      "backbone.layer{0}_{1}.downsample_bn.{2}", None),
+    # Swin-B trunk (backbone.bottom_up.*, swintransformer.py naming)
+    (rf"backbone\.bottom_up\.patch_embed\.proj\.{_WB}",
+     "backbone.patch_embed.{0}", None),
+    (rf"backbone\.bottom_up\.patch_embed\.norm\.{_WB}",
+     "backbone.patch_norm.{0}", None),
+    (rf"backbone\.bottom_up\.layers\.(\d)\.blocks\.(\d+)\.norm(\d)\.{_WB}",
+     "backbone.stage{0}_block{1}.norm{2}.{3}", None),
+    (rf"backbone\.bottom_up\.layers\.(\d)\.blocks\.(\d+)\.attn\."
+     rf"(qkv|proj)\.{_WB}", "backbone.stage{0}_block{1}.attn.{2}.{3}", None),
+    (r"backbone\.bottom_up\.layers\.(\d)\.blocks\.(\d+)\.attn\."
+     r"relative_position_bias_table",
+     "backbone.stage{0}_block{1}.attn.relative_position_bias_table", None),
+    (rf"backbone\.bottom_up\.layers\.(\d)\.blocks\.(\d+)\.mlp\.fc(\d)\."
+     rf"{_WB}", "backbone.stage{0}_block{1}.mlp_fc{2}.{3}", None),
+    (rf"backbone\.bottom_up\.layers\.(\d)\.downsample\.norm\.{_WB}",
+     "backbone.merge_norm{0}.{1}", None),
+    (r"backbone\.bottom_up\.layers\.(\d)\.downsample\.reduction\.weight",
+     "backbone.merge_reduction{0}.weight", None),
+    (rf"backbone\.bottom_up\.norm(\d)\.{_WB}", "backbone.out_norm{0}.{1}",
+     None),
     # FPN (detectron2: fpn_lateral{3,4,5} / fpn_output{3,4,5})
     (rf"backbone\.fpn_lateral3\.{_WB}", "fpn.lateral1.{0}", None),
     (rf"backbone\.fpn_lateral4\.{_WB}", "fpn.lateral2.{0}", None),

@@ -62,8 +62,9 @@ def resolve_vocabulary(vocabulary: str, custom_vocabulary: str = "",
                        ) -> Tuple[np.ndarray, List[str]]:
     """-> (zs_weight [D, C+1], class names) (ref: demo.py --vocabulary,
     predict.py:66-82). A vocabulary without a classifier .npy (custom,
-    in21k) needs the CLIP text encoder, which raises
-    `NotImplementedError` (ROADMAP queue 1 item 12c)."""
+    in21k) is embedded by the CLIP text encoder
+    (`predictor.get_clip_embeddings`), which raises `FileNotFoundError`
+    without the CLIP weights and merge table."""
     from ..data.catalog import builtin_class_names
     from .predictor import (build_zs_weight, get_clip_embeddings,
                             load_zs_weight_npy)

@@ -37,14 +37,15 @@ FRAME_KERNELS = ("segment_sum", "memory_read", "nms", "roi_align",
 
 def get_clip_embeddings(vocabulary: List[str], prompt: str = "a ",
                         text_encoder=None) -> np.ndarray:
-    """Embed an arbitrary vocabulary with the CLIP text encoder (ref:
-    predictor.py:61-65). The port has no text encoder and the repository
-    no CLIP weights yet: raises."""
-    raise NotImplementedError(
-        "get_clip_embeddings needs the CLIP text encoder, which is not "
-        "ported yet (ROADMAP queue 1 item 12c), and CLIP weights, which the "
-        "repository does not hold; use a built-in vocabulary or pass a "
-        "zs_weight")
+    """[C, 512] f32 CLIP embeddings of `prompt` + each name (underscores
+    as spaces; ref: predictor.py:61-65) from `text_encoder`, by default
+    `models/text_encoder.py:load_default_text_encoder()`, which raises
+    `FileNotFoundError` without the CLIP weights and merge table."""
+    if text_encoder is None:
+        from ..models.text_encoder import load_default_text_encoder
+        text_encoder = load_default_text_encoder()
+    texts = [prompt + x.replace("_", " ") for x in vocabulary]
+    return np.asarray(text_encoder(texts), np.float32)
 
 
 def build_zs_weight(class_embeddings: np.ndarray,

@@ -13,18 +13,17 @@ no memory, and its write is skipped.
     batch
   * `caption_items_to_batch`, `multi_source_train_batches`: Detic's
     co-training matrix, one ann_type a batch (box, image labels, caption,
-    caption + tags), ragged labels padded; `stand_in_caption_embedding`
-    embeds captions for synthetic runs
-  * `evaluate_coco`: `frame_step` over the dataset on the model's device,
-    the trunk batched over `batch` images, one host copy of a batch's
-    detections, COCO or LVIS-federated bbox AP on the original image
-    sizes
+    caption + tags), ragged labels padded, the captions embedded by the
+    caller's text encoder (`models/text_encoder.py:CLIPTextEncoder`)
+  * `evaluate_coco`: `frame_step` over the dataset on the model's device
+    (the cascade `EmbodiedDetector` or the `Res5Detector`), the trunk
+    batched over `batch` images, one host copy of a batch's detections,
+    COCO or LVIS-federated bbox AP on the original image sizes
 """
 
 from __future__ import annotations
 
 import time
-import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,6 +34,7 @@ from ..data.catalog import CocoDetectionDataset, MultiDatasetSampler
 from ..data.prefetch import prefetch_iterator
 from ..evaluation.coco_eval import COCOEvaluator
 from ..models.detector import EmbodiedDetector
+from ..models.res5_detector import Res5Detector
 from ..parallel.train_step import TrainBatch
 from ..structures import Detections, MemoryState
 from .eval import scored_detections
@@ -156,20 +156,8 @@ def multi_source_train_batches(sampler: MultiDatasetSampler,
             yield "image", (images, labels, lv)
 
 
-def stand_in_caption_embedding(captions, dim: int = 512) -> np.ndarray:
-    """[B, dim] f32: a seeded stand-in for the CLIP text tower (its
-    weights are not in the repository; ROADMAP queue 1 item 12c): one
-    unit vector a caption, as the zero-shot classifier's normalised CLIP
-    columns, drawn from a RandomState seeded by the caption's CRC-32, so
-    a caption embeds alike in every process."""
-    out = np.zeros((len(captions), dim), np.float32)
-    for i, c in enumerate(captions):
-        v = np.random.RandomState(zlib.crc32(c.encode())).randn(dim)
-        out[i] = v / np.linalg.norm(v)
-    return out
-
-
-def evaluate_coco(model: EmbodiedDetector, cfg: DetectorConfig,
+def evaluate_coco(model: "EmbodiedDetector | Res5Detector",
+                  cfg: DetectorConfig,
                   dataset: CocoDetectionDataset, zs_weight: np.ndarray,
                   batch: int = 8, max_images: Optional[int] = None,
                   verbose: bool = True, federated: bool = False,
@@ -180,28 +168,37 @@ def evaluate_coco(model: EmbodiedDetector, cfg: DetectorConfig,
     (detector_postprocess). `federated=True` selects the LVIS protocol
     (federated category drop, 300 detections an image; the items'
     neg_category_ids are the verified-absent classes), else COCO's (100).
-    The trunk runs batched over `batch` images, each frame's rest in turn
-    with no host sync; one copy brings a batch's detections to the host.
-    Returns the evaluator's AP dict. No memory is carried from image to
-    image, so the model is built with `memory.write_memory=False`, as
-    `run.py --coco-json` builds it."""
-    if not isinstance(model, EmbodiedDetector) or \
-            cfg.roi.head_type != "cascade":
-        raise NotImplementedError(
-            "evaluate_coco runs the cascade EmbodiedDetector; the Res5 "
-            "single-frame variant comes with ROADMAP queue 1 item 12c")
-    if model.cfg.memory.write_memory:
+    The trunk runs batched over `batch` images (the Res5 variant's to
+    C4), each frame's rest in turn with no host sync; one copy brings a
+    batch's detections to the host. Returns the evaluator's AP dict. No
+    memory is carried from image to image, so the embodied model is built
+    with `memory.write_memory=False`, as `run.py --coco-json` builds it."""
+    res5 = isinstance(model, Res5Detector)
+    if not res5 and model.cfg.memory.write_memory:
         raise ValueError("evaluate_coco: the single-frame path writes no "
                          "memory; build the model with "
                          "memory.write_memory=False")
     device = next(model.parameters()).device
     on_card = device.type == "cuda"
     zs = torch.from_numpy(np.asarray(zs_weight, np.float32)).to(device)
-    h, w = cfg.input.height, cfg.input.width
-    memory = MemoryState.zeros(cfg.memory.max_cells, cfg.memory.memory_dim,
-                               device)
-    proj = torch.zeros((h, w), dtype=torch.int32, device=device)
-    outlier = torch.zeros((h, w), dtype=torch.bool, device=device)
+    if res5:
+        def detect(images):
+            c4 = model.backbone_c4(images)
+            return [model.frame_step(images[k], zs, c4=c4[k]).detections
+                    for k in range(images.shape[0])]
+    else:
+        h, w = cfg.input.height, cfg.input.width
+        memory = MemoryState.zeros(cfg.memory.max_cells,
+                                   cfg.memory.memory_dim, device)
+        proj = torch.zeros((h, w), dtype=torch.int32, device=device)
+        outlier = torch.zeros((h, w), dtype=torch.bool, device=device)
+
+        def detect(images):
+            feats = model.backbone_raw(images)
+            return [model.frame_step(
+                images[k], zs, memory.features, memory.obs_count, proj,
+                outlier, backbone_feats=tuple(f[k] for f in feats)
+            ).detections for k in range(images.shape[0])]
 
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     ev = COCOEvaluator(list(range(cfg.roi.num_classes)),
@@ -219,11 +216,7 @@ def evaluate_coco(model: EmbodiedDetector, cfg: DetectorConfig,
             host = host.pin_memory()
         images = host.to(device, non_blocking=on_card).float()
         with torch.no_grad():
-            feats = model.backbone_raw(images)
-            dets = [model.frame_step(
-                images[k], zs, memory.features, memory.obs_count, proj,
-                outlier, backbone_feats=tuple(f[k] for f in feats)
-            ).detections for k in range(len(items))]
+            dets = detect(images)
         boxes, scores, classes, valid = scored_detections(
             Detections(*(torch.stack(x) for x in zip(*dets))), 1)
         for k, it in enumerate(items):

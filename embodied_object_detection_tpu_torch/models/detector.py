@@ -5,19 +5,24 @@ Counterpart of the JAX package's `models/detector.py`. One frame is
 
     image x zs_weight x memory -> detections x memory update
 
-(ResNet-50 -> memory-fused FPN -> CenterNet proposals -> 3-stage cascade
--> multiclass NMS -> write-row selection -> mask head -> mask paste ->
-memory write). `make_episode_runner` drives it over a chunk of frames with
-the memory carried, under every episode protocol (test_type "default",
-"episodic", "longterm") and with the external GT-memory tables;
+(ResNet-50 or Swin-B -> memory-fused FPN -> CenterNet proposals ->
+3-stage cascade -> multiclass NMS -> write-row selection -> mask head ->
+mask paste -> memory write). `make_episode_runner` drives it over a
+chunk of frames with the memory carried, under every episode protocol
+(test_type "default", "episodic", "longterm") and with the external
+GT-memory tables;
 `make_pipelined_episode_runner` splits the chunk into its trunk and its
 frame loop, and `make_batched_episode_runner` runs B scene streams, each
 with its own memory. `frame_train` gives the losses of one frame that
 reads a precomputed memory; `frame_train_weak` the image-label losses of
 Detic's weak co-training and `image_box_embedding` the caption region's
-CLIP embedding, both without memory. Public tensors keep the JAX package's
-channels-last layout. Everything runs on the card unless the caller asks
-for the CPU.
+CLIP embedding, both without memory; `frame_step_debug` the per-stage
+boxes, region embeddings and scores of one frame. A Swin-B trunk runs
+its stochastic depth in the training paths, on coins drawn before the
+trunk (`drop_path_coins`). `build_detector` builds the Res5 variant
+(`models/res5_detector.py`) for `roi.head_type="res5"`. Public tensors
+keep the JAX package's channels-last layout. Everything runs on the card
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .centernet import CenterNetHead, decode_proposals
 from .fpn import RecurrentFPN
 from .layers import DTYPES
 from .resnet import ResNet50
+from .swin import SwinTransformer
 from .losses import (add_gt_to_proposals, add_more_pos, centernet_normalize,
                      centernet_raw_losses, centernet_targets,
                      fed_loss_class_weight, fed_uniform, match_proposals,
@@ -109,16 +115,24 @@ def recompute(fn, *args):
 
 
 class EmbodiedDetector(nn.Module):
-    """ResNet-50 + FPN (memory fusion) + CenterNet + cascade heads."""
+    """ResNet-50 or Swin-B + FPN (memory fusion) + CenterNet + cascade
+    heads."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
         check_slice_config(cfg)
         self.cfg = cfg
         dtype = DTYPES[cfg.compute_dtype]
-        self.backbone = ResNet50(cfg.backbone.depths, dtype=dtype)
+        if cfg.backbone.name == "swin_b":
+            # Swin-B at its published widths, as the JAX package builds it
+            self.backbone = SwinTransformer(
+                drop_path_rate=cfg.backbone.drop_path_rate, dtype=dtype)
+        else:
+            self.backbone = ResNet50(cfg.backbone.depths, dtype=dtype)
+        # the laterals take the trunk's own channels (the JAX package's
+        # convs infer them)
         self.fpn = RecurrentFPN(
-            cfg.backbone.in_channels, cfg.backbone.fpn_channels,
+            self.backbone.out_channels, cfg.backbone.fpn_channels,
             cfg.memory.memory_dim, cfg.memory.feat_fusion,
             cfg.memory.map_feature_weight, dtype=dtype,
             with_memory=cfg.memory.reads_memory())
@@ -137,10 +151,36 @@ class EmbodiedDetector(nn.Module):
         self.register_buffer("pixel_std", torch.tensor(
             cfg.input.pixel_std, dtype=torch.float32), persistent=False)
 
-    def backbone_raw(self, image: torch.Tensor):
+    def backbone_raw(self, image: torch.Tensor, train: bool = False,
+                     coins: Optional[torch.Tensor] = None):
         """Normalise + trunk: [H, W, 3] or [T, H, W, 3] -> (C3, C4, C5).
-        Memory-independent, so a chunk's frames run it as one batch."""
-        return self.backbone((image - self.pixel_mean) / self.pixel_std)
+        Memory-independent, so a chunk's frames run it as one batch.
+        `train` turns on a Swin trunk's stochastic depth on `coins` ([T,
+        blocks, 2] or [blocks, 2], from `drop_path_coins`); the ResNet-50 trunk
+        (FrozenBN) has no train mode."""
+        x = (image - self.pixel_mean) / self.pixel_std
+        if not isinstance(self.backbone, SwinTransformer):
+            return self.backbone(x)
+        if train and coins is None and self.drops_paths:
+            raise ValueError("a Swin trunk in train mode needs its "
+                             "stochastic-depth coins: drop_path_coins()")
+        return self.backbone(x, coins if train else None)
+
+    @property
+    def drops_paths(self) -> bool:
+        """Whether the trunk has stochastic depth: a Swin trunk at a rate
+        above 0."""
+        return isinstance(self.backbone, SwinTransformer) and \
+            max(self.backbone.rates, default=0.0) > 0.0
+
+    def drop_path_coins(self, batch: int, generator: torch.Generator
+                        ) -> Optional[torch.Tensor]:
+        """[batch, blocks, 2] bool stochastic-depth coins of a Swin trunk
+        (a block's attention and MLP branches), drawn from `generator` on its device; None, drawing nothing, when
+        the trunk has no stochastic depth."""
+        if not self.drops_paths:
+            return None
+        return self.backbone.draw_coins(batch, generator)
 
     @torch.no_grad()
     def frame_step(self, image: torch.Tensor, zs_weight: torch.Tensor,
@@ -202,7 +242,8 @@ class EmbodiedDetector(nn.Module):
                     defer_centernet_norm: bool = False,
                     ego: Optional[torch.Tensor] = None,
                     backbone_feats: Optional[tuple] = None,
-                    fed_freq_weight: Optional[torch.Tensor] = None) -> dict:
+                    fed_freq_weight: Optional[torch.Tensor] = None,
+                    coins: Optional[torch.Tensor] = None) -> dict:
         """One frame's training losses; the frame reads a precomputed
         memory and writes none. `ego` is the frame's memory image when the
         caller read it for a batch, `backbone_feats` (C3, C4, C5) when it
@@ -214,18 +255,21 @@ class EmbodiedDetector(nn.Module):
         frame's device when None). `fed_freq_weight` [C] (the class
         frequencies of `roi.cat_freq_path`) turns on `roi.use_fed_loss`
         and `roi.ignore_zero_cats`; without it both are off, as in the
-        JAX package. `backbone.train_remat` recomputes the trunk (when
-        run here) and the FPN in the backward, `roi.train_stage_remat`
-        each stage's pool, box head and predictor; no recomputed region
-        draws random numbers."""
+        JAX package. The trunk, when run here, runs in train mode: a Swin
+        trunk's stochastic depth takes `coins` [blocks, 2]
+        (`drop_path_coins`). `backbone.train_remat` recomputes the trunk
+        (when run here) and the FPN in the backward,
+        `roi.train_stage_remat` each stage's pool, box head and predictor;
+        no recomputed region draws random numbers."""
         cfg = self.cfg
         h, w = cfg.input.height, cfg.input.width
         if ego is None and cfg.memory.reads_memory():
             ego = memory_read(mem_features, mem_obs, proj_indices)
         remat = cfg.backbone.train_remat
         if backbone_feats is None:
-            backbone_feats = recompute(self.backbone_raw, image) if remat \
-                else self.backbone_raw(image)
+            backbone_feats = recompute(self.backbone_raw, image, True,
+                                       coins) if remat \
+                else self.backbone_raw(image, True, coins)
         p3, p4, p5, p6, p7 = recompute(self.fpn, *backbone_feats, ego) \
             if remat else self.fpn(*backbone_feats, ego)
         feats = (p3, p4, p5, p6, p7)
@@ -321,7 +365,9 @@ class EmbodiedDetector(nn.Module):
                          ws_num_props: int = 128,
                          image_box_size: float = 1.0,
                          return_image_box_embedding: bool = False,
-                         backbone_feats: Optional[tuple] = None):
+                         backbone_feats: Optional[tuple] = None,
+                         train: bool = False,
+                         coins: Optional[torch.Tensor] = None):
         """Image-label weak supervision of one frame (ref: CustomRCNN with
         ann_type 'image', custom_rcnn.py:188-278; get_top_proposals and
         _add_image_box, detic_roi_heads.py:239, 271-295): the frame reads
@@ -334,14 +380,15 @@ class EmbodiedDetector(nn.Module):
         labels_valid [L]. With `return_image_box_embedding`, also the
         whole-image box's stage-0 CLIP feature (the caption region, from
         this one forward). `backbone_feats` (C3, C4, C5) skips the trunk
-        when it ran batched."""
+        when it ran batched; else `train` runs a Swin trunk's stochastic
+        depth on `coins`, as the co-training steps do."""
         cfg = self.cfg
         h, w = cfg.input.height, cfg.input.width
         if variant in ("wsddn", "wsod") and not cfg.roi.with_softmax_prop:
             raise ValueError(f"variant {variant!r} needs "
                              "roi.with_softmax_prop=True")
         if backbone_feats is None:
-            backbone_feats = self.backbone_raw(image)
+            backbone_feats = self.backbone_raw(image, train, coins)
         p3, p4, p5, p6, p7 = self.fpn(*backbone_feats, None)
         # the proposals take no gradient (the JAX package stops it)
         with torch.no_grad():
@@ -387,17 +434,20 @@ class EmbodiedDetector(nn.Module):
 
     def image_box_embedding(self, image: torch.Tensor,
                             image_box_size: float = 1.0,
-                            backbone_feats: Optional[tuple] = None
+                            backbone_feats: Optional[tuple] = None,
+                            train: bool = False,
+                            coins: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
         """The whole-image box's CLIP-space embedding [zs_dim], the
         caption region (ref: the caption path's score[-1:],
         detic_fast_rcnn.py:477): one box pooled on the frame's FPN
         (no memory), stage 0's box head and its zero-shot projection
-        against a [zs_dim, 1] zero classifier."""
+        against a [zs_dim, 1] zero classifier. `train` and `coins` as in
+        `frame_train_weak`."""
         cfg = self.cfg
         h, w = cfg.input.height, cfg.input.width
         if backbone_feats is None:
-            backbone_feats = self.backbone_raw(image)
+            backbone_feats = self.backbone_raw(image, train, coins)
         p3, p4, p5, _, _ = self.fpn(*backbone_feats, None)
         box = image_box(h, w, image_box_size, p3.device)
         pooled = self.roi_heads._pool((p3, p4, p5), box,
@@ -406,6 +456,50 @@ class EmbodiedDetector(nn.Module):
         zs_dummy = torch.zeros((cfg.roi.zs_weight_dim, 1), device=p3.device)
         _, _, feat = self.roi_heads.box_predictor0(x, zs_dummy)
         return feat[0]
+
+    @torch.no_grad()
+    def frame_step_debug(self, image: torch.Tensor, zs_weight: torch.Tensor,
+                         mem_features: torch.Tensor, mem_obs: torch.Tensor,
+                         proj_indices: torch.Tensor,
+                         outlier_mask: torch.Tensor) -> dict:
+        """One frame's inference with its intermediates, for diffing
+        against another implementation (ref: the prompt_learning dump,
+        zero_shot_classifier.py:91-100, detic_roi_heads.py:182-212): the
+        proposals ("proposal_boxes", "objectness", "proposal_valid"), the
+        final detections ("final_boxes", "final_scores",
+        "final_classes", "final_valid") and each cascade stage's input
+        boxes, region embeddings and sigmoid scores
+        ("stage{k}_boxes", "stage{k}_region_embeddings",
+        "stage{k}_scores"). No memory write runs."""
+        cfg = self.cfg
+        h, w = cfg.input.height, cfg.input.width
+        ego = memory_read(mem_features, mem_obs, proj_indices) \
+            if cfg.memory.reads_memory() else None
+        p3, p4, p5, p6, p7 = self.fpn(*self.backbone_raw(image), ego)
+        agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
+        proposals = decode_proposals(agn_hms, regs, cfg.centernet)
+        cascade = self.roi_heads.run_cascade((p3, p4, p5), proposals,
+                                             zs_weight, (h, w))
+        scores = cascade.mean_scores
+        if cfg.roi.mult_proposal_score:
+            scores = torch.sqrt(scores * proposals.scores[:, None].clamp(
+                min=0.0))
+        detections, _ = multiclass_nms(
+            cascade.final_boxes, scores, proposals.valid,
+            cfg.roi.score_thresh_test, cfg.roi.nms_thresh_test,
+            cfg.roi.detections_per_image)
+        out = {"proposal_boxes": proposals.boxes,
+               "objectness": proposals.scores,
+               "proposal_valid": proposals.valid,
+               "final_boxes": detections.boxes,
+               "final_scores": detections.scores,
+               "final_classes": detections.classes,
+               "final_valid": detections.valid}
+        for k, st in enumerate(cascade.stages):
+            out[f"stage{k}_boxes"] = st.boxes
+            out[f"stage{k}_region_embeddings"] = st.clip_feats
+            out[f"stage{k}_scores"] = torch.sigmoid(st.logits)
+        return out
 
     def _memory_write(self, proposals: Detections, cascade: CascadeOutputs,
                       features, proj_indices: torch.Tensor,
@@ -707,13 +801,19 @@ def init_weights(model: EmbodiedDetector, seed: int) -> None:
     regression, c2_xavier box FCs, PyTorch's default Linear init for the
     zero-shot projection, normal(0.001) delta and mask predictors,
     c2_msra mask convs; the softmax-prop heads c2_xavier fc1 and
-    normal(0.001) fc2. Norm statistics and scales stay at identity."""
+    normal(0.001) fc2; a Swin trunk's fan-in normal linears and patch
+    embedding and normal(0.02) relative position bias tables. Norm
+    statistics and scales stay at identity."""
     gen = torch.Generator().manual_seed(seed)
     prior = model.cfg.centernet.prior_prob
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if "_gn" in name or name.startswith("centernet.scale"):
+            if "_gn" in name or name.startswith("centernet.scale") or \
+                    ("norm" in name and leaf == "weight" and p.dim() == 1):
+                continue
+            if leaf == "relative_position_bias_table":
+                _fill(p, gen, "normal", std=0.02)
                 continue
             if leaf == "bias":
                 if name == "centernet.agn_hm.bias":
@@ -752,14 +852,22 @@ def build_detector(cfg: Optional[DetectorConfig] = None, seed: int = 0,
                    device: "torch.device | str" = "cuda"
                    ) -> EmbodiedDetector:
     """The model on `device` with random weights from `seed` (load real
-    ones with `convert.from_jax.load_jax_params`). TF32 is switched off
-    for the process: the f32 sites (memory-merge projections, heatmap and
-    regression convs, zero-shot logits, mask deconv and predictor, mask
-    paste, the write's feature product) must run in full f32."""
+    ones with `convert.from_jax.load_jax_params`): the embodied detector,
+    or the Res5 variant (`models/res5_detector.py`) for
+    `roi.head_type="res5"`, as the JAX package dispatches. TF32 is
+    switched off for the process: the f32 sites (memory-merge
+    projections, heatmap and regression convs, zero-shot logits, mask
+    deconv and predictor, mask paste, the write's feature product, the
+    Swin attention logits) must run in full f32."""
     cfg = cfg or DetectorConfig()
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if cfg.roi.head_type == "res5":
+        from .res5_detector import Res5Detector
+        model = Res5Detector(cfg)
+        init_weights(model, seed)
+        return model.to(device).eval()
     model = EmbodiedDetector(cfg)
     init_weights(model, seed)
     return model.to(device).eval()

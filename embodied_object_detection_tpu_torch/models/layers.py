@@ -67,9 +67,10 @@ def conv(x: torch.Tensor, layer: nn.Conv2d,
 
 def linear(x: torch.Tensor, layer: nn.Linear,
            dtype: torch.dtype) -> torch.Tensor:
-    """Apply `layer` in `dtype`, its weight and bias cast to it."""
-    return F.linear(x.to(dtype), as_dtype(layer.weight, dtype),
-                    as_dtype(layer.bias, dtype))
+    """Apply `layer` in `dtype`, its weight and bias (if any) cast to
+    it."""
+    bias = None if layer.bias is None else as_dtype(layer.bias, dtype)
+    return F.linear(x.to(dtype), as_dtype(layer.weight, dtype), bias)
 
 
 class GroupNorm(nn.Module):
@@ -95,3 +96,25 @@ class GroupNorm(nn.Module):
         xn = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + self.eps)
         return torch.addcmul(self.bias[:, None, None], xn.view(x.shape),
                              self.weight[:, None, None])
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis in f32, in the JAX package's arithmetic
+    (its `nn.LayerNorm`, epsilon 1e-6 by default): the mean and the
+    mean of the squares in one pass, var = max(0, E[x^2] - E[x]^2), then
+    (x - mean) * (rsqrt(var + eps) * weight) + bias. `F.layer_norm`
+    computes the variance in two passes and rounds otherwise. Returns f32
+    whatever the input's type."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+        mul = torch.rsqrt(var.clamp(min=0.0) + self.eps) * self.weight
+        return (xf - mean) * mul + self.bias

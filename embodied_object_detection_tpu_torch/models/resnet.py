@@ -73,6 +73,7 @@ class ResNet50(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.out_channels = (512, 1024, 2048)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBN(64)
         self.stages = []

@@ -11,8 +11,13 @@ as loss functions over a batch, as the JAX package's do:
 `make_caption_train_step`, `make_captiontag_train_step` and
 `make_image_label_train_step` (image-label batches; the JAX package
 calls `frame_train_weak` frame by frame there); `make_loss_step` turns
-any of them into an optimizer step. Data parallelism over
-`torch.distributed` is not ported yet.
+any of them into an optimizer step. Every step runs the trunk in train
+mode: a Swin trunk's stochastic-depth coins are drawn, [B, blocks, 2]
+at once, before the trunk runs, from the step's `torch.Generator` (by
+default one seeded from the step, as the JAX package folds the step into
+its keys), so that a recomputed trunk sees the same coins; a ResNet-50
+trunk draws nothing. Data parallelism over `torch.distributed` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ from ..ops.memory_ops import memory_read_batched
 from ..structures import GroundTruth
 
 SAMPLE_SEED = 17
+# the stochastic-depth streams, after the JAX package's keys: key 7 folded
+# into the flagship step's frame keys, PRNGKey(23) for the caption step
+# and PRNGKey(29) for the weak steps, each with the step
+DROP_PATH_SEEDS = {"box": 7, "caption": 23, "weak": 29}
 
 
 class TrainBatch(NamedTuple):
@@ -67,22 +76,51 @@ def sample_generators(step: int, batch: int,
     return gens
 
 
+def drop_path_generator(kind: str, step: int,
+                        device: torch.device) -> torch.Generator:
+    """The stochastic-depth generator of a step of `kind` ("box",
+    "caption" or "weak"), seeded from (the kind's seed, step)."""
+    seed = np.random.SeedSequence([DROP_PATH_SEEDS[kind], step]
+                                  ).generate_state(1, dtype=np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def train_coins(model: EmbodiedDetector, batch: int, kind: str, step: int,
+                generator: Optional[torch.Generator],
+                device: torch.device) -> Optional[torch.Tensor]:
+    """[batch, blocks, 2] coins of a Swin trunk from `generator` (else
+    `drop_path_generator(kind, step)`); None, drawing nothing, for a
+    trunk without stochastic depth."""
+    if not model.drops_paths:
+        return None
+    if generator is None:
+        generator = drop_path_generator(kind, step, device)
+    return model.drop_path_coins(batch, generator)
+
+
 def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
                  batch: TrainBatch, zs_weight: torch.Tensor,
-                 step: int, fed_freq_weight: Optional[torch.Tensor] = None
+                 step: int, fed_freq_weight: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, losses) of a batch: per-frame losses weighted and divided
     by the normaliser, the CenterNet terms by the batch-global mean
     positive and regression-location counts. `fed_freq_weight` [C] turns
     on the federated loss and the zero-category mask where the config
     asks for them; `backbone.train_remat` recomputes the batched trunk in
-    the backward."""
+    the backward. `generator` draws a Swin trunk's coins (default: seeded
+    from the step)."""
     n = batch.image.shape[0]
     egos = memory_read_batched(batch.mem_features, batch.mem_obs,
                                batch.proj_indices) \
         if cfg.memory.reads_memory() else None
-    feats = recompute(model.backbone_raw, batch.image) \
-        if cfg.backbone.train_remat else model.backbone_raw(batch.image)
+    coins = train_coins(model, n, "box", step, generator,
+                        batch.image.device)
+    feats = recompute(model.backbone_raw, batch.image, True, coins) \
+        if cfg.backbone.train_remat else \
+        model.backbone_raw(batch.image, True, coins)
     gens = sample_generators(step, n, batch.image.device)
     per_frame = []
     for b in range(n):
@@ -157,10 +195,11 @@ def batch_to_device(batch, device: "torch.device | str",
 def _weak_frames(model: EmbodiedDetector, images: torch.Tensor,
                  zs_weight: torch.Tensor, labels: torch.Tensor,
                  labels_valid: torch.Tensor, variant: str,
-                 image_loss_weight: float):
+                 image_loss_weight: float, coins: Optional[torch.Tensor]):
     """(per-frame summed tag losses [B], stage-0 image-box embeddings [B,
-    zs_dim]): `frame_train_weak` on each frame over one batched trunk."""
-    feats = model.backbone_raw(images)
+    zs_dim]): `frame_train_weak` on each frame over one batched trunk in
+    train mode."""
+    feats = model.backbone_raw(images, True, coins)
     tags, embs = [], []
     for b in range(images.shape[0]):
         losses, emb = model.frame_train_weak(
@@ -193,12 +232,16 @@ def make_caption_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
     the batch, the images without a caption (weight 0) no negatives.
     Returns loss_fn(images [B, H, W, 3], caption_features [B, D], weight
     [B]) -> (total, {"caption_loss": total}), normalised by the full B
-    (detic_fast_rcnn.py:418-422). The JAX package's drop-path keys feed
-    the swin trunk's stochastic depth (item 12c); the ResNet-50 trunk
-    has none, so this step takes no generator."""
+    (detic_fast_rcnn.py:418-422). The trunk runs in train mode, as the
+    reference trains every co-training forward: a Swin trunk's coins come
+    from `generator` (default: seeded from `step` and the JAX package's
+    caption key, 23); a ResNet-50 trunk draws nothing."""
 
-    def loss_fn(images, caption_features, weight):
-        feats = model.backbone_raw(images)
+    def loss_fn(images, caption_features, weight, step: int = 0,
+                generator: Optional[torch.Generator] = None):
+        coins = train_coins(model, images.shape[0], "caption", step,
+                            generator, images.device)
+        feats = model.backbone_raw(images, True, coins)
         embs = torch.stack([
             model.image_box_embedding(images[b],
                                       backbone_feats=tuple(f[b]
@@ -226,18 +269,22 @@ def make_captiontag_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
     {"caption_loss", "tag_loss"}). `weight` is 0 for an image without a
     caption, which still takes the tag loss; `frame_valid` [B] (all True
     when None) marks padding rows, which take neither. Both losses are
-    normalised by the real frames' count. No generator, as in
-    `make_caption_train_step`."""
+    normalised by the real frames' count. A Swin trunk's coins come from
+    `generator` (default: seeded from `step` and the JAX package's
+    captiontag key, 29)."""
 
     def loss_fn(images, caption_features, weight, labels, labels_valid,
-                zs_weight, frame_valid=None):
+                zs_weight, frame_valid=None, step: int = 0,
+                generator: Optional[torch.Generator] = None):
         b = images.shape[0]
         if frame_valid is None:
             frame_valid = torch.ones((b,), dtype=torch.bool,
                                      device=images.device)
         fv = frame_valid.float()
+        coins = train_coins(model, b, "weak", step, generator, images.device)
         tags, embs = _weak_frames(model, images, zs_weight, labels,
-                                  labels_valid, variant, image_loss_weight)
+                                  labels_valid, variant, image_loss_weight,
+                                  coins)
         cap = _caption_losses(embs, caption_features,
                               cfg.roi.norm_temperature, neg_cap_weight,
                               (weight > 0) & frame_valid)
@@ -259,11 +306,17 @@ def make_image_label_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
     one batched trunk, summed over the frames with a valid label and
     divided by B (the reference's image_label_losses divide by the batch,
     detic_fast_rcnn.py:418-422). Returns loss_fn(images, labels,
-    labels_valid, zs_weight) -> (total, {"image_loss": total})."""
+    labels_valid, zs_weight, step=0, generator=None) -> (total,
+    {"image_loss": total}); a Swin trunk's coins as in
+    `make_captiontag_train_step`."""
 
-    def loss_fn(images, labels, labels_valid, zs_weight):
+    def loss_fn(images, labels, labels_valid, zs_weight, step: int = 0,
+                generator: Optional[torch.Generator] = None):
+        coins = train_coins(model, images.shape[0], "weak", step, generator,
+                            images.device)
         tags, _ = _weak_frames(model, images, zs_weight, labels,
-                               labels_valid, variant, image_loss_weight)
+                               labels_valid, variant, image_loss_weight,
+                               coins)
         total = (tags * labels_valid.any(dim=1).float()).sum() / \
             images.shape[0]
         return total, {"image_loss": total}
@@ -276,8 +329,9 @@ def make_loss_step(model: EmbodiedDetector, cfg: DetectorConfig, loss_fn,
     """(init_state, step_fn) of the optimizer step over any loss function
     loss_fn(step, *inputs) -> (total, losses): init_state() -> TrainState
     at step 0; step_fn(state, *inputs) -> (state, losses), the losses
-    detached, with "total_loss". A co-training loss function, which
-    takes no step, goes in as `lambda step, *x: fn(*x)`."""
+    detached, with "total_loss". A co-training loss function goes in as
+    `lambda step, *x: fn(*x, step=step)`, so that its stochastic depth
+    (a Swin trunk's) is drawn anew each step."""
 
     def init_state() -> TrainState:
         nonlocal optimizer

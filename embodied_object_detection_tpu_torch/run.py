@@ -17,12 +17,16 @@ Detic/train_net.py): the detector with `memory_type` image_only (unless
 `--coco-json-test`, evaluates; with `--eval-only` it evaluates the json
 (`engine/coco.py:evaluate_coco`); `--lvis-eval` remaps the category ids
 to a contiguous 0-based space and scores under the LVIS-federated
-protocol. Everything runs on the card (`--device cuda`, the default)
-unless `--device cpu` is given; without a card, `cuda` raises.
+protocol. `roi.head_type=res5` (the single-frame Res5 variant) runs only
+with `--coco-json`, and there only to evaluate: it trains from Python
+(`models/res5_detector.py:Res5Detector.frame_train`), and either other
+use exits, as the JAX CLI does. Everything runs on the card (`--device
+cuda`, the default) unless `--device cpu` is given; without a card,
+`cuda` raises.
 
 Paths the port does not have yet raise `NotImplementedError` naming their
 ROADMAP queue 1 item: `--eval-streams` above 1 and `--coordinator` (item
-10), `roi.head_type=res5` (item 12c).
+10).
 
 Examples:
   # eval, implicit object memory, on the card:
@@ -399,6 +403,12 @@ def coco_main(args, model, cfg, zs_weight):
 
     if args.eval_only:
         return evaluate(args.coco_json)
+    if cfg.roi.head_type == "res5":
+        raise SystemExit(
+            "CLI training drives the cascade trainer "
+            "(parallel/train_step.py); the Res5 variant trains per frame "
+            "through Res5Detector.frame_train (its single-frame "
+            "normalisation): use it from Python")
     from .engine.train import train
     ds = coco_ds(args.coco_json)
     max_cid = max(ds.entry.id_map.values(), default=0)
@@ -480,6 +490,11 @@ def main(argv=None):
         print(f"output dir (auto): {cfg.output_dir}")
     os.makedirs(cfg.output_dir, exist_ok=True)
 
+    if cfg.roi.head_type == "res5" and not args.coco_json:
+        raise SystemExit(
+            "roi.head_type=res5 is a single-frame variant (no memory "
+            "inputs, ref res5_roi_heads.py): use it with --coco-json "
+            "single-frame evaluation, not the episode protocol")
     model = build_detector(cfg, seed=0, device=args.device)
     if args.weights:
         load_weights(model, cfg, args.weights)

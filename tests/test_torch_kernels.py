@@ -810,3 +810,39 @@ def test_cotraining_losses_card_vs_cpu(label):
         build_detector(cfg, seed=3, device=dev), cfg, x, label)
         for dev in ("cuda", "cpu")]
     chip_smoke.hold_cotraining(label, *runs)
+
+
+@pytest.mark.parametrize("r,whole", [(256, 0), (256, 256), (512, 0)])
+def test_roi_align_res5_shapes_vs_plain(r, whole):
+    """Kernels 4 and 4b at the Res5 heads' shape: one C4 level of 30 x 40
+    x 1024 (stride 16), 14 x 14, s = 2, every ROI on level 0, on random
+    boxes and on whole-image boxes (the banded plan): the forward as
+    phase 4b holds it (`chip_smoke.check_roi_case`); at R = 512 the
+    backward within phase 4f's bounds of the exact sums
+    (`chip_smoke.check_backward_c4`)."""
+    _need_card()
+    rng = np.random.RandomState(26)
+    levels, boxes = chip_smoke.c4_inputs(rng, r, whole)
+    lvl = torch.zeros((r,), dtype=torch.int32, device="cuda")
+    assert torch.equal(roi_align.assign_levels(boxes, 4, 4) - 4, lvl)
+    *_, stats = chip_smoke.check_roi_case(levels, boxes, 14, (16,), lvl)
+    if whole:
+        assert int((stats[:, 2] > 0).sum()) == r
+    if r == 512:
+        grad = torch.from_numpy(rng.randn(r, 14, 14, 1024).astype(
+            np.float32)).cuda()
+        chip_smoke.check_backward_c4(levels, boxes, lvl, grad)
+
+
+@pytest.mark.parametrize("check", ["res5", "swin"])
+def test_slice16_miniatures_card_vs_cpu(check):
+    """The Res5 detector and the Swin-B detector (rate 0) at the 64x96 f32
+    miniature on the card against the CPU from the same seeded weights:
+    `chip_smoke.check_res5_against_cpu` (detections, losses within rtol
+    1e-5, gradients within 1e-4 of each tensor's largest) and
+    `chip_smoke.check_swin_against_cpu` (losses within rtol 1e-4)."""
+    _need_card()
+    if check == "res5":
+        chip_smoke.check_res5_against_cpu()
+    else:
+        chip_smoke.check_swin_against_cpu()

@@ -27,6 +27,7 @@ import gzip
 import io
 import json
 import tarfile
+import zlib
 
 import numpy as np
 import pytest
@@ -58,7 +59,21 @@ from embodied_object_detection_tpu_torch.parallel.train_step import (
 from test_torch_frame import _jax_config, _port_config
 
 H, W = 64, 96
-embed = tcoco.stand_in_caption_embedding
+
+
+def stand_in_caption_embedding(captions, dim: int = 512) -> np.ndarray:
+    """[B, dim] f32: a cheap seeded caption embedder for the data-path
+    tests, in place of the CLIP text tower: one unit vector a caption,
+    drawn from a RandomState seeded by the caption's CRC-32, so that a
+    caption embeds alike in every process."""
+    out = np.zeros((len(captions), dim), np.float32)
+    for i, c in enumerate(captions):
+        v = np.random.RandomState(zlib.crc32(c.encode())).randn(dim)
+        out[i] = v / np.linalg.norm(v)
+    return out
+
+
+embed = stand_in_caption_embedding
 
 
 def _assert_items_equal(got, want):

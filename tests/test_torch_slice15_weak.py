@@ -56,9 +56,10 @@ from embodied_object_detection_tpu_torch.structures import Detections
 
 from test_torch_frame import _jax_config, _port_config
 from test_torch_slice8_engine import _match_detections
+from test_torch_slice15 import stand_in_caption_embedding
 
 T = torch.from_numpy
-embed = tcoco.stand_in_caption_embedding
+embed = stand_in_caption_embedding
 
 
 @pytest.fixture(scope="module")

@@ -440,8 +440,8 @@ def test_pinned_opts_are_jax_defaults_and_no_port_fields(key):
     required, _ = tcfg.PINNED_OPTS[key]
     assert getattr(getattr(jcfg.DetectorConfig(), section), name) == required
     assert not hasattr(getattr(tcfg.DetectorConfig(), section), name)
-    other = {bool: "false", int: "3", float: "0.5", str: "BGR"}[
-        type(required)]
+    other = {bool: "false", int: "3", float: "0.5", str: "BGR",
+             tuple: "(4, 8, 16)"}[type(required)]
     with pytest.raises(NotImplementedError, match=key):
         tcfg.apply_opts(tcfg.DetectorConfig(), [f"{key}={other}"])
 
@@ -457,8 +457,16 @@ def test_check_slice_config_validates():
 
 
 def test_check_slice_config_rejects_res5():
-    cfg = tcfg.apply_opts(tcfg.DetectorConfig(), ["roi.head_type=res5"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """`check_slice_config` rejects only what the JAX package rejects: the
+    Res5 heads and the Swin-B trunk pass, as JAX's `validate_config` lets
+    them; an ROIAlign impl the port lacks still raises."""
+    for opts in (["roi.head_type=res5"], ["backbone.name=swin_b",
+                                         "backbone.drop_path_rate=0.3"]):
+        cfg = tcfg.apply_opts(tcfg.DetectorConfig(), opts)
+        assert tcfg.check_slice_config(cfg) is cfg
+        jcfg.validate_config(jcfg.apply_opts(jcfg.DetectorConfig(), opts))
+    cfg = tcfg.apply_opts(tcfg.DetectorConfig(), ["roi.align_impl=v3"])
+    with pytest.raises(NotImplementedError, match="align_impl"):
         tcfg.check_slice_config(cfg)
 
 

@@ -29,8 +29,9 @@
     writes the semmap snapshots, from a `.pth` and from a checkpoint
     directory; `--coco-json` on a synthesized json evaluates and trains
     (2 iterations, then `--coco-json-test`) with a finite AP; every path
-    not ported raises `NotImplementedError`, and `--device cuda` without
-    a card raises.
+    not ported raises `NotImplementedError` (res5 without `--coco-json`
+    exits, as the JAX CLI does), and `--device cuda` without a card
+    raises.
 """
 
 import dataclasses
@@ -521,18 +522,23 @@ def test_cli_eval_only(fx, tmp_path, capsys):
     assert os.path.getsize(tmp_path / "prof" / "eval_trace.json") > 0
 
 
+# argv -> (the error, what its message names): the paths the port does
+# not have name their ROADMAP item; res5 without --coco-json exits as the
+# JAX CLI does (a single-frame variant)
 NOT_PORTED = {
-    "eval_streams": (["--eval-only", "--eval-streams", "2"], "item 10"),
+    "eval_streams": (["--eval-only", "--eval-streams", "2"],
+                     NotImplementedError, "item 10"),
     "coordinator": (["--eval-only", "--coordinator", "host:1234"],
-                    "item 10"),
-    "res5": (["--eval-only", "--opts", "roi.head_type=res5"], "item 12c"),
+                    NotImplementedError, "item 10"),
+    "res5": (["--eval-only", "--opts", "roi.head_type=res5"], SystemExit,
+             "--coco-json"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_cli_paths_not_ported_raise(case, tmp_path):
-    argv, item = NOT_PORTED[case]
-    with pytest.raises(NotImplementedError, match=item):
+    argv, err, item = NOT_PORTED[case]
+    with pytest.raises(err, match=item):
         run.main(["--device", "cpu", "--output-dir", str(tmp_path)] + argv)
 
 

@@ -431,11 +431,21 @@ def test_resolve_vocabulary_vs_jax(vocabulary):
         os.path.dirname(tdemo.__file__))
 
 
-def test_custom_vocabulary_raises_naming_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tdemo.resolve_vocabulary("custom", "cup,webcam")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_clip_embeddings(["cup"])
+def test_custom_vocabulary_raises_naming_item_12(monkeypatch):
+    """A custom vocabulary needs the CLIP text tower's weights, which the
+    repository does not hold: both packages raise `FileNotFoundError`
+    naming CLIP_TEXT_WEIGHTS (the tower itself, ROADMAP queue 1 item 12c,
+    is held to JAX in tests/test_torch_slice16_text.py)."""
+    from embodied_object_detection_tpu.demo import (
+        predictor as jdemo_predictor)
+    monkeypatch.delenv("CLIP_TEXT_WEIGHTS", raising=False)
+    for resolve, embed in ((tdemo.resolve_vocabulary, get_clip_embeddings),
+                           (jdemo.resolve_vocabulary,
+                            jdemo_predictor.get_clip_embeddings)):
+        with pytest.raises(FileNotFoundError, match="CLIP_TEXT_WEIGHTS"):
+            resolve("custom", "cup,webcam")
+        with pytest.raises(FileNotFoundError, match="CLIP_TEXT_WEIGHTS"):
+            embed(["cup"])
 
 
 def test_new_entry_points_raise_without_a_card(monkeypatch, tmp_path):
