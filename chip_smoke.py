@@ -283,6 +283,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      `get_clip_embeddings` on the card and on the CPU (within 1e-5, unit
      norms), ms for the vocabulary; their `build_zs_weight` into one Res5
      image (1203 classes, 2 NMS and 1 ROIAlign)
+  16. the parallel paths on a one-rank NCCL group (`parallel/mesh.py:
+     init_distributed` on a free local port): (a) the sharded runner, 2
+     lanes x 4 frames at 480x640 bf16, launches a lane-frame as phase 5's
+     and no host sync; every lane-frame bit-equal to the frame run alone
+     on the lane's trunk rows and carried memory, the memory it wrote
+     within 1e-5 of that run's (row-wise), the lanes' trunk rows (one
+     trunk over the 8 frames) within 2e-2 of a trunk a lane; the two
+     designs timed ABBA; (b) `evaluate_dataset_sharded` over 2 streams of
+     phase 10's chunks (2 scenes x 2 chunks x 8 frames), implicit and
+     semantic_gt, beside `evaluate_dataset`: the same images, every
+     lane-frame held as in (a) and chained across chunks, each image its
+     lane's frame, frames/s of both; (c) the data-parallel flagship
+     (twice, B = 4) and caption steps at world size 1 bit-equal to the
+     plain steps, ms a step of both; (d) the build tools' world xyz and
+     cell ids of 20 frames at 480x640 within 1e-5 m of the CPU
   7 also holds kernels 4 and 4b at the co-training pools, R = 129 (128
   random ROIs and the whole-image box) and R = 1 (the whole-image box),
   to the plain tap form as phases 4b and 4f do, and times them beside it
@@ -6157,6 +6172,629 @@ def run_text_tower(res5_model, res5_cfg):
                  f"by this tower")
 
 
+# ------------------------------------------------------------ phase 16
+
+PAR_LANES, PAR_FRAMES = 2, 4           # (a): lanes x frames
+PAR_SCENES, PAR_CHUNKS, PAR_CHUNK_FRAMES = 2, 2, 8     # (b)
+BUILD_FRAMES = 20                      # (d)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def lane_of(out, i):
+    """Lane i of a batched EpisodeOutputs."""
+    from embodied_object_detection_tpu_torch.structures import (
+        Detections, MemoryState)
+    return (Detections(*(x[i] for x in out.detections)),
+            MemoryState(*(x[i] for x in out.memory)),
+            MemoryState(*(x[i] for x in out.first_memory)),
+            out.any_detection[i])
+
+
+TRUNK_RTOL = 2e-2      # a lane's trunk features against its own trunk's
+MEMORY_RTOL = 1e-5     # a written memory row against the reference step's
+
+
+class Step(NamedTuple):
+    t: int
+    frame: object          # FrameInputs of one frame
+    carry: object          # the _Stream carried in
+    feats: tuple           # the trunk's (C3, C4, C5) of this frame
+    new: object            # the _Stream carried out
+    out: object            # FrameOutputs
+
+
+class StepLog:
+    """Every `_stream_step` the episode runners take while the log is
+    open, in call order: a runner call's frames in order, its lanes in
+    order within each frame."""
+
+    def __enter__(self):
+        from embodied_object_detection_tpu_torch.models import detector
+        self.module, self.real, self.steps = detector, \
+            detector._stream_step, []
+
+        def step(model, cfg, frame, zs, carry, zeros, t, feats):
+            new, out = self.real(model, cfg, frame, zs, carry, zeros, t,
+                                 feats)
+            self.steps.append(Step(t, frame, carry, feats, new, out))
+            return new, out
+
+        detector._stream_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.module._stream_step = self.real
+
+    def runs(self):
+        """The steps as runs[call][lane][frame]."""
+        calls = []
+        for st in self.steps:
+            if st.t == 0 and (not calls or calls[-1][-1].t != 0):
+                calls.append([])
+            calls[-1].append(st)
+        return [[c[i::sum(st.t == 0 for st in c)]
+                 for i in range(sum(st.t == 0 for st in c))] for c in calls]
+
+
+def hold_steps(name, model, cfg, zs, lanes, inits):
+    """One runner call's lanes (`StepLog.runs()[k]`), each held to the
+    same work done lane by lane:
+    - the lane's trunk features (its rows of the trunk over every lane's
+      frames) within TRUNK_RTOL of each level's largest value in the
+      lane's own trunk (`backbone_raw` over its frames, as the single
+      runner and the serial protocol run it);
+    - frame 0 carries in `inits[i]` and every later frame the memory the
+      frame before carried out, bit-equal;
+    - each frame's detections and any_detection bit-equal to the
+      external-feature runner's on that frame alone, fed the lane's
+      features and the memory it carried in; the memory it carried out
+      within MEMORY_RTOL of that run's, each cell's row against its
+      largest value (the segment-sum's atomics sum in any order), its
+      observation counts equal.
+    Returns (the worst trunk error, the worst memory error)."""
+    from embodied_object_detection_tpu_torch.models.detector import (
+        FrameInputs, make_episode_runner)
+    ref = make_episode_runner(model, cfg, precompute_backbone="external")
+    trunk_err = mem_err = 0.0
+    for i, steps in enumerate(lanes):
+        with torch.no_grad():
+            own = model.backbone_raw(torch.stack([st.frame.image
+                                                  for st in steps]))
+        for lvl, want in enumerate(own):
+            got = torch.stack([st.feats[lvl] for st in steps]).float()
+            want = want.float()
+            trunk_err = max(trunk_err, float((got - want).abs().max() /
+                                             want.abs().max()))
+        carried = inits[i]
+        for st in steps:
+            if not all(torch.equal(x, y) for x, y in zip(st.carry.live,
+                                                         carried)):
+                raise AssertionError(f"{name} lane {i} frame {st.t}: read "
+                                     "another memory than it carried")
+            one = ref(FrameInputs(*(None if x is None else x[None]
+                                    for x in st.frame)), zs, st.carry.live,
+                      tuple(f[None] for f in st.feats))
+            if not (all(torch.equal(x[0], y) for x, y in
+                        zip(one.detections, st.out.detections)) and
+                    torch.equal(one.any_detection[0],
+                                st.out.write.any_detection)):
+                raise AssertionError(f"{name} lane {i} frame {st.t}: "
+                                     "detections differ from the frame "
+                                     "run alone on the lane's inputs")
+            got, want = st.new.live, one.memory
+            if not torch.equal(got.obs_count, want.obs_count):
+                raise AssertionError(f"{name} lane {i} frame {st.t}: "
+                                     "observation counts")
+            scale = want.features.abs().amax(1).clamp(min=1e-30)
+            err = float(((got.features - want.features).abs().amax(1) /
+                         scale).max())
+            if not err <= MEMORY_RTOL:
+                raise AssertionError(f"{name} lane {i} frame {st.t}: "
+                                     f"memory {err:.2e} off")
+            mem_err = max(mem_err, err)
+            carried = got
+    if not trunk_err <= TRUNK_RTOL:
+        raise AssertionError(f"{name}: trunk features {trunk_err:.2e} off "
+                             "the lanes' own trunks")
+    return trunk_err, mem_err
+
+
+def frame_dets(d, t):
+    v = d.valid[t]
+    return (d.boxes[t][v].float().cpu().numpy(),
+            d.scores[t][v].float().cpu().numpy(),
+            d.classes[t][v].cpu().numpy())
+
+
+def run_sharded_runner(mesh):
+    """Phase 16a: the sharded runner over a one-rank NCCL mesh at the
+    default config (480x640, bf16), 2 lanes x 4 frames, random ids; lane
+    0 resets at frame 0, lane 1 starts from a random memory and resets at
+    frame 2. Launches counted and no host sync under the sync debug mode
+    "error" (`counted_run`); every lane-frame of the counted run held to
+    the same work done lane by lane (`hold_steps`); the lanes' outputs
+    those of their last steps. Then the runner (one trunk over the B x T
+    frames) timed against the lanes run one by one through the single
+    runner (a trunk a lane), in the order ABBA, three times."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector, frame_inputs, make_episode_runner)
+    from embodied_object_detection_tpu_torch.parallel.eval_step import (
+        make_sharded_episode_runner)
+    from embodied_object_detection_tpu_torch.structures import MemoryState
+
+    cfg = DetectorConfig()
+    model = build_detector(cfg, seed=0, device="cuda")
+    h, w = cfg.input.height, cfg.input.width
+    cells, dim = cfg.memory.max_cells, cfg.memory.memory_dim
+    rng = np.random.RandomState(16)
+    b, t = PAR_LANES, PAR_FRAMES
+    images = rng.randint(0, 255, (b, t, h, w, 3)).astype(np.float32)
+    projs = rng.randint(0, cells, (b, t, h, w)).astype(np.int32)
+    resets = np.zeros((b, t), bool)
+    resets[0, 0] = resets[1, 2] = True
+    frames = frame_inputs(images, projs, resets, cells, "cuda",
+                          episode_start=resets)
+    mem = MemoryState(
+        torch.from_numpy(np.stack([np.zeros((cells, dim), np.float32),
+                                   rng.randn(cells, dim).astype(
+                                       np.float32) * 4])).cuda(),
+        torch.from_numpy(np.stack([np.zeros(cells, np.float32),
+                                   rng.randint(0, 3, cells).astype(
+                                       np.float32)])).cuda())
+    zs = torch.from_numpy(random_zs(rng, cfg)).cuda()
+    run = make_sharded_episode_runner(model, cfg, mesh)
+    with StepLog() as log:
+        out, secs, launches = counted_run(
+            f"sharded runner ({b} lanes x {t} frames)",
+            lambda: run(frames, zs, mem), LAUNCHES_PER_FRAME, b * t)
+    check_episode("sharded runner", out, (b, t), cfg)
+    lanes = log.runs()[-1]
+    inits = [MemoryState(*(x[i] for x in mem)) for i in range(b)]
+    trunk_err, mem_err = hold_steps("phase 16a", model, cfg, zs, lanes,
+                                    inits)
+    for i, steps in enumerate(lanes):
+        ends = (steps[-1].new.live, steps[0].new.live)
+        if not all(torch.equal(x[i], y) for m, e in zip(
+                (out.memory, out.first_memory), ends)
+                for x, y in zip(m, e)) or not all(
+                torch.equal(x[i][k], y) for k, st in enumerate(steps)
+                for x, y in zip(out.detections, st.out.detections)):
+            raise AssertionError(f"phase 16a lane {i}: the outputs are not "
+                                 "its steps'")
+
+    # the two designs, in one call: the batched trunk against a trunk a lane
+    single = make_episode_runner(model, cfg)
+    mine = [frames._replace(**{k: None if v is None else v[i]
+                               for k, v in frames._asdict().items()})
+            for i in range(b)]
+    designs = {"batched": lambda: run(frames, zs, mem),
+               "lane by lane": lambda: [single(mine[i], zs, inits[i])
+                                        for i in range(b)]}
+    times = {k: [] for k in designs}
+    for _ in range(3):
+        for k in ("batched", "lane by lane", "lane by lane", "batched"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            designs[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) / (b * t) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"  16a: {b} lanes x {t} frames, every lane-frame bit-equal to "
+          f"the frame run alone on the lane's features and carried "
+          f"memory, the memory it wrote within {mem_err:.2e} of that "
+          f"run's (row-wise), the lanes' trunk rows within "
+          f"{trunk_err:.2e} of their own trunks; ms a lane-frame (median "
+          f"of 6, ABBA): one trunk over the {b * t} frames "
+          f"{ms['batched']:.2f} ({', '.join(f'{x:.2f}' for x in times['batched'])}), "
+          f"a trunk a lane {ms['lane by lane']:.2f} "
+          f"({', '.join(f'{x:.2f}' for x in times['lane by lane'])}); "
+          f"counted run {secs / (b * t) * 1e3:.2f}")
+    return launches, ms["batched"], ms["lane by lane"]
+
+
+class LaneEpisodes:
+    """Phase 10's in-memory synthetic chunks, cut to fit; with a class
+    table, as a semantic_gt dataset: each chunk carries the table and its
+    pixels' ids index it (as phase 5b makes them)."""
+
+    def __init__(self, cfg, table=None):
+        from embodied_object_detection_tpu_torch.data.synthetic import (
+            SyntheticEpisodes)
+        self.inner = SyntheticEpisodes(
+            max_sequence_length=PAR_CHUNK_FRAMES,
+            max_gt=cfg.input.max_gt_boxes, num_scenes=PAR_SCENES,
+            chunks_per_scene=PAR_CHUNKS, frames=PAR_CHUNK_FRAMES,
+            height=cfg.input.height, width=cfg.input.width,
+            map_h=EVAL_MAP[0], map_w=EVAL_MAP[1], seed=0)
+        self.files = self.inner.files
+        self.table = table
+        self.cache = {}
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, i):
+        if i not in self.cache:
+            chunk = self.inner[i]
+            if self.table is not None:
+                chunk = dataclasses.replace(
+                    chunk, proj_indices=chunk.proj_indices %
+                    self.table.shape[0], memory_features=self.table)
+            self.cache[i] = chunk
+        return self.cache[i]
+
+
+def recorded_eval(fn):
+    """(EvalResults, {image id: (boxes, scores, classes)}) of fn() with
+    the evaluator recording what it is fed."""
+    from embodied_object_detection_tpu_torch.engine import eval as ev
+    log = {}
+    base = ev.COCOEvaluator
+
+    class Recorder(base):
+        def add_detections(self, image_id, boxes, scores, classes):
+            log[int(image_id)] = (np.asarray(boxes), np.asarray(scores),
+                                  np.asarray(classes))
+            return super().add_detections(image_id, boxes, scores, classes)
+
+    ev.COCOEvaluator = Recorder
+    try:
+        res = fn()
+    finally:
+        ev.COCOEvaluator = base
+    return res, log
+
+
+def run_sharded_eval(mesh):
+    """Phase 16b: `evaluate_dataset_sharded` over 2 streams (the scenes of
+    phase 10's synthetic chunks, cut to 2 scenes x 2 chunks x 8 frames)
+    beside `evaluate_dataset` over the same chunks, at the default config,
+    implicit memory and semantic_gt. Launches a frame as phase 5's (5b's
+    for semantic_gt); the same images as the serial protocol; every
+    lane-frame held to the same work done lane by lane (`hold_steps`),
+    each lane's first step carrying in the memory its last step carried
+    out (zeros at the start; the class table for semantic_gt, never
+    written); each image fed to the evaluator the detections of its lane's
+    frame. The AP of both protocols is printed, not held: seeded
+    weights give it no meaning. Frames/s: serial, sharded, sharded,
+    serial."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.demo.predictor import (
+        load_zs_weight_npy)
+    from embodied_object_detection_tpu_torch.engine.eval import (
+        evaluate_dataset, evaluate_dataset_sharded, external_memory_state,
+        partition_lanes)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.structures import MemoryState
+
+    base = DetectorConfig()
+    zs = load_zs_weight_npy(str(REPO / "embodied_object_detection_tpu_torch"
+                                / "data" / "metadata" / "mp3d_clip.npy"))
+    zs_t = torch.from_numpy(np.asarray(zs, np.float32)).cuda()
+    table = np.concatenate([np.zeros((1, 512), np.float32),
+                            zs[:, :-1].T.astype(np.float32)])
+    lines = []
+    for mode in ("semantic_gt", "implicit"):
+        cfg = base if mode == "implicit" else base.replace(
+            memory=dataclasses.replace(base.memory, memory_type=mode))
+        model = build_detector(cfg, seed=0, device="cuda")
+        ds = LaneEpisodes(cfg, table if mode == "semantic_gt" else None)
+
+        def serial_eval():
+            return evaluate_dataset(model, cfg, ds, zs, verbose=False,
+                                    num_workers=2)
+
+        def sharded_eval():
+            return evaluate_dataset_sharded(model, cfg, ds, zs, mesh=mesh,
+                                            streams=2, verbose=False,
+                                            num_workers=2)
+
+        serial, s_dets = recorded_eval(serial_eval)
+        zero_counters()
+        with StepLog() as log:
+            sharded, p_dets = recorded_eval(sharded_eval)
+        launches = read_counters()
+        frames = len(ds) * PAR_CHUNK_FRAMES
+        per = LAUNCHES_PER_FRAME if mode == "implicit" else \
+            LAUNCHES_PER_FRAME_EXTERNAL
+        if launches != {k: per.get(k, 0) * frames for k in launches}:
+            raise AssertionError(f"phase 16b {mode}: launches {launches}")
+        if sharded.num_images != serial.num_images or \
+                sorted(p_dets) != sorted(s_dets) or \
+                sharded.timing["streams"] != 2.0:
+            raise AssertionError(f"phase 16b {mode}: images "
+                                 f"{sharded.num_images} vs "
+                                 f"{serial.num_images}")
+        runs = log.runs()
+        lanes = partition_lanes(ds.files, 2)
+        if len(runs) != max(len(x) for x in lanes):
+            raise AssertionError(f"phase 16b {mode}: {len(runs)} runner "
+                                 "calls")
+        if cfg.memory.external_memory():
+            fixed = external_memory_state(ds[0], cfg, device="cuda")
+            inits = [fixed] * 2
+        else:
+            inits = [MemoryState.zeros(cfg.memory.max_cells,
+                                       cfg.memory.memory_dim, "cuda")] * 2
+        trunk_err = mem_err = 0.0
+        for j, run_lanes in enumerate(runs):
+            te, me = hold_steps(f"phase 16b {mode} step {j}", model, cfg,
+                                zs_t, run_lanes, inits)
+            trunk_err, mem_err = max(trunk_err, te), max(mem_err, me)
+            if not cfg.memory.external_memory():
+                inits = [steps[-1].new.live for steps in run_lanes]
+        im_id = 0
+        for idx in range(len(ds)):
+            i = next(k for k, lane in enumerate(lanes) if idx in lane)
+            steps = runs[lanes[i].index(idx)][i]
+            for t in range(0, PAR_CHUNK_FRAMES, cfg.input.score_every):
+                if not ds[idx].frame_valid[t]:
+                    continue
+                d = steps[t].out.detections
+                want = (d.boxes[d.valid].float().cpu().numpy(),
+                        d.scores[d.valid].float().cpu().numpy(),
+                        d.classes[d.valid].cpu().numpy())
+                if not all(np.array_equal(x, y) for x, y in
+                           zip(p_dets[im_id], want)):
+                    raise AssertionError(f"phase 16b {mode}: image {im_id} "
+                                         "is not its lane's frame")
+                im_id += 1
+        # the two protocols timed in one call, unlogged
+        again = sharded_eval()
+        serial2 = serial_eval()
+        fps = [serial.timing["frames_per_s"],
+               sharded.timing["frames_per_s"],
+               again.timing["frames_per_s"],
+               serial2.timing["frames_per_s"]]
+        lines.append(
+            f"{mode}: frames/s serial {fps[0]:.2f}, sharded {fps[1]:.2f} "
+            f"(logged), {fps[2]:.2f}, serial {fps[3]:.2f}; AP sharded "
+            f"{sharded.overall['AP']:.4f}, serial "
+            f"{serial.overall['AP']:.4f} (seeded weights, not held)")
+        print(f"  16b {lines[-1]}; {sharded.num_images} images, each its "
+              f"lane's frame; every lane-frame bit-equal to the frame run "
+              f"alone on the lane's inputs, memory within {mem_err:.2e}, "
+              f"trunk rows within {trunk_err:.2e} of the lanes' own; "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+        del model
+    return lines
+
+
+def run_dp_steps(mesh):
+    """Phase 16c: the data-parallel steps at world size 1 (a one-rank
+    all-reduce is the identity): 2 flagship steps at B = 4 and one caption
+    step through `make_train_step` / `make_loss_step` with the mesh. Each
+    step's losses bit-equal to the plain step's (no mesh) from the same
+    state on the same batch; its gradients after the all-reduce
+    bit-equal to before it; its parameters bit-equal to the plain
+    optimizer's update from the same state and gradients (the ROIAlign
+    backward's REDs sum in any order, so two backward passes need not
+    give the same bits). Launches a DP flagship step as phase 8's; ms a
+    step, DP and plain."""
+    from embodied_object_detection_tpu_torch.data.synthetic import (
+        synthetic_train_batch)
+    from embodied_object_detection_tpu_torch.engine.solver import (
+        build_optimizer)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.parallel import train_step as ts
+
+    cfg = train_config()
+    zs = torch.from_numpy(random_zs(np.random.RandomState(8), cfg)).cuda()
+    model = build_detector(cfg, seed=0, device="cuda")
+    twin = build_detector(cfg, seed=0, device="cuda")
+    reduced = []
+    real = ts.all_reduce_gradients
+
+    def spy(params, group):
+        if group is None:           # the plain step
+            return real(params, group)
+        before = [None if p.grad is None else p.grad.clone()
+                  for p in params]
+        real(params, group)
+        # a missing gradient goes in as zeros
+        reduced.append(all(torch.equal(
+            torch.zeros_like(p) if b is None else b, p.grad)
+            for b, p in zip(before, params) if p.requires_grad))
+
+    ts.all_reduce_gradients = spy
+    try:
+        init, dp_step = ts.make_train_step(model, cfg, mesh=mesh)
+        state = ts.replicate_state(mesh, init())
+        launches = collections.Counter()
+        checks = []
+        cap_rng = np.random.RandomState(17)
+        h, w = cfg.input.height, cfg.input.width
+        caption = (
+            torch.from_numpy(cap_rng.randint(0, 255, (TRAIN_FRAMES, h, w, 3))
+                             .astype(np.float32)).cuda(),
+            torch.from_numpy(cap_rng.randn(TRAIN_FRAMES, 512)
+                             .astype(np.float32)).cuda(),
+            torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda"))
+        for k in range(3):
+            snap = copy.deepcopy(model.state_dict())
+            opt_snap = copy.deepcopy(state.optimizer.state_dict())
+            if k < 2:
+                batch = ts.batch_to_device(synthetic_train_batch(
+                    cfg, np.random.RandomState(30 + k), TRAIN_FRAMES, 3),
+                    "cuda")
+                zero_counters()
+                state, got = dp_step(state, batch, zs)
+                torch.cuda.synchronize()
+                launches.update(read_counters())
+                fn = ts.make_train_step(twin, cfg)[1]
+                plain_inputs = (batch, zs)
+            else:
+                cap_fn = ts.make_caption_train_step(model, cfg, mesh=mesh)
+                init_c, cap_step = ts.make_loss_step(
+                    model, cfg, lambda st, *x: cap_fn(*x, step=st),
+                    state.optimizer, mesh)
+                state, got = cap_step(state, *caption)
+                tcap = ts.make_caption_train_step(twin, cfg)
+                fn = ts.make_loss_step(twin, cfg,
+                                       lambda st, *x: tcap(*x, step=st))[1]
+                plain_inputs = caption
+            grads = {n: None if p.grad is None else p.grad.clone()
+                     for n, p in model.named_parameters()}
+            # the plain step from the same state: its losses
+            twin.load_state_dict(snap)
+            topt = build_optimizer(twin, cfg.solver)
+            topt.load_state_dict(opt_snap)
+            _, want = fn(ts.TrainState(twin, topt, k), *plain_inputs)
+            same_losses = sorted(got) == sorted(want) and all(
+                torch.equal(got[n], want[n]) for n in want)
+            # the plain optimizer on the DP step's gradients
+            twin.load_state_dict(snap)
+            topt.load_state_dict(opt_snap)
+            for n, p in twin.named_parameters():
+                p.grad = grads[n]
+            topt.step()
+            same_params = all(torch.equal(a, b) for a, b in zip(
+                model.parameters(), twin.parameters()))
+            checks.append((same_losses, same_params))
+            if not (same_losses and same_params and reduced[-1]):
+                raise AssertionError(f"phase 16c step {k}: losses equal "
+                                     f"{same_losses}, parameters equal "
+                                     f"{same_params}, all-reduce identity "
+                                     f"{reduced[-1]}")
+    finally:
+        ts.all_reduce_gradients = real
+    per_step = {k: v // 2 for k, v in launches.items()}
+    if any(per_step[k] != LAUNCHES_PER_STEP.get(k, 0) for k in per_step):
+        raise AssertionError(f"phase 16c: launches a step {per_step}")
+
+    def time_steps(step_fn, st, n=3):
+        out = []
+        for i in range(n):
+            batch = ts.batch_to_device(synthetic_train_batch(
+                cfg, np.random.RandomState(40 + i), TRAIN_FRAMES, 3), "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = step_fn(st, batch, zs)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dp_ms = time_steps(dp_step, state)
+    plain_init, plain_step = ts.make_train_step(twin, cfg)
+    plain_ms = time_steps(plain_step, plain_init())
+    print(f"  16c: 2 flagship steps and 1 caption step at world size 1: "
+          f"losses, reduced gradients and parameters bit-equal to the "
+          f"plain steps'; launches a flagship step "
+          f"{ {k: v for k, v in per_step.items() if v} }; ms a step (host "
+          f"clock, synchronised): DP {', '.join(f'{x:.1f}' for x in dp_ms)}"
+          f"; plain {', '.join(f'{x:.1f}' for x in plain_ms)}")
+    return per_step, float(np.mean(dp_ms[1:])), float(np.mean(plain_ms[1:]))
+
+
+def run_build_tools():
+    """Phase 16d: the dataset build tools' device part, without h5: the
+    world xyz of 20 frames at 480x640 (depth in [0.3, 9.5] m, a turning
+    and tilting camera path in quaternions, habitat's depth scale) and
+    their map cells at 0.2 m, on the card and on the CPU; xyz within
+    1e-5 m, cell ids equal or each differing pixel's cell coordinate
+    within 1e-5 m of a rounding boundary on both devices."""
+    from embodied_object_detection_tpu_torch.data.build_data import (
+        world_xyz)
+    from embodied_object_detection_tpu_torch.data.build_memory import (
+        world_to_proj_indices)
+    rng = np.random.RandomState(18)
+    n, h, w = BUILD_FRAMES, 480, 640
+    depth = rng.uniform(0.03, 0.95, (n, h, w)).astype(np.float32)
+    heading = np.linspace(0.0, 2.5, n)
+    rot = np.stack([0.05 * np.sin(heading), np.sin(heading / 2),
+                    np.zeros(n), np.cos(heading / 2)], 1)
+    rot /= np.linalg.norm(rot, axis=1, keepdims=True)
+    pos = np.stack([np.linspace(0, 3, n), np.full(n, 1.25),
+                    np.linspace(0, -2, n)], 1)
+    world_xyz(depth[:2], pos[:2], rot[:2], depth_scale=10.0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = world_xyz(depth, pos, rot, depth_scale=10.0, device="cuda")
+    xyz_ms = (time.perf_counter() - t0) / n * 1e3
+    cpu = world_xyz(depth, pos, rot, depth_scale=10.0, device="cpu")
+    err = float(np.abs(card - cpu).max())
+    shift = cpu.reshape(-1, 3).min(0)
+    extent = cpu.reshape(-1, 3).max(0) - shift
+    mw = int(np.ceil(extent[0] / 0.2)) + 1
+    mh = int(np.ceil(extent[2] / 0.2)) + 1
+    card_t = torch.from_numpy(card).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids_card = world_to_proj_indices(card_t, shift, 0.2, mw, mh)
+    torch.cuda.synchronize()
+    ids_ms = (time.perf_counter() - t0) / n * 1e3
+    ids_card = ids_card.cpu().numpy()
+    ids_cpu = world_to_proj_indices(torch.from_numpy(cpu), shift, 0.2, mw,
+                                    mh).numpy()
+    bad = np.nonzero(ids_card.reshape(-1) != ids_cpu.reshape(-1))[0]
+    for i in bad:
+        ok = False
+        for axis in (0, 2):
+            vs = [(x.reshape(-1, 3)[i, axis] - shift[axis]) / 0.2
+                  for x in (card, cpu)]
+            if np.round(vs[0]) != np.round(vs[1]):
+                ok |= max(abs(v - np.floor(v) - 0.5) * 0.2
+                          for v in vs) <= 1e-5
+        if not ok:
+            raise AssertionError(f"phase 16d: pixel {i}'s cell differs away "
+                                 "from a rounding boundary")
+    if not err <= 1e-5:
+        raise AssertionError(f"phase 16d: xyz card vs CPU {err}")
+    print(f"  16d: world xyz of {n} frames at {h}x{w} on the card within "
+          f"{err:.2e} m of the CPU; {len(bad)} of {ids_cpu.size} pixels' "
+          f"cells differ, each at a rounding boundary; {mw} x {mh} cells; "
+          f"xyz {xyz_ms:.2f} ms a frame (host to host, the copies "
+          f"included), cell ids {ids_ms:.3f} ms a frame on the card")
+    return err, len(bad), xyz_ms
+
+
+def run_parallel():
+    """Phase 16: the parallel paths on a one-rank NCCL process group
+    (`parallel/mesh.py:init_distributed` at tcp://127.0.0.1:<free port>),
+    so that their collectives run on the card, and the dataset build
+    tools' device part."""
+    import torch.distributed as dist
+    from embodied_object_detection_tpu_torch.config import ParallelConfig
+    from embodied_object_detection_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh)
+    t0 = time.perf_counter()
+    rank, world = init_distributed(f"127.0.0.1:{free_port()}", "cuda",
+                                   timeout_s=120)
+    try:
+        mesh = make_mesh(ParallelConfig())
+        if (rank, world, dist.get_backend()) != (0, 1, "nccl") or \
+                mesh.data_group is None:
+            raise AssertionError(f"phase 16: rank {rank} of {world}, "
+                                 f"{dist.get_backend()}")
+        launches, lane_ms, lane_by_lane_ms = run_sharded_runner(mesh)
+        eval_lines = run_sharded_eval(mesh)
+        step_launches, dp_ms, plain_ms = run_dp_steps(mesh)
+    finally:
+        dist.destroy_process_group()
+    err, flipped, xyz_ms = run_build_tools()
+    phase(16, f"parallel paths on a one-rank NCCL group: the sharded "
+              f"runner ({PAR_LANES} lanes, {lane_ms:.2f} ms a lane-frame "
+              f"against {lane_by_lane_ms:.2f} lane by lane, "
+              f"launches a lane-frame {LAUNCHES_PER_FRAME}, no host sync), "
+              f"evaluate_dataset_sharded ({'; '.join(eval_lines)}), the "
+              f"DP steps bit-equal to the plain ones ({dp_ms:.1f} vs "
+              f"{plain_ms:.1f} ms a flagship step), the build tools' xyz "
+              f"within {err:.1e} m ({flipped} boundary cells, {xyz_ms:.2f} "
+              f"ms a frame); {time.perf_counter() - t0:.1f} s")
+    return launches, step_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -6217,6 +6855,7 @@ def main() -> int:
     run_swin(args.profile)
     run_text_tower(res5_model, res5_cfg)
     del res5_model
+    run_parallel()
     kernels = time_kernels(rng, launches, train_launches, errs,
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \

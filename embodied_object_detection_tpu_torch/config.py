@@ -2,8 +2,8 @@
 step, the evaluation engine and the CLI.
 
 The port's own copy of the JAX package's `config.py` fields that these
-paths read (backbone, CenterNet, ROI heads, memory, input, solver and the
-top-level `DetectorConfig` with its data paths), with `validate_config`,
+paths read (backbone, CenterNet, ROI heads, memory, input, solver, the
+process mesh and the top-level `DetectorConfig` with its data paths), with `validate_config`,
 the `--opts` overrides (`apply_opts`) and the four golden presets
 (`parity_config`). Names and defaults are the same, so a config built for
 one package can be rebuilt field by field for the other. The JAX
@@ -11,7 +11,6 @@ package's fields that no path reads (its pinned knobs, `input.format` and
 `memory.memory_feature_weight`, `backbone.in_strides` and
 `backbone.in_channels`) are no fields here: `apply_opts` accepts each
 only at its default (`PINNED_OPTS`).
-Mesh settings come with the port of the sharded paths;
 `check_slice_config` raises on settings the port does not run and on an
 unknown episode protocol.
 """
@@ -213,6 +212,17 @@ class SolverConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """The process mesh (`parallel/mesh.py:make_mesh`): the world's ranks
+    factored into data x model. `data_parallel` -1 puts every rank not on
+    the model axis on the data axis."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class DetectorConfig:
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     centernet: CenterNetConfig = field(default_factory=CenterNetConfig)
@@ -220,6 +230,7 @@ class DetectorConfig:
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     input: InputConfig = field(default_factory=InputConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     # backbone / head compute dtype; the fp32 sites stay fp32 regardless
     compute_dtype: str = "bfloat16"
     # host-side data paths

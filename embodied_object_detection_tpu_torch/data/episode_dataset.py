@@ -236,6 +236,21 @@ class EpisodeDataset:
             img = img.convert("RGB")
             return np.asarray(img)
 
+    def ground_truth(self, index: int) -> EpisodeChunk:
+        """Chunk `index` as scoring reads it: its GT and frame flags, with
+        no frames, ids or memory; only the detection records are read."""
+        import h5py
+        file = self.files[index]
+        with h5py.File(os.path.join(self.sensor_path, file), "r") as h5:
+            records = h5["detection_data"]
+            det_records = [records[i] for i in range(
+                min(self.max_sequence_length, len(records)))]
+        return assemble_chunk(
+            file, det_records, lambda i: np.zeros((0, 0, 3), np.uint8),
+            np.zeros((len(det_records), 0, 0), np.int32), (0, 0),
+            test_type=self.test_type,
+            max_sequence_length=self.max_sequence_length, max_gt=self.max_gt)
+
     def __getitem__(self, index: int) -> EpisodeChunk:
         import h5py
         file = self.files[index]

@@ -10,7 +10,8 @@ map_h x map_w grid of cells that follows the pan.
 `EpisodeDataset` and the evaluation read them unmodified; the same seed
 gives the same arrays as the JAX package's generator.
 `SyntheticEpisodes` holds them in memory as a dataset, for machines
-without h5py.
+without h5py. `SyntheticRenderer` renders such a scene frame by frame for
+the dataset builder (`data/build_data.py`).
 
   memory_data/<scene>_<k>.h5 : memory_features (zeros), proj_indices
       [T, H, W, 1], semmap_gt (zeros, class_space "lvis21")
@@ -109,6 +110,67 @@ def _render_frame(rng: np.random.RandomState, h: int, w: int,
                       float(y2 - y1)])
         classes.append(int(obj["cls"]))
     return img, boxes, classes
+
+
+class SyntheticRenderer:
+    """The `data/build_data.py:Renderer` protocol without a simulator (the
+    habitat-free stand-in for HabitatUtils, habitat_utils.py:14-284): a
+    panoramic wall of coloured rectangles at a fixed depth, panned by the
+    agent's heading and x. The same seed renders the same frames as the
+    JAX package's renderer."""
+
+    def __init__(self, height: int = 480, width: int = 640, seed: int = 0,
+                 num_objects: int = 6, wall_depth: float = 3.0,
+                 class_ids: Optional[List[int]] = None):
+        self.h, self.w = height, width
+        self.wall_depth = wall_depth
+        self.rng = np.random.RandomState(seed)
+        class_ids = class_ids or [0, 2, 3, 4, 5]
+        self.objects = []
+        for _ in range(num_objects):
+            self.objects.append(dict(
+                x=int(self.rng.rand() * width * 2),
+                y=int(self.rng.rand() * (height - 120)),
+                w=int(40 + self.rng.rand() * 120),
+                h=int(40 + self.rng.rand() * 120),
+                color=self.rng.randint(90, 255, 3,
+                                       dtype=np.int64).astype(np.uint8),
+                cls=int(class_ids[self.rng.randint(len(class_ids))])))
+        self._pan = 0.0
+        self._cached = None
+
+    def set_agent_state(self, position, rotation_euler) -> None:
+        # the heading (rotation_euler[1], radians) pans the panorama
+        self._pan = float(rotation_euler[1]) * self.w / 1.5 + \
+            float(position[0]) * 40.0
+        self._cached = None
+
+    def _frame(self):
+        # rendered once a pose: rgb, semantic and boxes agree whatever the
+        # order of the render_* calls, and the stream advances once a frame
+        if self._cached is None:
+            self._cached = _render_frame(self.rng, self.h, self.w,
+                                         self.objects, self._pan)
+        return self._cached
+
+    def render_rgb(self) -> np.ndarray:
+        return self._frame()[0]
+
+    def render_depth(self) -> np.ndarray:
+        return np.full((self.h, self.w), self.wall_depth, np.float32)
+
+    def render_semantic(self) -> np.ndarray:
+        _, boxes, classes = self._frame()
+        seg = np.zeros((self.h, self.w), np.int32)
+        for b, c in zip(boxes, classes):
+            x, y, bw, bh = (int(v) for v in b)
+            seg[y: y + bh, x: x + bw] = c + 1
+        return seg
+
+    def render_boxes(self) -> List[dict]:
+        _, boxes, classes = self._frame()
+        return [dict(box=[b[0], b[1], b[0] + b[2], b[1] + b[3]], id=c)
+                for b, c in zip(boxes, classes)]
 
 
 def synthetic_chunks(num_scenes: int = 1, chunks_per_scene: int = 2,
@@ -215,6 +277,11 @@ class SyntheticEpisodes:
 
     def __len__(self) -> int:
         return len(self.chunks)
+
+    @property
+    def files(self) -> List[str]:
+        """The chunks' file names, `<scene>_<k>.h5`, in order."""
+        return [c[0] for c in self.chunks]
 
     def __getitem__(self, index: int) -> EpisodeChunk:
         seq, rgbs, records, proj = self.chunks[index]

@@ -21,12 +21,15 @@ copies without blocking, ends each chunk's compute with one
 frames' detections to the host, once a chunk. `external_memory_state` is
 the fixed table the GT-memory baselines (`memory.memory_type`
 "semantic_gt", "map_gt", "explicit_map") read instead of a recurrent
-memory. The sharded protocol (`evaluate_dataset_sharded`) comes with the
-port's parallel paths.
+memory. `evaluate_dataset_sharded` is the episode-parallel protocol:
+the scenes partitioned over lanes, the lanes over the ranks of the
+process mesh's data axis, the detections gathered to every rank and
+scored in serial order.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -205,19 +208,29 @@ def _score_chunk_frames(evaluator: COCOEvaluator,
     return im_id
 
 
+def pack_scored(detections, score_every: int) -> torch.Tensor:
+    """The scored frames' detections packed into one f32 tensor on their
+    device, [..., S, N, 7] (box, score, class, valid; class ids are exact
+    in f32), S = ceil(T / score_every), from detections [..., T, N, ...]."""
+    sl = slice(0, None, score_every)
+    return torch.cat([detections.boxes[..., sl, :, :].float(),
+                      detections.scores[..., sl, :].float()[..., None],
+                      detections.classes[..., sl, :].float()[..., None],
+                      detections.valid[..., sl, :].float()[..., None]],
+                     dim=-1)
+
+
+def unpack_scored(host: np.ndarray):
+    """(boxes, scores, classes, valid) of `pack_scored`'s array."""
+    return (host[..., :4], host[..., 4], host[..., 5].astype(np.int32),
+            host[..., 6] > 0)
+
+
 def scored_detections(detections, score_every: int):
     """The scored frames' detections on the host, in one copy: (boxes,
     scores, classes, valid) as numpy [S, N, ...], S = ceil(T /
-    score_every). Sliced and packed into one f32 tensor on the device
-    (class ids are exact in f32)."""
-    sl = slice(0, None, score_every)
-    packed = torch.cat([detections.boxes[sl].float(),
-                        detections.scores[sl].float()[..., None],
-                        detections.classes[sl].float()[..., None],
-                        detections.valid[sl].float()[..., None]], dim=-1)
-    host = packed.cpu().numpy()
-    return (host[..., :4], host[..., 4], host[..., 5].astype(np.int32),
-            host[..., 6] > 0)
+    score_every)."""
+    return unpack_scored(pack_scored(detections, score_every).cpu().numpy())
 
 
 def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
@@ -343,5 +356,228 @@ def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
         print("AP (overall):", {k: round(v, 2)
                                 for k, v in results.overall.items()
                                 if not k.startswith("AP-")})
+        print("timing:", {k: round(v, 4) for k, v in results.timing.items()})
+    return results
+
+
+def scene_of(chunk_file: str) -> str:
+    """'scene0000_lvl0_3.h5' -> 'scene0000_lvl0' (the loader's file
+    convention)."""
+    return chunk_file.rsplit("_", 1)[0]
+
+
+def partition_lanes(files: List[str], streams: int) -> List[List[int]]:
+    """The chunk indices of each of `streams` lanes: the chunks grouped by
+    scene in their serial order, the scenes (most chunks first, ties in
+    name order) each given to the lane with the fewest chunks so far."""
+    scene_chunks: Dict[str, List[int]] = {}
+    for i, f in enumerate(files):
+        scene_chunks.setdefault(scene_of(f), []).append(i)
+    lanes: List[List[int]] = [[] for _ in range(streams)]
+    for _, idxs in sorted(scene_chunks.items(), key=lambda kv: -len(kv[1])):
+        min(lanes, key=len).extend(idxs)
+    return lanes
+
+
+def _slim(chunk: EpisodeChunk) -> EpisodeChunk:
+    """The chunk without what scoring does not read: frames, ids, memory."""
+    return dataclasses.replace(chunk, images=chunk.images[:, :0, :0],
+                               proj_indices=chunk.proj_indices[:, :0, :0],
+                               memory_features=None, observations=None)
+
+
+def _scoring_chunk(dataset, index: int) -> EpisodeChunk:
+    """Chunk `index` as scoring reads it, through the dataset's
+    `ground_truth` where it has one (an h5 root's reads only the
+    detection records)."""
+    gt = getattr(dataset, "ground_truth", None)
+    return _slim(gt(index) if gt is not None else dataset[index])
+
+
+def _stack_host(frames: List[HostFrames], pin: bool) -> HostFrames:
+    def stack(xs):
+        t = torch.stack(xs)
+        return t.pin_memory() if pin else t
+    return HostFrames(*(stack(list(x)) for x in zip(*frames)))
+
+
+def evaluate_dataset_sharded(model: EmbodiedDetector, cfg: DetectorConfig,
+                             dataset, zs_weight: np.ndarray, mesh=None,
+                             streams: Optional[int] = None,
+                             verbose: bool = True,
+                             num_workers: int = 2) -> EvalResults:
+    """Episode-parallel evaluation (the JAX package's
+    `evaluate_dataset_sharded`): the scenes partitioned over `streams`
+    independent lanes (default: the data axis's size), each rank of the
+    mesh's data axis running its lanes through the sharded runner.
+
+    The memory binds only within a scene (resets fire at scene starts),
+    so the lanes reproduce the serial protocol's per-image detections
+    (on the card up to the last bits of the trunk, which runs over the
+    rank's lanes in one batch); each chunk keeps its serial index for the
+    quartiles. Protocol: scenes balanced greedily by chunk count
+    (`partition_lanes`); an exhausted lane replays a chunk of the step
+    (its rank's first) with every frame invalid; the first min(5, steps - 1) steps are warm-up; a GT-memory
+    table is kept a lane and rebuilt only at the lane's scene boundary;
+    `save_semmap` writes each lane's snapshot on the rank that runs it;
+    a rank reads only the GT of the other ranks' lanes.
+    The scored frames' detections of every lane are gathered to every
+    rank (one all-gather a step of the fixed-shape [lanes, frames, N, 7]
+    payload over the data group), and every rank feeds the evaluator the
+    whole set in serial chunk order (annotation ids start at 0, so the
+    order decides which detection is matched to annotation 0). `dataset`
+    is an `EpisodeDataset` or a sequence of chunks with `files`."""
+    from ..parallel.eval_step import make_sharded_episode_runner
+    from ..parallel.mesh import gather_into, make_mesh
+
+    if mesh is None:
+        mesh = make_mesh(cfg.parallel)
+    axis = cfg.parallel.data_axis
+    d = mesh.shape[axis]
+    s = streams or d
+    if s % d != 0:
+        raise ValueError(f"streams={s} must be a multiple of the data axis "
+                         f"size {d}")
+    device = next(model.parameters()).device
+    on_card = device.type == "cuda"
+    files = list(getattr(dataset, "files", None) or
+                 [dataset[i].sequence_name for i in range(len(dataset))])
+    lanes = partition_lanes(files, s)
+    n_steps = max((len(lane) for lane in lanes), default=0)
+    if n_steps:
+        pad_frac = 1.0 - sum(len(lane) for lane in lanes) / (n_steps * s)
+        if verbose and pad_frac > 0:
+            print(f"sharded eval: {pad_frac:.1%} of lane steps are "
+                  f"padding (scene-length imbalance over {s} streams)")
+
+    runner = make_sharded_episode_runner(model, cfg, mesh, data_axis=axis)
+    mine = list(runner.lanes(s))
+    zs = torch.from_numpy(np.asarray(zs_weight, np.float32)).to(device)
+    evaluator = COCOEvaluator(list(range(cfg.roi.num_classes)),
+                              OBJECT_LVIS[:cfg.roi.num_classes],
+                              first_ann_id=0)
+    quartile_ids: List[List[int]] = [[], [], [], []]
+    score_every = cfg.input.score_every
+    max_cells = cfg.memory.max_cells
+
+    memory = MemoryState(
+        features=torch.zeros((len(mine), max_cells, cfg.memory.memory_dim),
+                             device=device),
+        obs_count=torch.zeros((len(mine), max_cells), device=device))
+    external = cfg.memory.external_memory()
+    unset = object()
+    ext_rows: List[tuple] = [(unset, None)] * len(mine)
+    im_id = 0
+    t_data = t_compute = t_eval = 0.0
+    t_total0 = time.perf_counter()
+    total_frames = 0
+
+    def fetch(j):
+        # a rank reads its own lanes' chunks whole and only the GT of the
+        # others' (every rank scores every lane); an exhausted lane
+        # replays a chunk of the step with every frame invalid
+        row = [None if j >= len(lane) else dataset[lane[j]] if i in mine
+               else _scoring_chunk(dataset, lane[j])
+               for i, lane in enumerate(lanes)]
+        tmpl = next((row[i] for i in mine if row[i] is not None), None)
+        if tmpl is None:
+            tmpl = dataset[next(lane[j] for lane in lanes if j < len(lane))]
+        host = []
+        for i in mine:
+            if row[i] is None:
+                fi = host_frame_inputs(tmpl, max_cells)
+                host.append(fi._replace(
+                    frame_valid=torch.zeros_like(fi.frame_valid)))
+            else:
+                host.append(host_frame_inputs(row[i], max_cells))
+        return row, _stack_host(host, on_card)
+
+    fetch_iter = prefetch_iterator(fetch, range(n_steps),
+                                   num_workers=num_workers)
+    num_warmup = min(5, n_steps - 1)
+    warm_steps = warm_frames = 0
+    pending: List[tuple] = []
+    for j in range(n_steps):
+        if j == num_warmup:
+            t_data = t_compute = t_eval = 0.0
+            t_total0 = time.perf_counter()
+            warm_steps = j
+            warm_frames = total_frames
+        t0 = time.perf_counter()
+        row, host = next(fetch_iter)
+        frames = frames_to_device(host, device)
+        if external:
+            dirty = False
+            for k, i in enumerate(mine):
+                chunk = row[i]
+                if chunk is not None and \
+                        ext_rows[k][0] is not chunk.memory_features:
+                    ext_rows[k] = (chunk.memory_features,
+                                   external_memory_state(chunk, cfg,
+                                                         device=device))
+                    dirty = True
+            if dirty:
+                zero = MemoryState.zeros(max_cells, cfg.memory.memory_dim,
+                                         device)
+                tables = [r[1] if r[1] is not None else zero
+                          for r in ext_rows]
+                memory = MemoryState(*(torch.stack(x)
+                                       for x in zip(*tables)))
+        t_data += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out = runner.local(frames, zs, memory)
+        if not external:
+            memory = out.memory
+        packed = gather_into(pack_scored(out.detections, score_every),
+                             mesh.group(axis), d)
+        if on_card:
+            torch.cuda.synchronize(device)
+        t_compute += time.perf_counter() - t0
+
+        if cfg.memory.save_semmap:
+            for k, i in enumerate(mine):
+                if row[i] is not None:
+                    _save_memory_snapshot(cfg, zs,
+                                          out.first_memory.features[k],
+                                          out.first_memory.obs_count[k],
+                                          row[i])
+
+        t0 = time.perf_counter()
+        boxes, scores, classes, valid = unpack_scored(packed.cpu().numpy())
+        for i, chunk in enumerate(row):
+            if chunk is None:
+                continue
+            pending.append((lanes[i][j], _slim(chunk), boxes[i], scores[i],
+                            classes[i], valid[i]))
+            total_frames += int(chunk.frame_valid.sum())
+        t_eval += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pending.sort(key=lambda rec: rec[0])
+    for serial_idx, slim, b, sc, cl, v in pending:
+        im_id = _score_chunk_frames(evaluator, quartile_ids, slim,
+                                    serial_idx, b, sc, cl, v, im_id,
+                                    score_every)
+    t_eval += time.perf_counter() - t0
+    t_total = time.perf_counter() - t_total0
+    n_timed = max(n_steps - warm_steps, 1)
+    results = EvalResults(
+        overall=evaluator.evaluate(),
+        quartiles=[evaluator.evaluate(q) if q else {} for q in quartile_ids],
+        timing=dict(
+            data_s_per_chunk=t_data / n_timed,
+            compute_s_per_chunk=t_compute / n_timed,
+            eval_s_per_chunk=t_eval / n_timed,
+            total_s=t_total,
+            frames_per_s=(total_frames - warm_frames) / max(t_compute, 1e-9),
+            streams=float(s),
+        ),
+        num_images=im_id,
+    )
+    if verbose:
+        print(f"sharded eval ({s} streams) AP (overall):",
+              {k: round(v, 2) for k, v in results.overall.items()
+               if not k.startswith("AP-")})
         print("timing:", {k: round(v, 4) for k, v in results.timing.items()})
     return results

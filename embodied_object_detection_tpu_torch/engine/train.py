@@ -11,6 +11,14 @@ checkpoints. The chunks come from a sequence of `ChunkRecord`s, such as
 the h5 `data.EpisodeDataset` that `run.py` trains from;
 `batch_fn(it, rng, dp)` replaces the chunk loader. `load_fed_freq_weight`
 reads the class-frequency table of the federated loss.
+
+Over a process mesh (`parallel/mesh.py:make_mesh(cfg.parallel)`: the
+running process group, else a world of one), every rank makes the global
+batch from the shared per-iteration stream, padded to a multiple of the
+data axis, and keeps its rows; the step is the global batch's, and the
+logged losses are global. Rank 0's state (fresh, or restored on resume)
+is broadcast before the first step; only rank 0 writes `metrics.json`,
+the TensorBoard events and the checkpoints.
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ import torch
 from ..config import DetectorConfig
 from ..models.detector import EmbodiedDetector
 from ..ops.memory_ops import check_proj_indices
+from ..parallel.mesh import make_mesh, shard_batch
 from ..parallel.train_step import (TrainBatch, TrainState, batch_to_device,
-                                   make_train_step)
+                                   make_train_step, replicate_state)
 from ..utils.tb_writer import SummaryWriter
 from .checkpoint import (PeriodicCheckpointer, latest_checkpoint,
                          restore_checkpoint)
@@ -193,23 +202,26 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
     max_iter = max_iter if max_iter is not None else solver.max_iter
     device = next(model.parameters()).device
     pin = device.type == "cuda"
+    mesh = make_mesh(cfg.parallel)
+    lead = mesh.rank == 0
+    axis = cfg.parallel.data_axis
     init_state, step_fn = make_train_step(
-        model, cfg, fed_freq_weight=load_fed_freq_weight(cfg))
+        model, cfg, fed_freq_weight=load_fed_freq_weight(cfg), mesh=mesh)
     state = init_state()
-    start_iter = 0
-    if resume:
+    if resume and lead:
         ck = latest_checkpoint(cfg.output_dir)
         if ck:
             state = restore_checkpoint(ck, state)
-            start_iter = state.step
             if verbose:
-                print(f"resumed from {ck} @ iter {start_iter}")
+                print(f"resumed from {ck} @ iter {state.step}")
+    state = replicate_state(mesh, state)
+    start_iter = state.step
 
-    writer = MetricsWriter(cfg.output_dir)
+    writer = MetricsWriter(cfg.output_dir) if lead else None
     checkpointer = PeriodicCheckpointer(cfg.output_dir,
                                         solver.checkpoint_period, max_iter)
     zs = torch.as_tensor(np.asarray(zs_weight, np.float32)).to(device)
-    dp = 1
+    dp = mesh.data_size
     pad_total_frames = solver.ims_per_batch * (
         frames_per_chunk or cfg.input.max_sequence_length)
 
@@ -225,7 +237,8 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
                 pad_to_multiple=dp, pad_to_total=pad_total_frames)
         # the batched memory read's contract, for batches of either source
         check_proj_indices(batch.proj_indices, cfg.memory.max_cells)
-        return batch_to_device(batch, "cpu", pin=pin)
+        return batch_to_device(shard_batch(mesh, batch, axis), "cpu",
+                               pin=pin)
 
     window: List[Dict[str, float]] = []
     data_t = step_t = 0.0
@@ -259,8 +272,9 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
                 scalars["lr"] = state.optimizer.lr(it)
                 scalars["data_time"] = data_t / n_win
                 scalars["time"] = step_t / n_win
-                writer.write(it + 1, scalars)
-                if verbose:
+                if lead:
+                    writer.write(it + 1, scalars)
+                if verbose and lead:
                     eta = (max_iter - it - 1) * \
                         (time.perf_counter() - t_start) / \
                         max(it + 1 - start_iter, 1)
@@ -270,8 +284,10 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
                 data_t = step_t = 0.0
                 window.clear()
                 last_log = it + 1
-            checkpointer.step(it, state)
+            if lead:
+                checkpointer.step(it, state)
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

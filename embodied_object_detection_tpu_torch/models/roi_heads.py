@@ -18,6 +18,7 @@ from torch import nn
 
 from ..config import ROIHeadsConfig
 from ..ops.roi_align import multilevel_roi_align
+from ..parallel.mesh import ColumnShard, column_matmul
 from ..structures import Detections, clip_boxes
 from .layers import conv, linear, nchw
 
@@ -68,7 +69,9 @@ class BoxHead(nn.Module):
 class ZeroShotPredictor(nn.Module):
     """Outputs (logits [R, C+1], deltas [R, 4], clip_feats [R, zs_dim]):
     clip_feats = T * l2norm(linear(x)), logits = clip_feats @ zs_weight,
-    deltas from a 2-layer class-agnostic MLP; all f32."""
+    deltas from a 2-layer class-agnostic MLP; all f32. A `zs_weight`
+    sharded by columns over the model axis (`parallel/mesh.py:
+    ColumnShard`) gives the same logits through `column_matmul`."""
 
     def __init__(self, in_dim: int, zs_dim: int = 512,
                  norm_temperature: float = 50.0):
@@ -83,7 +86,10 @@ class ZeroShotPredictor(nn.Module):
         feat = self.cls_linear(x)
         norm = torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
         feat_n = self.norm_temperature * feat / norm.clamp(min=1e-12)
-        logits = feat_n @ zs_weight.float()
+        if isinstance(zs_weight, ColumnShard):
+            logits = column_matmul(feat_n, zs_weight)
+        else:
+            logits = feat_n @ zs_weight.float()
         deltas = self.bbox_fc2(F.relu(self.bbox_fc1(x)))
         return logits, deltas, feat_n
 

@@ -16,8 +16,23 @@ mode: a Swin trunk's stochastic-depth coins are drawn, [B, blocks, 2]
 at once, before the trunk runs, from the step's `torch.Generator` (by
 default one seeded from the step, as the JAX package folds the step into
 its keys), so that a recomputed trunk sees the same coins; a ResNet-50
-trunk draws nothing. Data parallelism over `torch.distributed` is not
-ported yet.
+trunk draws nothing.
+
+Data parallelism (the JAX package computes one function of the global
+batch and XLA inserts the collectives): given a `parallel/mesh.py:Mesh`,
+each rank holds its rows of the global batch and the steps give the
+numbers of the global batch. The normalisers (`sum(weight)`, the
+CenterNet mean counts, the co-training steps' real-frame counts) are
+summed over the data group before they divide, so each rank's loss is
+its rows' numerator over the global normaliser; the gradients are summed
+(not averaged) over the data group in one flat bucket a dtype before
+clipping and AdamW, which then run on equal gradients, so the parameters
+stay equal across the ranks; row b's sampler and coins are those of its
+global row; the caption negatives are the global batch's captions
+(gathered); the reported losses are summed over the data group.
+`replicate_state` broadcasts rank 0's parameters and optimizer state
+once; with a step made on the mesh it is the counterpart of the JAX
+package's `jit_train_step`.
 """
 
 from __future__ import annotations
@@ -33,6 +48,8 @@ from ..models.detector import EmbodiedDetector, recompute
 from ..models.losses import caption_loss
 from ..ops.memory_ops import memory_read_batched
 from ..structures import GroundTruth
+from .mesh import (Mesh, all_reduce_gradients, all_reduce_sum, gather_rows,
+                   replicate)
 
 SAMPLE_SEED = 17
 # the stochastic-depth streams, after the JAX package's keys: key 7 folded
@@ -62,12 +79,13 @@ class TrainState(NamedTuple):
     step: int
 
 
-def sample_generators(step: int, batch: int,
-                      device: torch.device) -> list:
+def sample_generators(step: int, batch: int, device: torch.device,
+                      first_row: int = 0) -> list:
     """One proposal-sampling generator per frame, seeded from (step,
-    frame): the draws depend on the step, never on what ran before."""
+    global row): the draws depend on the step, never on what ran before.
+    `first_row` is the global row of this rank's first frame."""
     gens = []
-    for b in range(batch):
+    for b in range(first_row, first_row + batch):
         seed = np.random.SeedSequence([SAMPLE_SEED, step, b]).generate_state(
             1, dtype=np.uint64)[0]
         gen = torch.Generator(device=device)
@@ -87,23 +105,39 @@ def drop_path_generator(kind: str, step: int,
     return gen
 
 
+def data_rows(mesh: Optional[Mesh], batch: int) -> Tuple[int, int]:
+    """(global batch, this rank's first global row) of `batch` local
+    rows."""
+    if mesh is None:
+        return batch, 0
+    return batch * mesh.data_size, batch * mesh.data_index
+
+
 def train_coins(model: EmbodiedDetector, batch: int, kind: str, step: int,
                 generator: Optional[torch.Generator],
-                device: torch.device) -> Optional[torch.Tensor]:
+                device: torch.device,
+                mesh: Optional[Mesh] = None) -> Optional[torch.Tensor]:
     """[batch, blocks, 2] coins of a Swin trunk from `generator` (else
-    `drop_path_generator(kind, step)`); None, drawing nothing, for a
-    trunk without stochastic depth."""
+    `drop_path_generator(kind, step)`), drawn for the global batch and
+    cut to this rank's rows; None, drawing nothing, for a trunk without
+    stochastic depth."""
     if not model.drops_paths:
         return None
     if generator is None:
         generator = drop_path_generator(kind, step, device)
-    return model.drop_path_coins(batch, generator)
+    total, first = data_rows(mesh, batch)
+    return model.drop_path_coins(total, generator)[first:first + batch]
+
+
+def _data_group(mesh: Optional[Mesh]):
+    return None if mesh is None else mesh.data_group
 
 
 def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
                  batch: TrainBatch, zs_weight: torch.Tensor,
                  step: int, fed_freq_weight: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, losses) of a batch: per-frame losses weighted and divided
     by the normaliser, the CenterNet terms by the batch-global mean
@@ -111,17 +145,21 @@ def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
     on the federated loss and the zero-category mask where the config
     asks for them; `backbone.train_remat` recomputes the batched trunk in
     the backward. `generator` draws a Swin trunk's coins (default: seeded
-    from the step)."""
+    from the step). With a `mesh`, `batch` is this rank's rows and the
+    normalisers are the global batch's: the losses are this rank's part
+    of the global losses, which sum over the data group."""
     n = batch.image.shape[0]
+    group = _data_group(mesh)
+    _, first = data_rows(mesh, n)
     egos = memory_read_batched(batch.mem_features, batch.mem_obs,
                                batch.proj_indices) \
         if cfg.memory.reads_memory() else None
     coins = train_coins(model, n, "box", step, generator,
-                        batch.image.device)
+                        batch.image.device, mesh)
     feats = recompute(model.backbone_raw, batch.image, True, coins) \
         if cfg.backbone.train_remat else \
         model.backbone_raw(batch.image, True, coins)
-    gens = sample_generators(step, n, batch.image.device)
+    gens = sample_generators(step, n, batch.image.device, first)
     per_frame = []
     for b in range(n):
         gt = GroundTruth(batch.gt_boxes[b], batch.gt_classes[b],
@@ -135,13 +173,19 @@ def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
             fed_freq_weight=fed_freq_weight))
     losses = {k: torch.stack([f[k] for f in per_frame]) for k in per_frame[0]}
     weight = batch.weight
-    wsum = weight.sum().clamp(min=1.0)
+    d = 1 if mesh is None else mesh.data_size
+    # the normalisers of the global batch: sums over the data group
+    # before they divide (the loss_norm rows are equal, so the mean of
+    # the ranks' means is the global mean)
+    wsum = all_reduce_sum(weight.sum(), group).clamp(min=1.0)
     norm = wsum if batch.loss_norm is None else \
-        batch.loss_norm.mean().clamp(min=1.0)
-    num_pos_avg = ((losses.pop("_centernet_num_pos") * weight).sum() /
-                   wsum).clamp(min=1.0)
-    reg_norm = ((losses.pop("_centernet_reg_cnt") * weight).sum() /
-                wsum).clamp(min=1.0)
+        (all_reduce_sum(batch.loss_norm.mean(), group) / d).clamp(min=1.0)
+    num_pos_avg = (all_reduce_sum(
+        (losses.pop("_centernet_num_pos") * weight).sum().detach(), group) /
+        wsum).clamp(min=1.0)
+    reg_norm = (all_reduce_sum(
+        (losses.pop("_centernet_reg_cnt") * weight).sum().detach(), group) /
+        wsum).clamp(min=1.0)
     losses = {k: (v * weight).sum() / norm for k, v in losses.items()}
     losses["loss_centernet_agn_pos"] = \
         losses["loss_centernet_agn_pos"] / num_pos_avg
@@ -154,19 +198,23 @@ def batch_losses(model: EmbodiedDetector, cfg: DetectorConfig,
 
 def make_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
                     optimizer: Optional[GroupedOptimizer] = None,
-                    fed_freq_weight: Optional[np.ndarray] = None):
+                    fed_freq_weight: Optional[np.ndarray] = None,
+                    mesh: Optional[Mesh] = None):
     """(init_state, step_fn): init_state() -> TrainState at step 0;
     step_fn(state, batch, zs_weight) -> (state, losses), the losses
     detached, with "total_loss". The model's parameters are updated in
     place. `fed_freq_weight` ([C] class frequencies,
     `engine/train.py:load_fed_freq_weight`) enables the federated loss
-    and zero-category masking the config sets."""
+    and zero-category masking the config sets. With a `mesh`, `batch` is
+    this rank's rows of the global batch (`mesh.py:shard_batch`), and the
+    step is the global batch's (see the module's docstring)."""
     fed_w = None if fed_freq_weight is None else torch.as_tensor(
         np.asarray(fed_freq_weight, np.float32)).to(
             next(model.parameters()).device)
     return make_loss_step(
         model, cfg, lambda step, batch, zs_weight: batch_losses(
-            model, cfg, batch, zs_weight, step, fed_w), optimizer)
+            model, cfg, batch, zs_weight, step, fed_w, mesh=mesh),
+        optimizer, mesh)
 
 
 def batch_to_device(batch, device: "torch.device | str",
@@ -214,18 +262,26 @@ def _weak_frames(model: EmbodiedDetector, images: torch.Tensor,
 
 def _caption_losses(embs: torch.Tensor, caption_features: torch.Tensor,
                     norm_temperature: float, neg_cap_weight: float,
-                    caption_valid: torch.Tensor) -> torch.Tensor:
-    """[B]: each image's caption loss against the whole batch's
-    captions."""
+                    caption_valid: torch.Tensor,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """[B]: each image's caption loss against the whole global batch's
+    captions (gathered over the data group, with their gradient), the
+    image's own caption at its global row."""
+    _, first = data_rows(mesh, embs.shape[0])
+    if mesh is not None:
+        caption_features = gather_rows(mesh, caption_features)
+        caption_valid = gather_rows(mesh, caption_valid.float()) > 0
     return torch.stack([
-        caption_loss(embs[i][None], caption_features, i, norm_temperature,
-                     neg_cap_weight, caption_valid=caption_valid)
+        caption_loss(embs[i][None], caption_features, first + i,
+                     norm_temperature, neg_cap_weight,
+                     caption_valid=caption_valid)
         for i in range(embs.shape[0])])
 
 
 def make_caption_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
                             caption_weight: float = 1.0,
-                            neg_cap_weight: float = 0.125):
+                            neg_cap_weight: float = 0.125,
+                            mesh: Optional[Mesh] = None):
     """Caption co-training (ref: CustomRCNN with ann_type 'caption',
     custom_rcnn.py:188-278): each image's whole-image-box embedding
     (`image_box_embedding`, one batched trunk) against every caption of
@@ -235,12 +291,16 @@ def make_caption_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
     (detic_fast_rcnn.py:418-422). The trunk runs in train mode, as the
     reference trains every co-training forward: a Swin trunk's coins come
     from `generator` (default: seeded from `step` and the JAX package's
-    caption key, 23); a ResNet-50 trunk draws nothing."""
+    caption key, 23); a ResNet-50 trunk draws nothing. With a `mesh`,
+    the inputs are this rank's rows, the negatives the global batch's
+    captions and the normaliser the global B: the total is this rank's
+    part of the global loss."""
 
     def loss_fn(images, caption_features, weight, step: int = 0,
                 generator: Optional[torch.Generator] = None):
+        b_global, _ = data_rows(mesh, images.shape[0])
         coins = train_coins(model, images.shape[0], "caption", step,
-                            generator, images.device)
+                            generator, images.device, mesh)
         feats = model.backbone_raw(images, True, coins)
         embs = torch.stack([
             model.image_box_embedding(images[b],
@@ -249,8 +309,8 @@ def make_caption_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
             for b in range(images.shape[0])])
         losses = _caption_losses(embs, caption_features,
                                  cfg.roi.norm_temperature, neg_cap_weight,
-                                 weight > 0)
-        total = caption_weight * (losses * weight).sum() / images.shape[0]
+                                 weight > 0, mesh)
+        total = caption_weight * (losses * weight).sum() / b_global
         return total, {"caption_loss": total}
 
     return loss_fn
@@ -260,7 +320,8 @@ def make_captiontag_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
                                caption_weight: float = 1.0,
                                neg_cap_weight: float = 0.125,
                                variant: str = "max_size",
-                               image_loss_weight: float = 0.1):
+                               image_loss_weight: float = 0.1,
+                               mesh: Optional[Mesh] = None):
     """'captiontag' sources take the caption loss and the image-label tag
     loss (detic_fast_rcnn.py:370-375) from one forward a frame:
     `frame_train_weak` returns the tag losses and the stage-0 image-box
@@ -271,7 +332,8 @@ def make_captiontag_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
     when None) marks padding rows, which take neither. Both losses are
     normalised by the real frames' count. A Swin trunk's coins come from
     `generator` (default: seeded from `step` and the JAX package's
-    captiontag key, 29)."""
+    captiontag key, 29). With a `mesh`, as `make_caption_train_step`,
+    the real frames counted over the global batch."""
 
     def loss_fn(images, caption_features, weight, labels, labels_valid,
                 zs_weight, frame_valid=None, step: int = 0,
@@ -281,14 +343,15 @@ def make_captiontag_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
             frame_valid = torch.ones((b,), dtype=torch.bool,
                                      device=images.device)
         fv = frame_valid.float()
-        coins = train_coins(model, b, "weak", step, generator, images.device)
+        coins = train_coins(model, b, "weak", step, generator, images.device,
+                            mesh)
         tags, embs = _weak_frames(model, images, zs_weight, labels,
                                   labels_valid, variant, image_loss_weight,
                                   coins)
         cap = _caption_losses(embs, caption_features,
                               cfg.roi.norm_temperature, neg_cap_weight,
-                              (weight > 0) & frame_valid)
-        b_real = fv.sum().clamp(min=1.0)
+                              (weight > 0) & frame_valid, mesh)
+        b_real = all_reduce_sum(fv.sum(), _data_group(mesh)).clamp(min=1.0)
         cap_total = caption_weight * (cap * weight * fv).sum() / b_real
         tag_w = labels_valid.any(dim=1).float() * fv
         tag_total = (tags * tag_w).sum() / b_real
@@ -300,7 +363,8 @@ def make_captiontag_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
 
 def make_image_label_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
                                 variant: str = "max_size",
-                                image_loss_weight: float = 0.1):
+                                image_loss_weight: float = 0.1,
+                                mesh: Optional[Mesh] = None):
     """Image-label batches (ann_type 'image'): the tag half of
     `make_captiontag_train_step`, each frame's `frame_train_weak` over
     one batched trunk, summed over the frames with a valid label and
@@ -308,30 +372,36 @@ def make_image_label_train_step(model: EmbodiedDetector, cfg: DetectorConfig,
     detic_fast_rcnn.py:418-422). Returns loss_fn(images, labels,
     labels_valid, zs_weight, step=0, generator=None) -> (total,
     {"image_loss": total}); a Swin trunk's coins as in
-    `make_captiontag_train_step`."""
+    `make_captiontag_train_step`. With a `mesh`, divided by the global
+    B."""
 
     def loss_fn(images, labels, labels_valid, zs_weight, step: int = 0,
                 generator: Optional[torch.Generator] = None):
         coins = train_coins(model, images.shape[0], "weak", step, generator,
-                            images.device)
+                            images.device, mesh)
         tags, _ = _weak_frames(model, images, zs_weight, labels,
                                labels_valid, variant, image_loss_weight,
                                coins)
         total = (tags * labels_valid.any(dim=1).float()).sum() / \
-            images.shape[0]
+            data_rows(mesh, images.shape[0])[0]
         return total, {"image_loss": total}
 
     return loss_fn
 
 
 def make_loss_step(model: EmbodiedDetector, cfg: DetectorConfig, loss_fn,
-                   optimizer: Optional[GroupedOptimizer] = None):
+                   optimizer: Optional[GroupedOptimizer] = None,
+                   mesh: Optional[Mesh] = None):
     """(init_state, step_fn) of the optimizer step over any loss function
     loss_fn(step, *inputs) -> (total, losses): init_state() -> TrainState
     at step 0; step_fn(state, *inputs) -> (state, losses), the losses
     detached, with "total_loss". A co-training loss function goes in as
     `lambda step, *x: fn(*x, step=step)`, so that its stochastic depth
-    (a Swin trunk's) is drawn anew each step."""
+    (a Swin trunk's) is drawn anew each step. With a `mesh`, loss_fn
+    returns this rank's part of the global losses (a loss function made
+    with the same mesh): the gradients and the reported losses are summed
+    over the data group."""
+    group = _data_group(mesh)
 
     def init_state() -> TrainState:
         nonlocal optimizer
@@ -344,9 +414,32 @@ def make_loss_step(model: EmbodiedDetector, cfg: DetectorConfig, loss_fn,
         model.zero_grad(set_to_none=True)
         total, losses = loss_fn(state.step, *inputs)
         total.backward()
+        all_reduce_gradients(list(model.parameters()), group)
         state.optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["total_loss"] = total.detach()
+        if group is not None:
+            # one all-reduce of every loss
+            summed = all_reduce_sum(torch.stack(list(losses.values())),
+                                    group)
+            losses = dict(zip(losses, summed.unbind()))
         return state._replace(step=state.step + 1), losses
 
     return init_state, step_fn
+
+
+def replicate_state(mesh: Mesh, state: TrainState) -> TrainState:
+    """Broadcast rank 0's parameters, buffers, optimizer state, update
+    count and step to every rank of the mesh, in place."""
+    if mesh.data_group is None:
+        return state
+    opt = state.optimizer
+    replicate(mesh, list(state.model.state_dict().values()) +
+              [t for ts in opt.state.values() for t in ts])
+    device = next(state.model.parameters()).device
+    counts = torch.tensor([opt.count, state.step], dtype=torch.int64,
+                          device=device)
+    replicate(mesh, [counts])
+    opt.count, step = (int(x) for x in counts.tolist())
+    return state._replace(step=step)
+

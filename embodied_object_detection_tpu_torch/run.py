@@ -10,6 +10,14 @@ each chunk's precomputed memory from `--semmap-path` snapshots), for
 overall and quartile COCO bbox AP with the timing split; `--dry-run`
 checks the four golden configurations and the three GT-memory baselines
 end to end on synthetic stand-ins and prints the golden commands.
+`--eval-streams N` (with `--eval-only`) runs the episode-parallel
+protocol (`engine/eval.py:evaluate_dataset_sharded`): the scenes over N
+lanes, the lanes over the ranks of the process mesh's data axis.
+`--coordinator host:port` starts the process group
+(`parallel/mesh.py:init_distributed`: NCCL on the card, gloo on the CPU)
+with the rank and world size `torchrun` sets (RANK, WORLD_SIZE,
+LOCAL_RANK); training then runs data-parallel over the mesh, and
+`--eval-streams` splits its lanes over the ranks.
 `--coco-json` is the vanilla single-frame path (the reference's
 Detic/train_net.py): the detector with `memory_type` image_only (unless
 `--opts` sets one) trains box-supervised over a COCO json's images
@@ -24,10 +32,6 @@ use exits, as the JAX CLI does. Everything runs on the card (`--device
 cuda`, the default) unless `--device cpu` is given; without a card,
 `cuda` raises.
 
-Paths the port does not have yet raise `NotImplementedError` naming their
-ROADMAP queue 1 item: `--eval-streams` above 1 and `--coordinator` (item
-10).
-
 Examples:
   # eval, implicit object memory, on the card:
   python -m embodied_object_detection_tpu_torch.run --eval-only \\
@@ -36,6 +40,12 @@ Examples:
       --weights models/implicit_object_memory.pth
   # the wiring of every golden run, on synthetic data, on the CPU:
   python -m embodied_object_detection_tpu_torch.run --dry-run --device cpu
+  # the same over 2 cards, one process each, 4 lanes:
+  torchrun --nproc-per-node 2 -m embodied_object_detection_tpu_torch.run \\
+      --coordinator 127.0.0.1:29500 --eval-only --eval-streams 4 \\
+      --parity-config implicit_object_memory \\
+      --data-path embodied_data/mp3d_example \\
+      --weights models/implicit_object_memory.pth
   # train 1000 iterations on an h5 root with memory snapshots:
   python -m embodied_object_detection_tpu_torch.run \\
       --data-path embodied_data/mp3d_example --semmap-path SNAPSHOTS \\
@@ -86,11 +96,15 @@ def argument_parser() -> argparse.ArgumentParser:
                    choices=["default", "episodic", "longterm"])
     p.add_argument("--max-chunks", type=int, default=None)
     p.add_argument("--eval-streams", type=int, default=1,
-                   help="episode-parallel eval streams (not ported yet)")
+                   help="episode-parallel eval streams (scenes partitioned "
+                        "over the mesh data axis; must be a multiple of the "
+                        "data axis size)")
     p.add_argument("--save-semmap", action="store_true",
                    help="TEST_SAVE_SEMMAP: write per-sequence memory h5")
     p.add_argument("--coordinator", default="",
-                   help="multi-host coordinator address (not ported yet)")
+                   help="host:port of the process group's rendezvous "
+                        "(rank and world size from RANK / WORLD_SIZE, as "
+                        "torchrun sets them)")
     p.add_argument("--parity-config", default="",
                    choices=("",) + GOLDEN_PRESETS,
                    help="one of the four golden eval configurations")
@@ -225,13 +239,13 @@ def _shrink_for_dry_run(cfg):
 
 
 def _dry_run_extended_surfaces(args) -> dict:
-    """The three GT-memory baselines (semantic_gt, map_gt, explicit_map)
-    through the serial protocol on synthetic stand-ins, with the vendored
-    class table for the first two. (The JAX package's dry run also drives
-    its sharded runner, which comes with ROADMAP queue 1 item 10.)"""
+    """The sharded (`--eval-streams`) protocol over 2 lanes, and the three
+    GT-memory baselines (semantic_gt, map_gt, explicit_map) through the
+    serial protocol on synthetic stand-ins, with the vendored class table
+    for the first two; semantic_gt also through the sharded protocol."""
     from .config import parity_config
     from .data import EpisodeDataset, generate_synthetic_dataset
-    from .engine.eval import evaluate_dataset
+    from .engine.eval import evaluate_dataset, evaluate_dataset_sharded
     from .models.detector import build_detector
 
     results = {}
@@ -245,6 +259,16 @@ def _dry_run_extended_surfaces(args) -> dict:
                                    frames=4, height=64, width=96,
                                    map_h=8, map_w=8)
         cfg_out = mini.replace(output_dir=os.path.join(td, "out"))
+        model = build_detector(cfg_out, seed=0, device=args.device)
+        res = evaluate_dataset_sharded(
+            model, cfg_out, EpisodeDataset(root, max_sequence_length=4,
+                                           max_gt=8),
+            zs, streams=2, verbose=False, num_workers=0)
+        if res.num_images <= 0:
+            raise RuntimeError("sharded dry-run consumed no images")
+        results["sharded"] = res.overall
+        print(f"[dry-run] sharded eval (2 streams): OK ({res.num_images} "
+              "images)")
         for mt in ("semantic_gt", "map_gt", "explicit_map"):
             cfg_mt = cfg_out.replace(
                 memory=dataclasses.replace(cfg_out.memory, memory_type=mt))
@@ -259,8 +283,14 @@ def _dry_run_extended_surfaces(args) -> dict:
             if res.num_images <= 0:
                 raise RuntimeError(f"{mt} dry-run consumed no images")
             results[mt] = res.overall
-            print(f"[dry-run] {mt} baseline eval OK ({res.num_images} "
-                  "images)")
+            how = "serial"
+            if mt == "semantic_gt":
+                # the lanes' external tables
+                evaluate_dataset_sharded(model, cfg_mt, ds, zs, streams=2,
+                                         verbose=False, num_workers=0)
+                how = "serial + sharded"
+            print(f"[dry-run] {mt} baseline eval OK ({how}, "
+                  f"{res.num_images} images)")
     return results
 
 
@@ -320,14 +350,6 @@ def parity_dry_run(args) -> dict:
           ".pth weights and mp3d_example exist, run:")
     print(GOLDEN_COMMANDS.format(data=args.data_path))
     return out
-
-
-def _not_ported(args) -> None:
-    """Raise on every path the port does not have, before any work."""
-    if args.coordinator or args.eval_streams > 1:
-        raise NotImplementedError(
-            "--coordinator and --eval-streams > 1 (the sharded evaluation) "
-            "are not ported yet: ROADMAP queue 1 item 10")
 
 
 def load_weights(model, cfg, path: str):
@@ -445,14 +467,16 @@ def main(argv=None):
     --coco-json-test is given."""
     from .models.detector import resolve_device
     args = argument_parser().parse_args(argv)
-    _not_ported(args)
     resolve_device(args.device)
     if args.dry_run:
         return parity_dry_run(args)
+    if args.coordinator:
+        from .parallel.mesh import init_distributed
+        init_distributed(args.coordinator, args.device)
 
     from .config import DetectorConfig, apply_opts, parity_config
     from .data import EpisodeDataset
-    from .engine.eval import evaluate_dataset
+    from .engine.eval import evaluate_dataset, evaluate_dataset_sharded
     from .models.detector import build_detector
 
     cfg = parity_config(args.parity_config) if args.parity_config \
@@ -527,9 +551,19 @@ def main(argv=None):
         max_gt=cfg.input.max_gt_boxes, memory_type=cfg.memory.memory_type,
         clip_path=clip_path, semmap_path=cfg.semmap_path,
         semmap_dialect=cfg.memory.semmap_dialect)
-    results = evaluate_dataset(model, cfg, dataset, zs_weight,
-                               max_chunks=args.max_chunks,
-                               profile_dir=args.profile_dir or None)
+    if args.eval_streams > 1:
+        if args.max_chunks:
+            print("warning: --max-chunks is ignored with --eval-streams "
+                  "(scene partitioning needs the full chunk list)")
+        if args.profile_dir:
+            print("warning: --profile-dir is ignored with --eval-streams "
+                  "(profile the single-stream path)")
+        results = evaluate_dataset_sharded(model, cfg, dataset, zs_weight,
+                                           streams=args.eval_streams)
+    else:
+        results = evaluate_dataset(model, cfg, dataset, zs_weight,
+                                   max_chunks=args.max_chunks,
+                                   profile_dir=args.profile_dir or None)
     print("overall:", {k: round(v, 3) for k, v in results.overall.items()})
     for i, q in enumerate(results.quartiles):
         if q:

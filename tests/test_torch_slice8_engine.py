@@ -23,15 +23,15 @@
     with the same zs_weight and `_unmapped`; `verify_against_model`
     reports nothing missing or mismatched, and a frame on the loaded
     weights equals a frame on `load_jax_params`' exactly;
-  * CLI: `--dry-run --device cpu` runs the four presets and the three GT
-    baselines and prints the port's golden commands; `--eval-only
+  * CLI: `--dry-run --device cpu` runs the four presets, the sharded
+    protocol and the three GT baselines and prints the port's golden
+    commands; `--eval-only
     --device cpu` on a synthetic root prints overall and quartile AP and
     writes the semmap snapshots, from a `.pth` and from a checkpoint
     directory; `--coco-json` on a synthesized json evaluates and trains
-    (2 iterations, then `--coco-json-test`) with a finite AP; every path
-    not ported raises `NotImplementedError` (res5 without `--coco-json`
-    exits, as the JAX CLI does), and `--device cuda` without a card
-    raises.
+    (2 iterations, then `--coco-json-test`) with a finite AP; res5
+    without `--coco-json` exits, as the JAX CLI does, and `--device cuda`
+    without a card raises.
 """
 
 import dataclasses
@@ -473,7 +473,7 @@ def test_cli_dry_run(capsys):
     out = run.main(["--dry-run", "--device", "cpu"])
     assert sorted(out) == sorted(run.GOLDEN_PRESETS + ("surfaces",))
     assert sorted(out["surfaces"]) == ["explicit_map", "map_gt",
-                                       "semantic_gt"]
+                                       "semantic_gt", "sharded"]
     text = capsys.readouterr().out
     assert text.count("python -m embodied_object_detection_tpu_torch.run "
                       "--eval-only") == 4
@@ -522,14 +522,9 @@ def test_cli_eval_only(fx, tmp_path, capsys):
     assert os.path.getsize(tmp_path / "prof" / "eval_trace.json") > 0
 
 
-# argv -> (the error, what its message names): the paths the port does
-# not have name their ROADMAP item; res5 without --coco-json exits as the
-# JAX CLI does (a single-frame variant)
+# argv -> (the error, what its message names): res5 without --coco-json
+# exits as the JAX CLI does (a single-frame variant)
 NOT_PORTED = {
-    "eval_streams": (["--eval-only", "--eval-streams", "2"],
-                     NotImplementedError, "item 10"),
-    "coordinator": (["--eval-only", "--coordinator", "host:1234"],
-                    NotImplementedError, "item 10"),
     "res5": (["--eval-only", "--opts", "roi.head_type=res5"], SystemExit,
              "--coco-json"),
 }
