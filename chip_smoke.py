@@ -298,6 +298,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      (twice, B = 4) and caption steps at world size 1 bit-equal to the
      plain steps, ms a step of both; (d) the build tools' world xyz and
      cell ids of 20 frames at 480x640 within 1e-5 m of the CPU
+  17. the RL stack (`rl/`) under a caller's TF32 switched on: each RL
+     call must switch it off for its own convolutions and products
+     (checked op by op, backward included, on an env step, an update,
+     the ResNet policy, MonoDepth and the mapper) and give the caller's
+     setting back; (a) `PPOTrainer` at the
+     RL CLI's defaults (4 envs x 64 steps, ppo_epoch 2, num_mini_batch 2)
+     on the RGB `PointNavPolicy` at hidden 512 and 64x64 frames for 3
+     updates: ms an env step and an update, the host syncs of an env step
+     (one, the packed copy) and of an update (none, under the sync debug
+     mode "error"), peak memory, no port kernel launched; then one update
+     on the last rollout, card against CPU on the same minibatch indices:
+     metrics within rtol 1e-4, parameters within 1e-5 of each tensor's
+     largest, the update p_new - p_old within 1e-4 of its largest; (b) `PointNavResNetPolicy` (resnet50, baseplanes 32, hidden
+     512): act and evaluate_actions card against CPU within 1e-4, then a
+     `PPOAgent` through `Benchmark` for 2 episodes; (c) `MonoDepthNet`
+     (3, 4, 6, 3) at 228x304, seeded (its last conv scaled to depths near
+     2 m), card against CPU within 1e-4 of the net's part (the depth
+     less that conv's bias), ms a frame, its FLOPs counted
+     (`torch.utils.flop_counter`) by part (encoder, D, MFF, R);
+     then a `DepthMapperAndPlannerAgent` on that estimator over one
+     episode of a 228x304 RGB grid sim (at least 20 steps): kernel 1's
+     launches counted, one a map update, each held bit-equal to
+     `segment_sum_plain` on the same rows and ids; the map rebuilt from
+     the episode's depths and poses on the card and on the CPU (cells
+     that differ counted; at most 1e-3 of the points may move); ms a plan
+     and its iterations; (d) DD-PPO on a one-rank NCCL group: the update
+     bit-equal to the plain update (cuDNN's deterministic algorithms for
+     both)
   7 also holds kernels 4 and 4b at the co-training pools, R = 129 (128
   random ROIs and the whole-image box) and R = 1 (the whole-image box),
   to the plain tap form as phases 4b and 4f do, and times them beside it
@@ -320,7 +348,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   for 9b; each entry's `op`: the op with its f32 matmuls beside the plain
   version and the composition with the same matmul), and the read's
   transpose beside the plain autograd and the autograd of row 2's
-  F.embedding_bag(mean) yardstick.
+  F.embedding_bag(mean) yardstick; and kernel 1 at the SLAM mapper's
+  shape (K = 1, 127^2 cells, the 69 312 rows of a 228x304 depth), on
+  phase 17c's last map update, beside the plain version, `index_add_`
+  and its bound.
 
 With --profile, phases 5, 8 and 10 also print each port kernel's device
 time a call in the profiled chunk, step and engine run (10: the engine
@@ -6795,6 +6826,564 @@ def run_parallel():
     return launches, step_launches
 
 
+# ------------------------------------------------------------- phase 17: RL
+
+RL_ENVS, RL_STEPS, RL_UPDATES = 4, 64, 3    # the RL CLI's defaults
+RL_HIDDEN = 512                             # the policy's published width
+RL_HW = (64, 64)
+SLAM_HW = (228, 304)                        # MonoDepth's input
+SLAM_MIN_STEPS = 20
+PARAM_RTOL = 1e-5       # card vs CPU: a tensor's parameters after an update
+POLICY_ATOL = 1e-4      # card vs CPU: values, log-probs, hidden, entropy
+DELTA_RTOL = 1e-4       # card vs CPU: an update p_new - p_old, of its largest
+DEPTH_RTOL = 1e-4       # card vs CPU: MonoDepth's depth less the last
+                        # convolution's bias, of its own largest magnitude
+
+
+TF32_OPS = ("convolution", "convolution_backward", "mm", "addmm", "bmm",
+            "baddbmm")
+
+
+def tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def set_tf32(flags):
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def tf32_held_off(label, fn):
+    """fn() with TF32 switched on by the caller (phase 17 keeps it on, as
+    a caller that wants it for its own models would): each convolution
+    and matrix product fn runs, backward included, must see both flags
+    off (the RL paths never pass through `build_detector`, and switch
+    TF32 off for their own calls), and the caller's flags must be back on
+    when fn returns. -> (fn's result, the products seen)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Probe(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in TF32_OPS:
+                seen.append((name, tf32_flags()))
+            return func(*args, **(kwargs or {}))
+
+    saved = tf32_flags()
+    set_tf32((True, True))
+    try:
+        with Probe():
+            out = fn()
+        torch.cuda.synchronize()
+        after = tf32_flags()
+    finally:
+        set_tf32(saved)
+    on = sorted({name for name, flags in seen if any(flags)})
+    if not seen or on or after != (True, True):
+        raise AssertionError(f"{label}: {len(seen)} products, TF32 on in "
+                             f"{on}, caller's flags {after} after the call "
+                             "(wanted (True, True))")
+    return out, len(seen)
+
+
+def rl_env_fn(i, rgb_hw=RL_HW, steps=100, scene=None):
+    from embodied_object_detection_tpu_torch.rl.nav import make_nav_rl_env
+    return make_nav_rl_env(scene_ids=(scene or f"scene{i % 4}",),
+                           episodes_per_scene=8, seed=i,
+                           max_episode_steps=steps, with_rgb=True,
+                           image_hw=rgb_hw)
+
+
+def no_kernel_launched(label):
+    launched = {k: v for k, v in read_counters().items() if v}
+    if launched:
+        raise AssertionError(f"{label} launched port kernels: {launched}")
+
+
+def hold_params(label, card, cpu, rtol=PARAM_RTOL):
+    """Each card tensor within `rtol` of the CPU tensor's largest
+    magnitude; returns the largest such relative error."""
+    worst = 0.0
+    for k, c in cpu.items():
+        err = float((card[k].cpu() - c).abs().max())
+        scale = max(float(c.abs().max()), 1e-30)
+        if not err <= rtol * scale:
+            raise AssertionError(f"{label}: {k} differs by {err:.3e} "
+                                 f"(largest {scale:.3e}, rtol {rtol:g})")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def ppo_update_on(device, policy, ppo_state, cfg, batch, mb_indices):
+    """One PPO update of a copy of `policy` on `device` from `ppo_state`
+    (the Adam moments, counts) -> (parameters, metrics)."""
+    from embodied_object_detection_tpu_torch.rl.ppo import PPO
+    pol = copy.deepcopy(policy).to(device)
+    ppo = PPO(pol, cfg)
+    ppo.load_state_dict(ppo_state)
+    metrics = ppo.update({k: ({kk: vv.to(device) for kk, vv in v.items()}
+                              if isinstance(v, dict) else v.to(device))
+                          for k, v in batch.items()},
+                         mb_indices=mb_indices.to(device))
+    return ({k: v.detach().cpu() for k, v in pol.state_dict().items()},
+            {k: float(v) for k, v in metrics.items()})
+
+
+def run_rl_trainer():
+    """Phase 17a: the RGB PointNav policy at hidden 512 on 64x64 frames,
+    trained by `rl/trainer.py:PPOTrainer` at the CLI's defaults (4 envs x
+    64 steps, ppo_epoch 2, num_mini_batch 2) for 3 updates; then one
+    update held card against CPU."""
+    from embodied_object_detection_tpu_torch.rl.ppo import (
+        PPOConfig, minibatch_indices)
+    from embodied_object_detection_tpu_torch.rl.trainer import (
+        PPOTrainer, PPOTrainerConfig)
+    cfg = PPOTrainerConfig(num_envs=RL_ENVS, num_steps=RL_STEPS,
+                           num_updates=RL_UPDATES, hidden_size=RL_HIDDEN,
+                           with_rgb=True,
+                           ppo=PPOConfig(ppo_epoch=2, num_mini_batch=2))
+    t0 = time.perf_counter()
+    trainer = PPOTrainer(cfg, rl_env_fn, device="cuda")
+    setup_s = time.perf_counter() - t0
+    step_s, update_ms = [], []
+    collect, update = trainer._collect_rollout_step, trainer.ppo.update
+
+    def timed_step(*args):
+        t = time.perf_counter()
+        out = collect(*args)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    def checked_update(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")   # no host sync inside
+        try:
+            out = update(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer._collect_rollout_step = timed_step
+    trainer.ppo.update = checked_update
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    log = trainer.train()
+    peak = torch.cuda.max_memory_allocated()
+    no_kernel_launched("phase 17a")
+    if len(log) != RL_UPDATES or not all(
+            np.isfinite(r[k]) for r in log
+            for k in ("value_loss", "action_loss", "dist_entropy")):
+        raise AssertionError(f"phase 17a: training log {log}")
+    for r in log:
+        print(f"  update {r['update']}: value_loss {r['value_loss']:.4f} "
+              f"action_loss {r['action_loss']:.5f} entropy "
+              f"{r['dist_entropy']:.4f} reward {r['reward']:.3f}")
+
+    # the host syncs of one more env step (by design one: the packed copy)
+    hidden = torch.zeros((RL_ENVS, RL_HIDDEN), device="cuda")
+    prev = torch.zeros((RL_ENVS,), dtype=torch.int64, device="cuda")
+    masks = torch.ones((RL_ENVS,), device="cuda")
+    sites = sync_sites(lambda: collect(hidden, prev, masks))
+    if sum(sites.values()) != 1:
+        raise AssertionError(f"phase 17a: {sum(sites.values())} host syncs "
+                             f"in an env step: {dict(sites)}")
+    _, act_ops = tf32_held_off("phase 17a env step",
+                               lambda: collect(hidden, prev, masks))
+
+    # one update, card against CPU, on the last rollout's batch
+    storage = trainer.rollouts
+    storage.step = RL_STEPS
+    batch = storage.batch("cpu")
+    storage.step = 0
+    mb = minibatch_indices(cfg.ppo, RL_ENVS,
+                           torch.Generator("cuda").manual_seed(17), "cuda")
+    state = trainer.ppo.state_dict()
+    (p_card, m_card), update_ops = tf32_held_off(
+        "phase 17a update", lambda: ppo_update_on(
+            "cuda", trainer.policy, state, cfg.ppo, batch, mb))
+    p_cpu, m_cpu = ppo_update_on("cpu", trainer.policy, state, cfg.ppo,
+                                 batch, mb)
+    worst_m = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+                  for k in m_cpu)
+    if worst_m > 1e-4:
+        raise AssertionError(f"phase 17a: metrics card {m_card} vs CPU "
+                             f"{m_cpu}")
+    worst_p = hold_params("phase 17a update", p_card, p_cpu)
+    before = {k: v.detach().cpu() for k, v in trainer.policy.state_dict()
+              .items()}
+    worst_d = max(float(((p_card[k] - before[k]) - (p_cpu[k] - before[k]))
+                        .abs().max()) /
+                  float((p_cpu[k] - before[k]).abs().max())
+                  for k in p_cpu if bool((p_cpu[k] != before[k]).any()))
+    if not worst_d <= DELTA_RTOL:
+        raise AssertionError(f"phase 17a: the update p_new - p_old card vs "
+                             f"CPU differs by {worst_d:.3e} of its largest "
+                             f"(rtol {DELTA_RTOL:g})")
+    trainer.close()
+    steps = np.asarray(step_s[RL_STEPS:]) * 1e3     # after the 1st update
+    phase("17a", f"PPO trainer, RGB PointNavPolicy hidden {RL_HIDDEN} on "
+                 f"{RL_HW[0]}x{RL_HW[1]} frames, {RL_ENVS} envs x "
+                 f"{RL_STEPS} steps, ppo_epoch 2 x 2 minibatches, "
+                 f"{RL_UPDATES} updates (set-up {setup_s:.1f} s): "
+                 f"{np.median(steps):.2f} ms an env step (median, "
+                 f"{RL_ENVS} envs; p90 {np.percentile(steps, 90):.2f}), "
+                 f"{np.mean(update_ms[1:]):.1f} ms an update (updates 2-3; "
+                 f"first {update_ms[0]:.1f}), 1 host sync an env step, none "
+                 f"in an update (sync debug mode \"error\"), peak "
+                 f"{peak / 2 ** 30:.2f} GiB, no port kernel launched, TF32 "
+                 f"off inside the calls under the caller's TF32 on ({act_ops} "
+                 f"products in an env step, {update_ops} in an update, "
+                 f"backward included); one update card vs CPU: metrics "
+                 f"within {worst_m:.1e} (rtol 1e-4), parameters within "
+                 f"{worst_p:.1e} of each tensor's largest (rtol "
+                 f"{PARAM_RTOL:g}), the update p_new - p_old within "
+                 f"{worst_d:.1e} of its largest (rtol {DELTA_RTOL:g})")
+
+
+def run_rl_resnet_benchmark():
+    """Phase 17b: the DD-PPO ResNet policy (resnet50, baseplanes 32, hidden
+    512) on 64x64 RGB, card against CPU; a PPOAgent through Benchmark."""
+    from embodied_object_detection_tpu_torch.rl.agents import (
+        Benchmark, PPOAgent)
+    from embodied_object_detection_tpu_torch.rl.resnet_policy import (
+        PointNavResNetPolicy)
+    rng = np.random.RandomState(171)
+    policy = PointNavResNetPolicy(4, RL_HIDDEN, "resnet50", 32,
+                                  image_hw=RL_HW, seed=17)
+    n, steps = 4, 8
+
+    def obs(lead):
+        return {"rgb": torch.from_numpy(rng.randint(
+                    0, 256, lead + RL_HW + (3,)).astype(np.float32)),
+                "pointgoal_with_gps_compass": torch.from_numpy(
+                    (rng.rand(*lead, 2) * [5, 6] - [0, 3]).astype(
+                        np.float32))}
+    o1, seq = obs((n,)), obs((steps, n))
+    h = torch.from_numpy(rng.randn(n, RL_HIDDEN).astype(np.float32))
+    prev = torch.from_numpy(rng.randint(0, 4, n))
+    masks = torch.tensor([0.0, 1.0, 1.0, 1.0])
+    seq_masks = torch.from_numpy((rng.rand(steps, n) > 0.2).astype(
+        np.float32))
+    actions = torch.from_numpy(rng.randint(0, 4, (steps, n)))
+    outs, ops = {}, 0
+    for dev in ("cuda", "cpu"):
+        pol = copy.deepcopy(policy).to(dev).eval()
+        mv = {k: v.to(dev) for k, v in o1.items()}
+        sv = {k: v.to(dev) for k, v in seq.items()}
+
+        def act_and_evaluate():
+            with torch.no_grad():
+                return (pol.act(mv, h.to(dev), prev.to(dev), masks.to(dev),
+                                deterministic=True) +
+                        pol.evaluate_actions(sv, h.to(dev), actions.to(dev),
+                                             seq_masks.to(dev),
+                                             actions.to(dev)))
+        if dev == "cuda":
+            out, ops = tf32_held_off("phase 17b", act_and_evaluate)
+        else:
+            out = act_and_evaluate()
+        outs[dev] = [t.cpu() for t in out]
+    if not torch.equal(outs["cuda"][1], outs["cpu"][1]):
+        raise AssertionError("phase 17b: deterministic actions differ")
+    worst = max(float((g - c).abs().max()) for i, (g, c) in
+                enumerate(zip(outs["cuda"], outs["cpu"])) if i != 1)
+    if worst > POLICY_ATOL:
+        raise AssertionError(f"phase 17b: card vs CPU differ by {worst}")
+
+    env = rl_env_fn(5, steps=50, scene="bench17")
+    agent = PPOAgent(policy, RL_HIDDEN, device="cuda")
+    zero_counters()
+    t0 = time.perf_counter()
+    stats = Benchmark(env.habitat_env).evaluate(agent, num_episodes=2)
+    secs = time.perf_counter() - t0
+    no_kernel_launched("phase 17b")
+    env.close()
+    if not np.isfinite(stats["distance_to_goal"]):
+        raise AssertionError(f"phase 17b: Benchmark {stats}")
+    phase("17b", f"PointNavResNetPolicy (resnet50, baseplanes 32, hidden "
+                 f"{RL_HIDDEN}) on {RL_HW[0]}x{RL_HW[1]} RGB: act and "
+                 f"evaluate_actions ({steps} x {n}) card vs CPU within "
+                 f"{worst:.1e} (atol {POLICY_ATOL:g}), TF32 off in its "
+                 f"{ops} products, deterministic "
+                 f"actions equal; PPOAgent through Benchmark, 2 episodes "
+                 f"in {secs:.1f} s: " +
+                 ", ".join(f"{k} {v:.3f}" for k, v in stats.items()))
+
+
+class SegmentSumSpy:
+    """Stands in for `rl/slam.py`'s `segment_sum`: calls the wrapper and
+    holds each launch bit-equal to `segment_sum_plain` on the same rows
+    and ids; keeps the last call's inputs for phase 7."""
+
+    def __init__(self, fn):
+        from embodied_object_detection_tpu_torch.ops import segment_sum as ss
+        self.fn, self.plain, self.calls, self.last = fn, \
+            ss.segment_sum_plain, 0, None
+
+    def __call__(self, w, idx, cells):
+        out = self.fn(w, idx, cells)
+        want = self.plain(w, idx, cells)
+        if not torch.equal(out, want):
+            raise AssertionError("phase 17c: kernel 1 differs from "
+                                 "segment_sum_plain on the SLAM map")
+        self.calls += 1
+        self.last = (w.clone(), idx.clone(), cells)
+        return out
+
+
+def run_rl_slam():
+    """Phase 17c: MonoDepthNet (3, 4, 6, 3) at 228x304 card vs CPU, then a
+    DepthMapperAndPlannerAgent on that estimator over one episode of a
+    228x304 RGB grid sim, kernel 1 counting its map."""
+    from embodied_object_detection_tpu_torch.rl import slam
+    from embodied_object_detection_tpu_torch.rl.agents import Benchmark
+    from embodied_object_detection_tpu_torch.rl.monodepth import (
+        MonoDepthEstimator)
+    from torch.utils.flop_counter import FlopCounterMode
+    est = MonoDepthEstimator(device="cuda")
+    est.init(seed=17)
+    bias = 2.0
+    with torch.no_grad():     # depths near 2 m, inside the mapper's range
+        est.net.r_conv2.weight.mul_(0.05)
+        est.net.r_conv2.bias.fill_(bias)
+    rgb = np.random.RandomState(172).randint(0, 256, SLAM_HW + (3,)).astype(
+        np.uint8)
+    est.predict(rgb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        got = est.predict(rgb)
+    torch.cuda.synchronize()
+    depth_ms = (time.perf_counter() - t0) / 5 * 1e3
+    _, depth_ops = tf32_held_off("phase 17c MonoDepth",
+                                 lambda: est.predict(rgb))
+    with FlopCounterMode(display=False) as fc:    # this frame's own count
+        est.predict(rgb)
+    flops = fc.get_total_flops()
+    parts = {"E": 0, "D": 0, "MFF": 0, "R": 0}
+    for name, ops in fc.get_flop_counts().items():
+        if name.count(".") == 1:                  # the net's own children
+            child = name.split(".")[1]
+            part = ("D" if child.startswith("d_") else "MFF"
+                    if child.startswith("mff_") else "R"
+                    if child.startswith("r_") else "E")
+            parts[part] += sum(ops.values())
+    if sum(parts.values()) != flops:
+        raise AssertionError(f"phase 17c: MonoDepth FLOPs {parts} do not "
+                             f"add up to {flops}")
+    cpu_est = MonoDepthEstimator(copy.deepcopy(est.net).cpu(), device="cpu")
+    want = cpu_est.predict(rgb)
+    # the net's own part: the depth less the last convolution's constant
+    body = float((want - bias).abs().max())
+    depth_err = float((got.cpu() - want).abs().max()) / body
+    if not depth_err <= DEPTH_RTOL:
+        raise AssertionError(f"phase 17c: MonoDepth card vs CPU "
+                             f"{depth_err:.3e} of the net's part "
+                             f"({body:.3e} m)")
+
+    env = rl_env_fn(0, rgb_hw=SLAM_HW, steps=30, scene="slam17")
+    sim = env.habitat_env.sim
+    agent = slam.DepthMapperAndPlannerAgent(sim, monodepth=est,
+                                            device="cuda")
+    spy = SegmentSumSpy(slam.segment_sum)
+    depths, poses, plan_ms, iters = [], [], [], []
+    update_map, compute_depth = agent.update_map, est.compute_depth
+    plan = slam.plan_distance_field
+
+    def recorded_update(observations):       # the pose and depth it maps
+        poses.append(agent._pose4x4())
+        update_map(observations)
+
+    def recorded_depth(rgb):
+        depths.append(compute_depth(rgb))
+        return depths[-1]
+
+    def timed_plan(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g = plan(*args, **kw)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t) * 1e3)
+        iters.append(kw["stats"]["iterations"])
+        return g
+
+    agent.update_map, est.compute_depth = recorded_update, recorded_depth
+    slam.segment_sum, slam.plan_distance_field = spy, timed_plan
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        stats = Benchmark(env.habitat_env).evaluate(agent, num_episodes=1)
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        slam.segment_sum, slam.plan_distance_field = spy.fn, plan
+    env.close()
+    maps = len(depths)
+    if maps < SLAM_MIN_STEPS:
+        raise AssertionError(f"phase 17c: {maps} map updates (at least "
+                             f"{SLAM_MIN_STEPS} wanted)")
+    others = {k: v for k, v in launches.items() if v and k != "segment_sum"}
+    if launches["segment_sum"] != maps or spy.calls != maps or \
+            len(poses) != maps or others:
+        raise AssertionError(f"phase 17c: launches {launches}, {maps} map "
+                             f"updates, {spy.calls} held")
+
+    # the map, card against CPU, from the same depths and poses
+    mapper = slam.DirectDepthMapper(map_size_m=agent.map_size_m,
+                                    cell_m=agent.cell_m)
+    cpu_map = torch.zeros_like(agent._obstacle_counts, device="cpu")
+    card_map = torch.zeros_like(agent._obstacle_counts)
+    map_ops = 0
+    for depth, pose in zip(depths, poses):
+        depth, pose = torch.from_numpy(depth), torch.from_numpy(pose)
+        cpu_map += mapper(depth, pose)
+        counts, ops = tf32_held_off("phase 17c mapper", lambda: mapper(
+            depth.cuda(), pose.cuda()))
+        card_map += counts
+        map_ops += ops
+    if not torch.equal(card_map.cpu(), agent._obstacle_counts.cpu()):
+        raise AssertionError("phase 17c: the agent's map is not its views'")
+    diff = card_map.cpu() != cpu_map
+    moved = float((card_map.cpu() - cpu_map).abs().sum())
+    points = float(cpu_map.sum())
+    if moved > 1e-3 * points:
+        raise AssertionError(f"phase 17c: card map differs from the CPU's "
+                             f"by {moved} of {points} points")
+    share = ", ".join(f"{k} {v / flops:.0%}" for k, v in parts.items())
+    phase("17c", f"MonoDepthNet (3, 4, 6, 3) at {SLAM_HW[0]}x{SLAM_HW[1]}, "
+                 f"seeded: {depth_ms:.2f} ms a frame, {flops / 1e9:.1f} GFLOP "
+                 f"a frame (counted: {share}), "
+                 f"{flops / depth_ms / 1e9:.2f} TFLOP/s, TF32 off in its "
+                 f"{depth_ops} convolutions and in the mapper's {map_ops} "
+                 f"products; card vs CPU within {depth_err:.1e} of the net's "
+                 f"part (the depth less the last bias, largest {body:.3f} m; "
+                 f"rtol {DEPTH_RTOL:g}); DepthMapperAndPlannerAgent on it, "
+                 f"one episode of {maps} steps in {secs:.1f} s "
+                 f"({', '.join(f'{k} {v:.3f}' for k, v in stats.items())}): "
+                 f"kernel 1 launched {launches['segment_sum']} times, one a "
+                 f"map update ({agent.mapper.map_cells}^2 cells, "
+                 f"{SLAM_HW[0] * SLAM_HW[1]} rows), each bit-equal to "
+                 f"segment_sum_plain; the map ({points:.0f} points) card vs "
+                 f"CPU on the same depths and poses: {int(diff.sum())} cells "
+                 f"differ, {moved:.0f} points moved" +
+                 (" (a point on a cell boundary whose f32 pose product "
+                  "rounds the other way)" if moved else "") +
+                 f"; plans {np.median(plan_ms):.1f} ms (median; max "
+                 f"{max(plan_ms):.1f}), {int(np.median(iters))} iterations "
+                 f"(min {min(iters)}, max {max(iters)})")
+    return spy.last, launches["segment_sum"]
+
+
+def run_rl_ddppo():
+    """Phase 17d: DD-PPO at world size 1 over NCCL: the update bit-equal
+    to the plain update."""
+    import torch.distributed as dist
+    from embodied_object_detection_tpu_torch.parallel.mesh import (
+        init_distributed)
+    from embodied_object_detection_tpu_torch.rl.ddppo import make_ddppo
+    from embodied_object_detection_tpu_torch.rl.policy import PointNavPolicy
+    from embodied_object_detection_tpu_torch.rl.ppo import (
+        PPO, PPOConfig, minibatch_indices)
+    rng = np.random.RandomState(173)
+    cfg = PPOConfig(ppo_epoch=2, num_mini_batch=2)
+    t, n = RL_STEPS, RL_ENVS
+    dev = "cuda"
+    batch = {"observations": {
+                 "pointgoal_with_gps_compass": torch.from_numpy(
+                     rng.randn(t, n, 2).astype(np.float32)).to(dev),
+                 "rgb": torch.from_numpy(rng.randint(
+                     0, 256, (t, n) + RL_HW + (3,)).astype(
+                         np.float32)).to(dev)},
+             "hidden0": torch.from_numpy(rng.randn(n, RL_HIDDEN).astype(
+                 np.float32)).to(dev)}
+    for k in ("value_preds", "returns", "masks", "old_log_probs"):
+        batch[k] = torch.from_numpy(rng.rand(t, n).astype(np.float32)).to(
+            dev)
+    batch["masks"] = (batch["masks"] > 0.1).float()
+    batch["old_log_probs"] = torch.log(batch["old_log_probs"] * 0.5 + 0.1)
+    for k in ("actions", "prev_actions"):
+        batch[k] = torch.from_numpy(rng.randint(0, 4, (t, n))).to(dev)
+    mb = minibatch_indices(cfg, n, torch.Generator(dev).manual_seed(3), dev)
+    base = PointNavPolicy(4, RL_HIDDEN, blind=False, image_hw=RL_HW,
+                          seed=18).to(dev)
+    plain, dd = copy.deepcopy(base), copy.deepcopy(base)
+    # cuDNN's deterministic algorithms for both: a bit-equality needs a
+    # convolution backward that repeats
+    torch.backends.cudnn.deterministic = True
+    rank, world = init_distributed(f"127.0.0.1:{free_port()}", dev,
+                                   timeout_s=120)
+    try:
+        want = PPO(plain, cfg).update(batch, mb_indices=mb)
+        if (rank, world, dist.get_backend()) != (0, 1, "nccl"):
+            raise AssertionError(f"phase 17d: rank {rank} of {world}")
+        got = make_ddppo(dd, cfg).update(batch, mb_indices=mb)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = False
+    for (k, a), b in zip(plain.state_dict().items(), dd.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 17d: {k} differs from the plain "
+                                 "update")
+    if any(not torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"phase 17d: metrics {got} vs {want}")
+    phase("17d", f"DD-PPO on a one-rank NCCL group (world {world}): the "
+                 f"update of the RGB policy (hidden {RL_HIDDEN}, {t} x {n}, "
+                 f"2 x 2 minibatches) bit-equal to the plain update, "
+                 f"parameters and metrics")
+
+
+def run_rl():
+    """Phase 17: the RL stack (rl/); returns phase 17c's last map update's
+    kernel-1 inputs and its launches for phase 7."""
+    t0 = time.perf_counter()
+    saved = tf32_flags()
+    set_tf32((True, True))      # a caller's: the RL calls switch it off
+    try:
+        run_rl_trainer()
+        run_rl_resnet_benchmark()
+        last, launches = run_rl_slam()
+        run_rl_ddppo()
+    finally:
+        set_tf32(saved)
+    phase(17, f"the RL stack in {time.perf_counter() - t0:.1f} s, under "
+              f"the caller's TF32 on")
+    return last, launches
+
+
+def time_segment_sum_slam(last, launches):
+    """Phase 7, kernel 1 at the SLAM mapper's shape (K = 1, the map's
+    127^2 cells, a 228x304 depth's rows): phase 17c's last map update,
+    beside the plain version, `index_add_` and its bound."""
+    from embodied_object_detection_tpu_torch.ops import segment_sum as ss
+    w, idx, cells = last
+    rows, lanes = w.shape
+    keep = (idx >= 0) & (idx < cells)
+    routed = torch.where(keep, idx.long(), torch.full_like(idx, cells).long())
+    ms = graph_ms(lambda: ss.segment_sum(w, idx, cells))
+    plain_ms = graph_ms(lambda: ss.segment_sum_plain(w, idx, cells))
+    lib_ms = graph_ms(lambda: torch.zeros((cells + 1, lanes),
+                                          device="cuda").index_add_(
+                                              0, routed, w))
+    # as the other shapes of row 1: the rows in range read, each id read,
+    # each cell's K lanes written once (the wrapper's 4-lane padding is
+    # its layout, not the function's), the nonzero additions
+    live = int(keep.sum())
+    added = int(((w != 0) & keep[:, None]).sum())
+    b_ms, b_by = bound_ms(live * lanes * 4 + rows * 4 + cells * lanes * 4,
+                          added)
+    runs = int((idx[1:] != idx[:-1]).sum()) + 1
+    print(f"  segment_sum, SLAM map (K = {lanes}, {cells} cells, {rows} "
+          f"rows, {live} in range, {runs} runs of equal ids): "
+          f"{ms * 1e3:.2f} us kernel, {plain_ms * 1e3:.2f} us plain, "
+          f"{lib_ms * 1e3:.2f} us index_add_, bound {b_ms * 1e3:.2f} us "
+          f"({b_by}), {launches} launches in phase 17c")
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -6856,12 +7445,14 @@ def main() -> int:
     run_text_tower(res5_model, res5_cfg)
     del res5_model
     run_parallel()
+    slam_last, slam_launches = run_rl()
     kernels = time_kernels(rng, launches, train_launches, errs,
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \
         time_read_backward(read_cases, read_launches, read_errs)
     check_roi_align_cotraining(np.random.RandomState(15))
     check_roi_align_res5(np.random.RandomState(16))
+    time_segment_sum_slam(slam_last, slam_launches)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

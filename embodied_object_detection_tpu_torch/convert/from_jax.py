@@ -27,6 +27,14 @@ that tree, so the conversion is per leaf:
 
 The box head's fc1 needs no permutation: the port flattens the pooled
 [R, 7, 7, C] map in the same HWC order as the JAX package.
+
+The RL models load by the same rules, their module names mirroring the
+JAX trees: `rl/policy.py:PointNavPolicy` (blind or RGB: the GRU's `ih` /
+`hh` Dense layers are `Linear`s of those names; `SimpleCNN_0`'s fc sees
+the last map flattened in HWC order, as in JAX), `rl/resnet_policy.py:
+PointNavResNetPolicy` (GroupNorm `scale` -> weight, the
+`prev_action_embed` table) and `rl/monodepth.py:MonoDepthNet` (FrozenBN
+leaves as they are).
 """
 
 from __future__ import annotations
@@ -67,8 +75,9 @@ def _leaf(path: tuple, value: np.ndarray):
 def load_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX params (nested dicts of numpy arrays, with or without the
     top-level "params" key) -> state dict for `EmbodiedDetector`,
-    `Res5Detector`, a Swin trunk, the CLIP text tower or a Deformable-DETR
-    module; load it
+    `Res5Detector`, a Swin trunk, the CLIP text tower, a Deformable-DETR
+    module or an RL model (`PointNavPolicy`, `PointNavResNetPolicy`,
+    `MonoDepthNet`); load it
     with `model.load_state_dict(sd)`, which casts to each parameter's
     dtype and device."""
     if "params" in params:
