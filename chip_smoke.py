@@ -326,6 +326,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      and its iterations; (d) DD-PPO on a one-rank NCCL group: the update
      bit-equal to the plain update (cuDNN's deterministic algorithms for
      both)
+  18. the closing slice: (a) `tools/dataset_prep.py clip-features`
+     through its CLI on the card, phase 15c's seeded tower saved as a
+     checkpoint and its merges table (CLIP_BPE_PATH), on the 1203 LVIS
+     names: the .npy within 1e-5 of the largest element of the same
+     command with `--device cpu` (run in a child process beside (b) and
+     (c)), ms a vocabulary; (b) the default frame at 480x640 with
+     `roi.align_impl` v2 and v3 over a 4-frame chunk (launches counted
+     as in phase 5: kernel 4 four times a frame; frame 0's detections of
+     the two impls equal, as the card runs one kernel for both), and the
+     64x96 miniature of each against the CPU's form of the same impl
+     (`hold_detections`); (c) `class_aware_nms` at 2048 candidates of 20
+     classes on the card equal to the CPU's plain fixpoint (every kept
+     candidate: top-k 2048), one kernel 3 launch a call, its time a call
+     eager and in a CUDA graph
   7 also holds kernels 4 and 4b at the co-training pools, R = 129 (128
   random ROIs and the whole-image box) and R = 1 (the whole-image box),
   to the plain tap form as phases 4b and 4f do, and times them beside it
@@ -370,9 +384,11 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -7384,6 +7400,188 @@ def time_segment_sum_slam(last, launches):
           f"{lib_ms * 1e3:.2f} us index_add_, bound {b_ms * 1e3:.2f} us "
           f"({b_by}), {launches} launches in phase 17c")
 
+# ---------------------------------------------------------- phase 18
+
+def clip_features_cli(device, names, pth, bpe, out):
+    """`dataset_prep clip-features` on `device`: in this process on the
+    card, in a child process (returned, running) on the CPU."""
+    argv = ["clip-features", "--names", str(names), "--clip-params",
+            str(pth), "--out", str(out), "--device", device]
+    if device == "cpu":
+        return subprocess.Popen(
+            [sys.executable, "-m",
+             "embodied_object_detection_tpu_torch.tools.dataset_prep"] + argv,
+            cwd=REPO, env={**os.environ, "CLIP_BPE_PATH": str(bpe)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    from embodied_object_detection_tpu_torch.tools import dataset_prep
+    before = os.environ.get("CLIP_BPE_PATH")
+    os.environ["CLIP_BPE_PATH"] = str(bpe)
+    try:
+        t0 = time.perf_counter()
+        dataset_prep.main(argv)
+        return (time.perf_counter() - t0) * 1e3
+    finally:
+        if before is None:
+            del os.environ["CLIP_BPE_PATH"]
+        else:
+            os.environ["CLIP_BPE_PATH"] = before
+
+
+def run_align_impls():
+    """Phase 18b: the default frame at 480x640 with `roi.align_impl` v2 and
+    v3 (a 4-frame chunk through `counted_run`), frame 0's detections of
+    the two equal, and each impl's 64x96 miniature on the card held to
+    the CPU's form of that impl. Returns kernel 4's launches and the
+    detections held, by impl."""
+    from embodied_object_detection_tpu_torch.config import DetectorConfig
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector, frame_inputs, make_episode_runner)
+    from embodied_object_detection_tpu_torch.structures import MemoryState
+    base = DetectorConfig()
+    h, w = base.input.height, base.input.width
+    cells, dim = base.memory.max_cells, base.memory.memory_dim
+    rng = np.random.RandomState(18)
+    frames = frame_inputs(
+        rng.randint(0, 255, (T_FRAMES, h, w, 3)).astype(np.float32),
+        rng.randint(0, cells, (T_FRAMES, h, w)).astype(np.int32),
+        np.array([True] + [False] * (T_FRAMES - 1)), cells, "cuda")
+    zs = torch.from_numpy(random_zs(rng, base)).cuda()
+    mini = dict(image=rng.randint(0, 255, (64, 96, 3)).astype(np.float32),
+                memf=rng.randn(64, 512).astype(np.float32),
+                memo=rng.randint(0, 3, 64).astype(np.float32),
+                proj=rng.randint(0, 64, (64, 96)).astype(np.int32),
+                outlier=np.zeros((64, 96), bool))
+    first, report = {}, {}
+    for impl in ("v2", "v3"):
+        cfg = base.replace(roi=dataclasses.replace(base.roi,
+                                                   align_impl=impl))
+        run = make_episode_runner(build_detector(cfg, seed=0, device="cuda"),
+                                  cfg)
+        init = MemoryState.zeros(cells, dim, "cuda")
+        out, _, launches = counted_run(f"align_impl={impl}",
+                                       lambda: run(frames, zs, init),
+                                       LAUNCHES_PER_FRAME, T_FRAMES)
+        check_episode(f"align_impl={impl}", out, (T_FRAMES,), cfg)
+        first[impl] = [t[0] for t in out.detections]
+        mcfg = miniature(cfg, 1)
+        mini["zs"] = random_zs(np.random.RandomState(181), mcfg)
+        dets = {}
+        for dev in ("cuda", "cpu"):
+            model = build_detector(mcfg, seed=3, device=dev)
+            t = {k: torch.from_numpy(v).to(dev) for k, v in mini.items()}
+            dets[dev] = model.frame_step(t["image"], t["zs"], t["memf"],
+                                         t["memo"], t["proj"],
+                                         t["outlier"]).detections
+        n = hold_detections(f"phase 18b {impl} miniature", dets["cuda"],
+                            dets["cpu"])
+        report[impl] = (launches["roi_align"], n)
+    for a, b in zip(first["v2"], first["v3"]):
+        if not torch.equal(a, b):
+            raise AssertionError("phase 18b: frame 0's detections differ "
+                                 "between v2 and v3 on the card")
+    return report
+
+
+def check_class_aware_nms():
+    """Phase 18c: `class_aware_nms` at 2048 candidates of 20 classes with
+    top-k 2048 (so every kept candidate is in the output) on the card,
+    equal to the CPU's plain fixpoint; its launches, and its time a call
+    eager (host launches included) and on the device (a CUDA graph)."""
+    from embodied_object_detection_tpu_torch.ops import class_aware_nms, nms
+    rng, n = np.random.RandomState(18), 2048
+    # as `nms_inputs` draws them, unsorted: a third of the scores tied at
+    # sixteenths, a tenth of the boxes duplicated, 5 % invalid
+    xy = rng.uniform(-20, 600, (n, 2)) * np.array([1.0, 0.75])
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 200, (n, 2))], 1)
+    dup = rng.choice(n - 1, n // 10, replace=False)
+    boxes[dup] = boxes[dup + 1]
+    scores = rng.rand(n)
+    scores[::3] = np.round(scores[::3] * 16) / 16
+    args = tuple(torch.from_numpy(a).cuda() for a in (
+        boxes.astype(np.float32), scores.astype(np.float32),
+        rng.randint(0, 20, n).astype(np.int32), rng.rand(n) > 0.05)) + \
+        (0.5, n)
+    valid = args[3]
+    zero_counters()
+    got = class_aware_nms(*args)
+    launches = nms.nms_keep.launches
+    want = class_aware_nms(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in args))
+    for name, g, c in zip(got._fields, got, want):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError(f"phase 18c: class_aware_nms {name} "
+                                 "differ from the CPU's plain fixpoint")
+    if launches != 1:
+        raise AssertionError(f"phase 18c: {launches} NMS launches a call")
+    return int(got.valid.sum()), int(valid.sum()), event_ms(
+        lambda: class_aware_nms(*args)), graph_ms(
+        lambda: class_aware_nms(*args))
+
+
+def run_slice19():
+    """Phase 18: the dataset-prep CLI's clip-features on the card against
+    its CPU run, the v2 / v3 ROIAlign frames, and class_aware_nms."""
+    t_phase = time.perf_counter()
+    names = [n.replace("_", " ") for n in lvis_names()]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "names.json").write_text(json.dumps(names))
+        torch.save({k: torch.from_numpy(v)
+                    for k, v in synthetic_clip_state_dict().items()},
+                   tmp / "clip.pth")
+        bpe = write_merges(tmp / "merges.txt.gz", names)
+        cpu = clip_features_cli("cpu", tmp / "names.json", tmp / "clip.pth",
+                                bpe, tmp / "cpu.npy")
+        try:
+            card_ms = [clip_features_cli("cuda", tmp / "names.json",
+                                         tmp / "clip.pth", bpe,
+                                         tmp / f"card{i}.npy")
+                       for i in range(2)]
+            impls = run_align_impls()
+            kept, valid, nms_ms, nms_dev_ms = check_class_aware_nms()
+            t0 = time.perf_counter()
+            log, _ = cpu.communicate(timeout=600)
+            cpu_wait = time.perf_counter() - t0
+        finally:
+            if cpu.poll() is None:
+                cpu.kill()
+                cpu.wait()
+        if cpu.returncode != 0:
+            raise AssertionError(f"phase 18a: the CPU command failed:\n{log}")
+        got, want = np.load(tmp / "card1.npy"), np.load(tmp / "cpu.npy")
+        first = np.load(tmp / "card0.npy")
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    if got.shape != (len(names), 512) or got.dtype != np.float32 or \
+            not err <= 1e-5 * scale or not np.array_equal(first, got):
+        raise AssertionError(f"phase 18a: {got.shape} {got.dtype}, card vs "
+                             f"CPU {err} (largest {scale}); two card runs "
+                             f"equal: {np.array_equal(first, got)}")
+    print(f"  18a: clip-features on {len(names)} LVIS names through the CLI "
+          f"on the card: {card_ms[0]:.1f} ms (checkpoint load included), "
+          f"then {card_ms[1]:.1f} ms; card vs CPU max err {err:.2e} "
+          f"(largest {scale:.3f}, tolerance 1e-5 of it); the CPU command "
+          f"was waited for {cpu_wait:.1f} s after (b) and (c)")
+    for impl, (roi, n) in impls.items():
+        print(f"  18b: align_impl={impl}: kernel 4 launched {roi} times in "
+              f"the {T_FRAMES}-frame chunk; the 64x96 miniature's {n} "
+              f"detections held to the CPU's {impl}")
+    print(f"  18c: class_aware_nms, 2048 candidates ({valid} valid) of 20 "
+          f"classes, t = 0.5: {kept} kept, equal to the CPU's plain "
+          f"fixpoint; 1 NMS launch a call; {nms_ms * 1e3:.1f} us a call "
+          f"(CUDA events around 20 eager calls), {nms_dev_ms * 1e3:.1f} us "
+          f"on the device (CUDA graphs of 20 calls x 10 replays)")
+    phase(18, f"clip-features CLI {card_ms[1]:.1f} ms a {len(names)}-name "
+              f"vocabulary on the card, within {err:.2e} of the CPU's; "
+              f"align_impl v2 / v3 frames at 480x640 on kernel 4 "
+              f"({impls['v2'][0]} / {impls['v3'][0]} launches in "
+              f"{T_FRAMES} frames), miniatures held to the CPU; "
+              f"class_aware_nms equal to the plain fixpoint "
+              f"({nms_ms * 1e3:.1f} us eager, {nms_dev_ms * 1e3:.1f} us "
+              f"device); "
+              f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -7446,6 +7644,7 @@ def main() -> int:
     del res5_model
     run_parallel()
     slam_last, slam_launches = run_rl()
+    run_slice19()
     kernels = time_kernels(rng, launches, train_launches, errs,
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \

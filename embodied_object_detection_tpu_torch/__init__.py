@@ -45,6 +45,9 @@ counterpart is easy to find:
   run.py                     the CLI: training, --eval-only, --dry-run,
                              --coco-json
   kernels/build.py           nvcc build + ctypes binding of csrc/*.cu
+  tools/dataset_prep.py      the dataset-prep CLI (frequency tables,
+                             vocabularies' zs_weight from the CLIP text
+                             tower, LVIS / COCO / CC3M / ImageNet jsons)
 
 Entry points run on the card ("cuda") unless the caller passes
 device="cpu", where every kernel wrapper takes its plain PyTorch version.

@@ -8,11 +8,12 @@ the `--opts` overrides (`apply_opts`) and the four golden presets
 (`parity_config`). Names and defaults are the same, so a config built for
 one package can be rebuilt field by field for the other. The JAX
 package's fields that no path reads (its pinned knobs, `input.format` and
-`memory.memory_feature_weight`, `backbone.in_strides` and
-`backbone.in_channels`) are no fields here: `apply_opts` accepts each
-only at its default (`PINNED_OPTS`).
-`check_slice_config` raises on settings the port does not run and on an
-unknown episode protocol.
+`memory.memory_feature_weight`, the `in_strides`, `in_channels`,
+`in_features`, `norm` and `num_classes` of the backbone and heads, and
+`roi.prior_prob`) are no fields here: `apply_opts` accepts each only at
+its default (`PINNED_OPTS`).
+`check_slice_config` raises on an unknown ROIAlign impl and on an unknown
+episode protocol.
 """
 
 from __future__ import annotations
@@ -245,13 +246,12 @@ class DetectorConfig:
 
 
 def check_slice_config(cfg: DetectorConfig) -> DetectorConfig:
-    """Raise on settings this port does not implement yet, rather than
-    silently running another path, and on a `memory.test_type` that is no
-    protocol at all (a typo must not select another one)."""
+    """Raise on an ROIAlign impl or a `memory.test_type` that is none at
+    all (a typo must not select another path)."""
     validate_config(cfg)
-    if cfg.roi.align_impl not in ("v1", "v4"):
-        raise NotImplementedError(
-            f"roi.align_impl={cfg.roi.align_impl!r}: the port has v1 and v4")
+    if cfg.roi.align_impl not in ("v1", "v2", "v3", "v4"):
+        raise ValueError(f"roi.align_impl={cfg.roi.align_impl!r} is not one "
+                         "of 'v1'/'v2'/'v3'/'v4'")
     return cfg
 
 
@@ -292,6 +292,22 @@ PINNED_OPTS: Dict[str, Tuple[Any, str]] = {
     "backbone.in_channels": (
         (512, 1024, 2048), "the FPN laterals take the trunk's own channels "
         "(ResNet-50 or Swin-B); no path reads the field"),
+    "backbone.norm": (
+        "FrozenBN", "the ResNet trunk's norms are frozen affine maps; no "
+        "path reads the field"),
+    "centernet.in_features": (
+        ("p3", "p4", "p5", "p6", "p7"), "the head runs on every FPN level "
+        "p3-p7; no path reads the field"),
+    "centernet.norm": (
+        "GN", "the towers use GroupNorm(32); no path reads the field"),
+    "centernet.num_classes": (
+        1203, "only_proposal mode has no classes; no path reads the field"),
+    "roi.in_features": (
+        ("p3", "p4", "p5"), "the poolers read p3-p5 (`roi.strides`); no "
+        "path reads the field"),
+    "roi.prior_prob": (
+        0.01, "the zero-shot classifier has no prior bias; no path reads "
+        "the field"),
     "roi.add_feature_to_prop": (
         True, "roi_heads always appends the pooled feature to proposals"),
     "roi.cls_agnostic_bbox_reg": (

@@ -333,6 +333,14 @@ class EmbodiedPredictor:
         return self._visualizer.draw_semmap(self.semantic_map(map_h, map_w),
                                             scale=scale)
 
+    def frame_step_detections(self, image_rgb: np.ndarray,
+                              proj_indices: "np.ndarray | torch.Tensor | None"
+                              = None,
+                              outlier_mask: "np.ndarray | torch.Tensor | None"
+                              = None) -> Detections:
+        """`__call__` under the JAX package's name for it."""
+        return self(image_rgb, proj_indices, outlier_mask)
+
     def render_detections(self, image_rgb: np.ndarray, dets: Detections,
                           score_thresh: float = 0.3) -> np.ndarray:
         """Boxes and labels in the palette of `render_map`."""

@@ -14,7 +14,8 @@ pycocotools:
     monotone precision envelope, 101-point interpolation
 
 It evaluates image-id subsets (the temporal-quartile protocol,
-train_mp3d.py:300-330), and the LVIS-style federated mode. The matching
+train_mp3d.py:300-330), the LVIS-style federated mode, and the seen /
+unseen category split of the generalized zero-shot COCO protocol. The matching
 sweep runs in the port's `native/eval_core.cc` when g++ can build it, else
 in numpy.
 """
@@ -102,6 +103,16 @@ class COCOEvaluator:
         # numbers keep the reference quirk.
         self._first_ann_id = int(first_ann_id)
         self._next_ann_id = self._first_ann_id
+        self._last_precisions = None
+
+    def reset(self):
+        self._gt.clear()
+        self._dt.clear()
+        self._seen_ids.clear()
+        self._next_ann_id = self._first_ann_id
+        self._pos.clear()
+        self._neg.clear()
+        self._last_precisions = None
 
     def add_image(self, image_id: int,
                   neg_category_ids: Sequence[int] = ()):
@@ -309,7 +320,32 @@ class COCOEvaluator:
         }
         for name, ap in ap_per_cat.items():
             results[f"AP-{name}"] = ap * 100
+        self._last_precisions = precisions
         return results
+
+    def evaluate_split(self, seen_ids: Sequence[int],
+                       img_ids: Optional[Sequence[int]] = None
+                       ) -> Dict[str, float]:
+        """`evaluate` plus the AP over a 'seen' category subset and its
+        'unseen' complement, the generalized zero-shot COCO protocol
+        (CustomCOCOEvaluator analog; ref:
+        Detic/detic/evaluation/custom_coco_eval.py:28)."""
+        base = self.evaluate(img_ids)
+        precisions = self._last_precisions          # [T, R, C]
+        seen_set = set(seen_ids)
+        seen = [i for i, c in enumerate(self.category_ids) if c in seen_set]
+        unseen = [i for i in range(len(self.category_ids)) if i not in seen]
+
+        def _mean(ixs, t=None):
+            p = precisions[:, :, ixs] if t is None else precisions[t][:, ixs]
+            p = p[p > -1]
+            return float(np.mean(p)) * 100 if p.size else float("nan")
+
+        base["AP-seen"] = _mean(seen)
+        base["AP50-seen"] = _mean(seen, 0)
+        base["AP-unseen"] = _mean(unseen)
+        base["AP50-unseen"] = _mean(unseen, 0)
+        return base
 
 
 def coco_ap(gt_by_img, dt_by_img, category_ids) -> Dict[str, float]:

@@ -10,7 +10,8 @@ no `res5.*` parameters) to 7 x 7 x 2048, is averaged over space in f32,
 and one zero-shot predictor (`box_predictor`) gives its class logits,
 box deltas and CLIP-space region embedding. Final detections come from
 the multiclass NMS (kernel 3). Select it with `roi.head_type="res5"`:
-`models/detector.py:build_detector` builds it.
+`models/detector.py:build_detector` builds it, and `build_res5_detector`
+whatever the config's head type.
 """
 
 from __future__ import annotations
@@ -175,3 +176,16 @@ class Res5Detector(nn.Module):
             logits, deltas, matched, roi.cascade_bbox_reg_weights[0], c,
             use_sigmoid_ce=roi.use_sigmoid_ce, class_weight=class_weight))
         return losses
+
+
+def build_res5_detector(cfg: Optional[DetectorConfig] = None, seed: int = 0,
+                        device: "torch.device | str" = "cuda"
+                        ) -> Res5Detector:
+    """The Res5 detector of `cfg` (its `roi.head_type` set to "res5") on
+    `device` with random weights from `seed`: `build_detector`'s Res5
+    branch. The module holds its parameters (the JAX package's returns
+    them beside the model)."""
+    from .detector import build_detector
+    cfg = cfg or DetectorConfig()
+    return build_detector(cfg.replace(roi=dataclasses.replace(
+        cfg.roi, head_type="res5")), seed, device)

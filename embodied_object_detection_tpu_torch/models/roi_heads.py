@@ -45,6 +45,28 @@ def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
                        dim=-1)
 
 
+def get_deltas(src: torch.Tensor, target: torch.Tensor,
+               weights: Tuple[float, ...]) -> torch.Tensor:
+    """detectron2 Box2BoxTransform.get_deltas: the dx, dy, dw, dh that
+    take `src` XYXY boxes to `target` (regression targets)."""
+    src_w = src[:, 2] - src[:, 0]
+    src_h = src[:, 3] - src[:, 1]
+    src_cx = src[:, 0] + 0.5 * src_w
+    src_cy = src[:, 1] + 0.5 * src_h
+    t_w = target[:, 2] - target[:, 0]
+    t_h = target[:, 3] - target[:, 1]
+    t_cx = target[:, 0] + 0.5 * t_w
+    t_cy = target[:, 1] + 0.5 * t_h
+    wx, wy, ww, wh = weights
+    eps = 1e-8
+    return torch.stack([
+        wx * (t_cx - src_cx) / src_w.clamp(min=eps),
+        wy * (t_cy - src_cy) / src_h.clamp(min=eps),
+        ww * torch.log(t_w.clamp(min=eps) / src_w.clamp(min=eps)),
+        wh * torch.log(t_h.clamp(min=eps) / src_h.clamp(min=eps)),
+    ], dim=-1)
+
+
 class BoxHead(nn.Module):
     """2 FC layers over the pooled [R, 7, 7, C] map, flattened in HWC
     order (the JAX package's layout, so its fc1 kernel needs no

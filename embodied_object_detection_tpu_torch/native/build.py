@@ -39,6 +39,9 @@ class EvalCore:
         self._lib = lib
         lib.iou_xywh.argtypes = [_f64, ctypes.c_int64, _f64, ctypes.c_int64,
                                  _f64]
+        lib.greedy_match.argtypes = [_f64, ctypes.c_int64, ctypes.c_int64,
+                                     _u8, _f64, ctypes.c_int64,
+                                     _i64, _i64, _u8]
         lib.precision_at_recall.argtypes = [_f64, _f64, ctypes.c_int64,
                                             ctypes.c_double, _f64,
                                             ctypes.c_int64, _f64]
@@ -55,6 +58,24 @@ class EvalCore:
         if len(dets) and len(gts):
             self._lib.iou_xywh(dets, len(dets), gts, len(gts), out)
         return out
+
+    def greedy_match(self, ious: np.ndarray, g_ignore: np.ndarray,
+                     thrs: np.ndarray):
+        """COCOeval.evaluateImg's greedy matching of one (image, category)
+        at every threshold: ious [D, G] with detections score-sorted and
+        gts non-ignored first -> (dt_m [T, D] matched gt index + 1, gt_m
+        [T, G] matched detection index + 1, dt_ig [T, D] bool)."""
+        ious = np.ascontiguousarray(ious, np.float64)
+        nd, ng = ious.shape
+        g_ignore = np.ascontiguousarray(g_ignore, np.uint8).reshape(-1)
+        thrs = np.ascontiguousarray(thrs, np.float64).reshape(-1)
+        nt = len(thrs)
+        dt_m = np.zeros((nt, nd), np.int64)
+        gt_m = np.zeros((nt, ng), np.int64)
+        dt_ig = np.zeros((nt, nd), np.uint8)
+        self._lib.greedy_match(ious, nd, ng, g_ignore, thrs, nt,
+                               dt_m, gt_m, dt_ig)
+        return dt_m, gt_m, dt_ig.astype(bool)
 
     def evaluate_category(self, g_boxes, g_areas, g_ids, g_off, d_boxes,
                           d_scores, d_off, thrs, area_rng, max_dets: int):

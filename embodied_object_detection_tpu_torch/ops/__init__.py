@@ -7,3 +7,6 @@ Importing the package registers every kernel wrapper's custom op
 
 from . import (mask_paste, memory_ops, ms_deform_attn,  # noqa: F401
                nms, roi_align, segment_sum)
+from .mask_paste import paste_masks  # noqa: F401
+from .nms import class_aware_nms, nms_padded  # noqa: F401
+from .roi_align import multilevel_roi_align  # noqa: F401

@@ -203,6 +203,16 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor,
         valid=out_valid)
 
 
+def class_aware_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                    classes: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float, topk: int) -> Detections:
+    """Per-class NMS + global top-`topk` (detectron2 `batched_nms`
+    semantics): `nms_padded` with the candidates' classes, one `nms_keep`
+    call."""
+    return nms_padded(boxes, scores, valid, iou_threshold, topk,
+                      classes=classes)
+
+
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
                    valid: torch.Tensor, score_thresh: float,
                    iou_threshold: float, topk: int,

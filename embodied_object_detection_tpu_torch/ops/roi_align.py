@@ -13,7 +13,16 @@ On a CUDA tensor `multilevel_roi_align` assigns the levels in PyTorch
 type, each ROI's tap grid staged in shared memory. The JAX default
 `impl="v4"` is that math re-associated, with bf16 weights and a bf16
 intermediate in a bf16 config (ARCHITECTURE.md
-divergence 3b), so on the card `impl` has no effect. Under autograd the
+divergence 3b), so on the card `impl` has no effect. So too for v2 and
+v3, JAX's gather forms with the tap weights cast to the features' type
+(v3 reading the four taps from a neighbour-packed table): on the card
+they give the tap form's f32 sums rounded once, which in f32 lie one
+rounding from their CPU forms (the window summed sample by sample, then
+scaled by 1/s^2, against the mean) and in bf16 within 9 x 2^-9 of the
+window mean of sum |w f| over the taps (each weight, product and
+partial sum of the CPU forms rounded to bf16: 2 + 3 + 3 roundings, and
+one of the card's sum; tests/test_torch_slice19_api.py measures 3.4 x
+2^-8 at most on random features). Under autograd the
 card's call is `RoiAlignFunction`, whose backward launches the second
 kernel of `csrc/roi_align.cu`: the tap form's transpose over the same
 staged tap grid, each distinct position's sum added once with float4
@@ -27,6 +36,11 @@ plain form, differentiated by torch autograd:
              assigned level selected
   impl="v1"  the bilinear tap form: four gathered taps per sample from one
              flattened table of all levels, then the window mean
+  impl="v2"  the tap form with each weight cast to the features' type, so
+             the products and sums stay in it, then the window summed
+             and scaled by 1/s^2 (JAX's `_bilinear_flat(cast_weights=
+             True)`); "v3" is the same arithmetic in the same order
+             (`_roi_align_taps` says why)
 
 The forward wrapper `roi_align_cuda` is the custom op `eodt::roi_align`
 (`torch.library`), whose fake implementation gives its output shape, so
@@ -44,7 +58,7 @@ import torch
 
 from ..kernels import build
 
-IMPLS = ("v1", "v4")
+IMPLS = ("v1", "v2", "v3", "v4")
 
 
 def assign_levels(boxes: torch.Tensor, min_level: int, max_level: int,
@@ -166,16 +180,34 @@ def roi_align_taps(shapes, boxes, strides, output_size, sampling_ratio,
 
 
 def _roi_align_taps(features, boxes, strides, output_size, sampling_ratio,
-                    lvl_of_roi):
+                    lvl_of_roi, cast_weights=False):
+    """The tap form (v1): four taps a sample, then the window mean. With
+    `cast_weights`, the JAX package's v2: each tap weight cast to the
+    features' type, so every product and sum stays in that type, then the
+    s x s window summed sample by sample (row-major) and scaled by 1/s^2
+    (a power of two, exact). Its v3 reads the same four taps from a
+    neighbour-packed table in the same order, and a tap past the border
+    there reads a zero pad where v2 reads the border pixel, both at weight
+    exactly 0: the same result, so v3 runs v2's code."""
     c = features[0].shape[-1]
     flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
     rows, weights = roi_align_taps([f.shape[:2] for f in features], boxes,
                                    strides, output_size, sampling_ratio,
                                    lvl_of_roi)
+    if cast_weights:
+        weights = weights.to(flat.dtype)
     taps = flat[rows] * weights[..., None]
     vals = taps[..., 0, :] + taps[..., 1, :] + taps[..., 2, :] + \
-        taps[..., 3, :]
-    return vals.mean(dim=(2, 4))
+        taps[..., 3, :]                                  # [R, S, s, S, s, C]
+    if not cast_weights:
+        return vals.mean(dim=(2, 4))
+    s = sampling_ratio
+    acc = vals[:, :, 0, :, 0]
+    for ki in range(s):
+        for kj in range(s):
+            if ki or kj:
+                acc = acc + vals[:, :, ki, :, kj]
+    return acc * (1.0 / (s * s))
 
 
 @torch.library.custom_op("eodt::roi_align", mutates_args=("stats",))
@@ -370,8 +402,7 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
             f"multilevel_roi_align needs contiguous power-of-two strides "
             f"(e.g. (8, 16, 32)); got {strides}")
     if impl not in IMPLS:
-        raise ValueError(f"unknown ROIAlign impl {impl!r} (the port has v1, "
-                         "v4)")
+        raise ValueError(f"unknown ROIAlign impl {impl!r} (one of {IMPLS})")
     lvl_of_roi = assign_levels(boxes, lvls[0], lvls[-1], canonical_box_size,
                                canonical_level) - lvls[0]
     if build.on_card(boxes):
@@ -388,4 +419,5 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
         return _roi_align_matmul(features, boxes, strides, output_size,
                                  sampling_ratio, lvl_of_roi)
     return _roi_align_taps(features, boxes, strides, output_size,
-                           sampling_ratio, lvl_of_roi)
+                           sampling_ratio, lvl_of_roi,
+                           cast_weights=impl in ("v2", "v3"))

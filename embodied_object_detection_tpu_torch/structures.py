@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,14 @@ class Detections(NamedTuple):
     scores: torch.Tensor      # [N]
     classes: torch.Tensor     # [N] int32 (0 for class-agnostic proposals)
     valid: torch.Tensor       # [N] bool
+
+    @property
+    def capacity(self) -> int:
+        return self.boxes.shape[-2]
+
+    def num_valid(self) -> torch.Tensor:
+        """Live rows a set, int32 [...] (no host sync)."""
+        return self.valid.sum(dim=-1, dtype=torch.int32)
 
 
 class GroundTruth(NamedTuple):
@@ -45,6 +54,23 @@ class MemoryState(NamedTuple):
                                  device=device),
             obs_count=torch.zeros((max_cells,), dtype=torch.float32,
                                   device=device))
+
+
+def pad_boxes(boxes: np.ndarray, classes: np.ndarray,
+              capacity: int) -> GroundTruth:
+    """On the host: variable-length GT padded to `capacity` rows, as a
+    `GroundTruth` of numpy arrays (f32 boxes, int32 classes, bool valid);
+    rows beyond `capacity` are dropped."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+    classes = np.asarray(classes, np.int32).reshape(-1)
+    n = min(len(boxes), capacity)
+    out_b = np.zeros((capacity, 4), np.float32)
+    out_c = np.zeros((capacity,), np.int32)
+    out_v = np.zeros((capacity,), bool)
+    out_b[:n] = boxes[:n]
+    out_c[:n] = classes[:n]
+    out_v[:n] = True
+    return GroundTruth(boxes=out_b, classes=out_c, valid=out_v)
 
 
 def area(boxes: torch.Tensor) -> torch.Tensor:

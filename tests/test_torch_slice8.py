@@ -458,15 +458,16 @@ def test_check_slice_config_validates():
 
 def test_check_slice_config_rejects_res5():
     """`check_slice_config` rejects only what the JAX package rejects: the
-    Res5 heads and the Swin-B trunk pass, as JAX's `validate_config` lets
-    them; an ROIAlign impl the port lacks still raises."""
+    Res5 heads, the Swin-B trunk and every ROIAlign impl pass, as JAX's
+    `validate_config` lets them; an impl that is none of the four raises."""
     for opts in (["roi.head_type=res5"], ["backbone.name=swin_b",
-                                         "backbone.drop_path_rate=0.3"]):
+                                         "backbone.drop_path_rate=0.3"],
+                 ["roi.align_impl=v2"], ["roi.align_impl=v3"]):
         cfg = tcfg.apply_opts(tcfg.DetectorConfig(), opts)
         assert tcfg.check_slice_config(cfg) is cfg
         jcfg.validate_config(jcfg.apply_opts(jcfg.DetectorConfig(), opts))
-    cfg = tcfg.apply_opts(tcfg.DetectorConfig(), ["roi.align_impl=v3"])
-    with pytest.raises(NotImplementedError, match="align_impl"):
+    cfg = tcfg.apply_opts(tcfg.DetectorConfig(), ["roi.align_impl=v5"])
+    with pytest.raises(ValueError, match="align_impl"):
         tcfg.check_slice_config(cfg)
 
 
