@@ -1,0 +1,13 @@
+"""Train step: backward: milliseconds a step in which no device op ran
+while the main thread was in the port's `eodt.train.backward` span:
+`total.backward()`, launched from autograd's device thread while the
+main thread waits in the span. `benchmark/program_spans.py` splits the
+traced unit's idle time by the main thread's innermost `eodt.` span.
+Read from the profiled unit, whose host time the profiler stretches by
+40-45 %: compare it only with other traced readings."""
+
+from benchmark.program_spans import per_unit
+
+
+def read(t):
+    return per_unit(t, "eodt.train.backward", "idle_s", "step")

@@ -1,0 +1,12 @@
+"""Frame: cascade: milliseconds a frame in which no device op ran while the
+main thread was in the port's `eodt.frame.cascade` span: the cascade
+heads (`run_cascade`). `benchmark/program_spans.py` splits the traced
+unit's idle time by the main thread's innermost `eodt.` span. Read from
+the profiled unit, whose host time the profiler stretches by 40-45 %:
+compare it only with other traced readings."""
+
+from benchmark.program_spans import per_unit
+
+
+def read(t):
+    return per_unit(t, "eodt.frame.cascade", "idle_s", "frame")

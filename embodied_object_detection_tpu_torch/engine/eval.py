@@ -11,7 +11,8 @@ mp3d_inference_on_dataset, ref: Detic/train_mp3d.py:85-363):
     (`min(3, (idx % 100) // 25)`, :210-217)
   * overall and per-quartile bbox AP (:300-358)
   * a data / compute / eval timing split with the first chunks excluded
-    as warm-up (:135-284)
+    as warm-up (:135-284), taken by the spans `eodt.eval.data`,
+    `eodt.eval.compute` and `eodt.eval.score` on a clock
 
 The chunk runs on the model's device through `make_episode_runner`. Host
 work (reading the chunk, the cell-id guard, the cell visibility, pinned
@@ -29,6 +30,7 @@ scored in serial order.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -47,7 +49,11 @@ from ..models.detector import (EmbodiedDetector, FrameInputs,
 from ..ops.memory_ops import (check_proj_indices, obs_visibility_host,
                               semmap_classes)
 from ..structures import MemoryState
+from ..utils.tracing import span
 from .checkpoint import save_memory_h5
+
+# the eval loops' chunk timers: spans on the loop's clock
+DATA, COMPUTE, SCORE = "eodt.eval.data", "eodt.eval.compute", "eodt.eval.score"
 
 
 @dataclass
@@ -137,15 +143,16 @@ def frames_to_device(host: HostFrames,
     def to(t):
         return t.to(device, non_blocking=True)
 
-    proj = to(host.proj_indices)
-    return FrameInputs(
-        image=to(host.image).float(), proj_indices=proj,
-        outlier_mask=torch.zeros(proj.shape, dtype=torch.bool,
-                                 device=proj.device),
-        obs_visibility=to(host.obs_visibility),
-        memory_reset=to(host.memory_reset),
-        episode_start=to(host.episode_start),
-        frame_valid=to(host.frame_valid))
+    with span("eodt.to_device"):
+        proj = to(host.proj_indices)
+        return FrameInputs(
+            image=to(host.image).float(), proj_indices=proj,
+            outlier_mask=torch.zeros(proj.shape, dtype=torch.bool,
+                                     device=proj.device),
+            obs_visibility=to(host.obs_visibility),
+            memory_reset=to(host.memory_reset),
+            episode_start=to(host.episode_start),
+            frame_valid=to(host.frame_valid))
 
 
 def chunk_to_frame_inputs(chunk: EpisodeChunk, max_cells: int,
@@ -233,6 +240,51 @@ def scored_detections(detections, score_every: int):
     return unpack_scored(pack_scored(detections, score_every).cpu().numpy())
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], on_card: bool, name: str):
+    """A torch.profiler chrome trace of the block (host ops, the port's
+    spans and, on the card, its kernels) written to profile_dir/name;
+    nothing without `profile_dir`."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU] + \
+        ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, name))
+
+
+def _results(evaluator: COCOEvaluator, quartile_ids: List[List[int]],
+             im_id: int, clock: Dict[str, float], n_timed: int,
+             total_s: float, frames: int, verbose: bool, label: str = "",
+             **timing: float) -> EvalResults:
+    """The AP of the evaluator and the timing of the loop's timed chunks
+    from its clock; printed when `verbose`."""
+    compute = clock.get(COMPUTE, 0.0)
+    results = EvalResults(
+        overall=evaluator.evaluate(),
+        quartiles=[evaluator.evaluate(q) if q else {} for q in quartile_ids],
+        timing=dict(
+            data_s_per_chunk=clock.get(DATA, 0.0) / n_timed,
+            compute_s_per_chunk=compute / n_timed,
+            eval_s_per_chunk=clock.get(SCORE, 0.0) / n_timed,
+            total_s=total_s,
+            frames_per_s=frames / max(compute, 1e-9),
+            **timing,
+        ),
+        num_images=im_id,
+    )
+    if verbose:
+        print(f"{label}AP (overall):", {k: round(v, 2)
+                                        for k, v in results.overall.items()
+                                        if not k.startswith("AP-")})
+        print("timing:", {k: round(v, 4) for k, v in results.timing.items()})
+    return results
+
+
 def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
                      dataset, zs_weight: np.ndarray,
                      max_chunks: Optional[int] = None,
@@ -241,18 +293,12 @@ def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
     """Evaluate `model` (on its device) over `dataset`'s chunks in order.
     `dataset` is an `EpisodeDataset` or any sequence of `EpisodeChunk`s;
     `zs_weight` the [D, C+1] classifier. `profile_dir` writes a
-    torch.profiler chrome trace of the whole loop there."""
+    torch.profiler chrome trace of the whole loop there
+    (`eval_trace.json`)."""
     device = next(model.parameters()).device
     on_card = device.type == "cuda"
     runner = make_episode_runner(model, cfg)
     zs = torch.from_numpy(np.asarray(zs_weight, np.float32)).to(device)
-    profiler = None
-    if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU] + \
-            ([ProfilerActivity.CUDA] if on_card else [])
-        profiler = profile(activities=activities)
-        profiler.start()
 
     # first_ann_id=0: the reference's on-the-fly GT starts annotation ids
     # at 0 (train_mp3d.py:149), which makes pycocotools score the
@@ -267,7 +313,7 @@ def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
     external = cfg.memory.external_memory()
     memory = MemoryState.zeros(max_cells, cfg.memory.memory_dim, device)
     im_id = 0
-    t_data = t_compute = t_eval = 0.0
+    clock: Dict[str, float] = {}
     n_chunks = len(dataset) if max_chunks is None else min(max_chunks,
                                                            len(dataset))
     t_total0 = time.perf_counter()
@@ -279,10 +325,10 @@ def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
 
     chunk_iter = prefetch_iterator(fetch, range(n_chunks),
                                    num_workers=num_workers)
-    # warm-up exclusion (train_mp3d.py:135, 179-183): the accumulators
-    # reset at the top of iteration num_warmup, so the boundary chunk's
-    # time lands on the warm-up side and the timed sums cover exactly the
-    # chunks counted
+    # warm-up exclusion (train_mp3d.py:135, 179-183): the clock resets at
+    # the top of iteration num_warmup, so the boundary chunk's time lands
+    # on the warm-up side and the timed sums cover exactly the chunks
+    # counted
     num_warmup = min(5, n_chunks - 1)
     warm_chunks = warm_frames = 0
     # the external table is chunk-invariant for semantic_gt / map_gt:
@@ -290,74 +336,52 @@ def evaluate_dataset(model: EmbodiedDetector, cfg: DetectorConfig,
     # distinct sentinel, so that a missing table still raises)
     unset = object()
     ext_cache = (unset, None)
-    for idx in range(n_chunks):
-        if idx == num_warmup:
-            t_data = t_compute = t_eval = 0.0
-            t_total0 = time.perf_counter()
-            warm_chunks = idx
-            warm_frames = total_frames
-        t0 = time.perf_counter()
-        chunk, host = next(chunk_iter)
-        frames = frames_to_device(host, device)
-        if external:
-            # the GT-memory baselines read a fixed table, never zeros
-            if ext_cache[0] is not chunk.memory_features:
-                ext_cache = (chunk.memory_features,
-                             external_memory_state(chunk, cfg,
-                                                   device=device))
-            memory = ext_cache[1]
-        t_data += time.perf_counter() - t0
+    with _profiled(profile_dir, on_card, "eval_trace.json"):
+        for idx in range(n_chunks):
+            if idx == num_warmup:
+                clock.clear()
+                t_total0 = time.perf_counter()
+                warm_chunks = idx
+                warm_frames = total_frames
+            with span(DATA, clock):
+                chunk, host = next(chunk_iter)
+                frames = frames_to_device(host, device)
+                if external:
+                    # the GT-memory baselines read a fixed table, never
+                    # zeros
+                    if ext_cache[0] is not chunk.memory_features:
+                        ext_cache = (chunk.memory_features,
+                                     external_memory_state(chunk, cfg,
+                                                           device=device))
+                    memory = ext_cache[1]
 
-        t0 = time.perf_counter()
-        out = runner(frames, zs, memory)
-        memory = out.memory
-        if on_card:
-            torch.cuda.synchronize(device)
-        t_compute += time.perf_counter() - t0
+            with span(COMPUTE, clock):
+                out = runner(frames, zs, memory)
+                memory = out.memory
+                if on_card:
+                    torch.cuda.synchronize(device)
 
-        if cfg.memory.save_semmap:
-            _save_memory_snapshot(cfg, zs, out.first_memory.features,
-                                  out.first_memory.obs_count, chunk)
+            if cfg.memory.save_semmap:
+                _save_memory_snapshot(cfg, zs, out.first_memory.features,
+                                      out.first_memory.obs_count, chunk)
 
-        t0 = time.perf_counter()
-        im_id = _score_chunk_frames(
-            evaluator, quartile_ids, chunk, idx,
-            *scored_detections(out.detections, score_every), im_id,
-            score_every)
-        total_frames += int(chunk.frame_valid.sum())
-        t_eval += time.perf_counter() - t0
-        if verbose and (idx + 1) % 10 == 0:
-            done = idx + 1 - warm_chunks
-            print(f"inference {idx + 1}/{n_chunks} "
-                  f"data {t_data / done:.3f}s/it "
-                  f"compute {t_compute / done:.3f}s/it "
-                  f"eval {t_eval / done:.3f}s/it")
+            with span(SCORE, clock):
+                im_id = _score_chunk_frames(
+                    evaluator, quartile_ids, chunk, idx,
+                    *scored_detections(out.detections, score_every), im_id,
+                    score_every)
+                total_frames += int(chunk.frame_valid.sum())
+            if verbose and (idx + 1) % 10 == 0:
+                done = idx + 1 - warm_chunks
+                print(f"inference {idx + 1}/{n_chunks} "
+                      f"data {clock.get(DATA, 0.0) / done:.3f}s/it "
+                      f"compute {clock.get(COMPUTE, 0.0) / done:.3f}s/it "
+                      f"eval {clock.get(SCORE, 0.0) / done:.3f}s/it")
 
-    if profiler is not None:
-        profiler.stop()
-        os.makedirs(profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(profile_dir,
-                                                  "eval_trace.json"))
-    t_total = time.perf_counter() - t_total0
-    n_timed = max(n_chunks - warm_chunks, 1)
-    results = EvalResults(
-        overall=evaluator.evaluate(),
-        quartiles=[evaluator.evaluate(q) if q else {} for q in quartile_ids],
-        timing=dict(
-            data_s_per_chunk=t_data / n_timed,
-            compute_s_per_chunk=t_compute / n_timed,
-            eval_s_per_chunk=t_eval / n_timed,
-            total_s=t_total,
-            frames_per_s=(total_frames - warm_frames) / max(t_compute, 1e-9),
-        ),
-        num_images=im_id,
-    )
-    if verbose:
-        print("AP (overall):", {k: round(v, 2)
-                                for k, v in results.overall.items()
-                                if not k.startswith("AP-")})
-        print("timing:", {k: round(v, 4) for k, v in results.timing.items()})
-    return results
+    return _results(evaluator, quartile_ids, im_id, clock,
+                    max(n_chunks - warm_chunks, 1),
+                    time.perf_counter() - t_total0,
+                    total_frames - warm_frames, verbose)
 
 
 def scene_of(chunk_file: str) -> str:
@@ -405,7 +429,9 @@ def evaluate_dataset_sharded(model: EmbodiedDetector, cfg: DetectorConfig,
                              dataset, zs_weight: np.ndarray, mesh=None,
                              streams: Optional[int] = None,
                              verbose: bool = True,
-                             num_workers: int = 2) -> EvalResults:
+                             num_workers: int = 2,
+                             profile_dir: Optional[str] = None
+                             ) -> EvalResults:
     """Episode-parallel evaluation (the JAX package's
     `evaluate_dataset_sharded`): the scenes partitioned over `streams`
     independent lanes (default: the data axis's size), each rank of the
@@ -426,7 +452,9 @@ def evaluate_dataset_sharded(model: EmbodiedDetector, cfg: DetectorConfig,
     payload over the data group), and every rank feeds the evaluator the
     whole set in serial chunk order (annotation ids start at 0, so the
     order decides which detection is matched to annotation 0). `dataset`
-    is an `EpisodeDataset` or a sequence of chunks with `files`."""
+    is an `EpisodeDataset` or a sequence of chunks with `files`.
+    `profile_dir` writes a torch.profiler chrome trace of the loop there
+    (`eval_trace.json`, `eval_trace.rank<r>.json` on rank r > 0)."""
     from ..parallel.eval_step import make_sharded_episode_runner
     from ..parallel.mesh import gather_into, make_mesh
 
@@ -468,7 +496,7 @@ def evaluate_dataset_sharded(model: EmbodiedDetector, cfg: DetectorConfig,
     unset = object()
     ext_rows: List[tuple] = [(unset, None)] * len(mine)
     im_id = 0
-    t_data = t_compute = t_eval = 0.0
+    clock: Dict[str, float] = {}
     t_total0 = time.perf_counter()
     total_frames = 0
 
@@ -497,87 +525,72 @@ def evaluate_dataset_sharded(model: EmbodiedDetector, cfg: DetectorConfig,
     num_warmup = min(5, n_steps - 1)
     warm_steps = warm_frames = 0
     pending: List[tuple] = []
-    for j in range(n_steps):
-        if j == num_warmup:
-            t_data = t_compute = t_eval = 0.0
-            t_total0 = time.perf_counter()
-            warm_steps = j
-            warm_frames = total_frames
-        t0 = time.perf_counter()
-        row, host = next(fetch_iter)
-        frames = frames_to_device(host, device)
-        if external:
-            dirty = False
-            for k, i in enumerate(mine):
-                chunk = row[i]
-                if chunk is not None and \
-                        ext_rows[k][0] is not chunk.memory_features:
-                    ext_rows[k] = (chunk.memory_features,
-                                   external_memory_state(chunk, cfg,
-                                                         device=device))
-                    dirty = True
-            if dirty:
-                zero = MemoryState.zeros(max_cells, cfg.memory.memory_dim,
-                                         device)
-                tables = [r[1] if r[1] is not None else zero
-                          for r in ext_rows]
-                memory = MemoryState(*(torch.stack(x)
-                                       for x in zip(*tables)))
-        t_data += time.perf_counter() - t0
+    trace = "eval_trace.json" if mesh.rank == 0 else \
+        f"eval_trace.rank{mesh.rank}.json"
+    with _profiled(profile_dir, on_card, trace):
+        for j in range(n_steps):
+            if j == num_warmup:
+                clock.clear()
+                t_total0 = time.perf_counter()
+                warm_steps = j
+                warm_frames = total_frames
+            with span(DATA, clock):
+                row, host = next(fetch_iter)
+                frames = frames_to_device(host, device)
+                if external:
+                    dirty = False
+                    for k, i in enumerate(mine):
+                        chunk = row[i]
+                        if chunk is not None and \
+                                ext_rows[k][0] is not chunk.memory_features:
+                            ext_rows[k] = (chunk.memory_features,
+                                           external_memory_state(
+                                               chunk, cfg, device=device))
+                            dirty = True
+                    if dirty:
+                        zero = MemoryState.zeros(
+                            max_cells, cfg.memory.memory_dim, device)
+                        tables = [r[1] if r[1] is not None else zero
+                                  for r in ext_rows]
+                        memory = MemoryState(*(torch.stack(x)
+                                               for x in zip(*tables)))
 
-        t0 = time.perf_counter()
-        out = runner.local(frames, zs, memory)
-        if not external:
-            memory = out.memory
-        packed = gather_into(pack_scored(out.detections, score_every),
-                             mesh.group(axis), d)
-        if on_card:
-            torch.cuda.synchronize(device)
-        t_compute += time.perf_counter() - t0
+            with span(COMPUTE, clock):
+                out = runner.local(frames, zs, memory)
+                if not external:
+                    memory = out.memory
+                packed = gather_into(pack_scored(out.detections,
+                                                 score_every),
+                                     mesh.group(axis), d)
+                if on_card:
+                    torch.cuda.synchronize(device)
 
-        if cfg.memory.save_semmap:
-            for k, i in enumerate(mine):
-                if row[i] is not None:
-                    _save_memory_snapshot(cfg, zs,
-                                          out.first_memory.features[k],
-                                          out.first_memory.obs_count[k],
-                                          row[i])
+            if cfg.memory.save_semmap:
+                for k, i in enumerate(mine):
+                    if row[i] is not None:
+                        _save_memory_snapshot(cfg, zs,
+                                              out.first_memory.features[k],
+                                              out.first_memory.obs_count[k],
+                                              row[i])
 
-        t0 = time.perf_counter()
-        boxes, scores, classes, valid = unpack_scored(packed.cpu().numpy())
-        for i, chunk in enumerate(row):
-            if chunk is None:
-                continue
-            pending.append((lanes[i][j], _slim(chunk), boxes[i], scores[i],
-                            classes[i], valid[i]))
-            total_frames += int(chunk.frame_valid.sum())
-        t_eval += time.perf_counter() - t0
+            with span(SCORE, clock):
+                boxes, scores, classes, valid = unpack_scored(
+                    packed.cpu().numpy())
+                for i, chunk in enumerate(row):
+                    if chunk is None:
+                        continue
+                    pending.append((lanes[i][j], _slim(chunk), boxes[i],
+                                    scores[i], classes[i], valid[i]))
+                    total_frames += int(chunk.frame_valid.sum())
 
-    t0 = time.perf_counter()
-    pending.sort(key=lambda rec: rec[0])
-    for serial_idx, slim, b, sc, cl, v in pending:
-        im_id = _score_chunk_frames(evaluator, quartile_ids, slim,
-                                    serial_idx, b, sc, cl, v, im_id,
-                                    score_every)
-    t_eval += time.perf_counter() - t0
-    t_total = time.perf_counter() - t_total0
-    n_timed = max(n_steps - warm_steps, 1)
-    results = EvalResults(
-        overall=evaluator.evaluate(),
-        quartiles=[evaluator.evaluate(q) if q else {} for q in quartile_ids],
-        timing=dict(
-            data_s_per_chunk=t_data / n_timed,
-            compute_s_per_chunk=t_compute / n_timed,
-            eval_s_per_chunk=t_eval / n_timed,
-            total_s=t_total,
-            frames_per_s=(total_frames - warm_frames) / max(t_compute, 1e-9),
-            streams=float(s),
-        ),
-        num_images=im_id,
-    )
-    if verbose:
-        print(f"sharded eval ({s} streams) AP (overall):",
-              {k: round(v, 2) for k, v in results.overall.items()
-               if not k.startswith("AP-")})
-        print("timing:", {k: round(v, 4) for k, v in results.timing.items()})
-    return results
+    with span(SCORE, clock):
+        pending.sort(key=lambda rec: rec[0])
+        for serial_idx, slim, b, sc, cl, v in pending:
+            im_id = _score_chunk_frames(evaluator, quartile_ids, slim,
+                                        serial_idx, b, sc, cl, v, im_id,
+                                        score_every)
+    return _results(evaluator, quartile_ids, im_id, clock,
+                    max(n_steps - warm_steps, 1),
+                    time.perf_counter() - t_total0,
+                    total_frames - warm_frames, verbose,
+                    label=f"sharded eval ({s} streams) ", streams=float(s))

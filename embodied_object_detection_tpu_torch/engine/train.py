@@ -40,6 +40,7 @@ from ..parallel.mesh import make_mesh, shard_batch
 from ..parallel.train_step import (TrainBatch, TrainState, batch_to_device,
                                    make_train_step, replicate_state)
 from ..utils.tb_writer import SummaryWriter
+from ..utils.tracing import span
 from .checkpoint import (PeriodicCheckpointer, latest_checkpoint,
                          restore_checkpoint)
 
@@ -241,27 +242,26 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
                                pin=pin)
 
     window: List[Dict[str, float]] = []
-    data_t = step_t = 0.0
+    # the step timers: spans on the loop's clock
+    clock: Dict[str, float] = {}
     last_log = start_iter
     t_start = time.perf_counter()
     pool = ThreadPoolExecutor(max_workers=1)
     try:
         pending = pool.submit(load_batch, start_iter)
         for it in range(start_iter, max_iter):
-            t0 = time.perf_counter()
-            batch = pending.result()
-            if it + 1 < max_iter:
-                pending = pool.submit(load_batch, it + 1)
-            batch = batch_to_device(batch, device, pin=pin)
-            data_t += time.perf_counter() - t0
+            with span("eodt.train.data", clock):
+                batch = pending.result()
+                if it + 1 < max_iter:
+                    pending = pool.submit(load_batch, it + 1)
+                batch = batch_to_device(batch, device, pin=pin)
 
-            t0 = time.perf_counter()
-            state, losses = step_fn(state, batch, zs)
-            # the step's one host read: every loss in one copy
-            values = dict(zip(losses, torch.stack(
-                list(losses.values())).tolist()))
-            loss_val = values["total_loss"]
-            step_t += time.perf_counter() - t0
+            with span("eodt.train.step", clock):
+                state, losses = step_fn(state, batch, zs)
+                # the step's one host read: every loss in one copy
+                values = dict(zip(losses, torch.stack(
+                    list(losses.values())).tolist()))
+                loss_val = values["total_loss"]
             assert math.isfinite(loss_val), values
 
             window.append(values)
@@ -270,6 +270,8 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
                 scalars = {k: float(np.median([w[k] for w in window]))
                            for k in window[-1]}
                 scalars["lr"] = state.optimizer.lr(it)
+                data_t = clock.get("eodt.train.data", 0.0)
+                step_t = clock.get("eodt.train.step", 0.0)
                 scalars["data_time"] = data_t / n_win
                 scalars["time"] = step_t / n_win
                 if lead:
@@ -281,7 +283,7 @@ def train(model: EmbodiedDetector, cfg: DetectorConfig,
                     print(f"iter {it + 1}/{max_iter} total_loss "
                           f"{loss_val:.4f} step {step_t / n_win:.3f}s "
                           f"eta {eta / 60:.1f}m")
-                data_t = step_t = 0.0
+                clock.clear()
                 window.clear()
                 last_log = it + 1
             if lead:

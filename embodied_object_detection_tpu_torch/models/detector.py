@@ -42,6 +42,7 @@ from ..ops.memory_ops import (MemoryWriteResult, check_proj_indices,
 from ..ops.nms import multiclass_nms, sort_desc
 from ..structures import (Detections, GroundTruth, MemoryState, clip_boxes,
                           nonempty)
+from ..utils.tracing import span
 from .centernet import CenterNetHead, decode_proposals
 from .fpn import RecurrentFPN
 from .layers import DTYPES
@@ -158,13 +159,14 @@ class EmbodiedDetector(nn.Module):
         `train` turns on a Swin trunk's stochastic depth on `coins` ([T,
         blocks, 2] or [blocks, 2], from `drop_path_coins`); the ResNet-50 trunk
         (FrozenBN) has no train mode."""
-        x = (image - self.pixel_mean) / self.pixel_std
-        if not isinstance(self.backbone, SwinTransformer):
-            return self.backbone(x)
-        if train and coins is None and self.drops_paths:
-            raise ValueError("a Swin trunk in train mode needs its "
-                             "stochastic-depth coins: drop_path_coins()")
-        return self.backbone(x, coins if train else None)
+        with span("eodt.trunk"):
+            x = (image - self.pixel_mean) / self.pixel_std
+            if not isinstance(self.backbone, SwinTransformer):
+                return self.backbone(x)
+            if train and coins is None and self.drops_paths:
+                raise ValueError("a Swin trunk in train mode needs its "
+                                 "stochastic-depth coins: drop_path_coins()")
+            return self.backbone(x, coins if train else None)
 
     @property
     def drops_paths(self) -> bool:
@@ -190,50 +192,58 @@ class EmbodiedDetector(nn.Module):
                    backbone_feats: Optional[tuple] = None) -> FrameOutputs:
         """Full single-frame inference and the memory-write update.
         `backbone_feats` (C3, C4, C5) skips the trunk when it was run
-        outside the frame loop."""
+        outside the frame loop. The spans `eodt.frame.*` split it in five
+        stages that cover it whole."""
         cfg = self.cfg
         h, w = cfg.input.height, cfg.input.width
-        ego = memory_read(mem_features, mem_obs, proj_indices) \
-            if cfg.memory.reads_memory() else None
-        if backbone_feats is None:
-            backbone_feats = self.backbone_raw(image)
-        c3, c4, c5 = backbone_feats
-        p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5, ego)
+        with span("eodt.frame"):
+            with span("eodt.frame.fpn"):
+                ego = memory_read(mem_features, mem_obs, proj_indices) \
+                    if cfg.memory.reads_memory() else None
+                if backbone_feats is None:
+                    backbone_feats = self.backbone_raw(image)
+                c3, c4, c5 = backbone_feats
+                p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5, ego)
 
-        agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
-        proposals = decode_proposals(agn_hms, regs, cfg.centernet)
-        cascade = self.roi_heads.run_cascade((p3, p4, p5), proposals,
-                                             zs_weight, (h, w))
-        scores = cascade.mean_scores
-        if cfg.roi.mult_proposal_score:
-            scores = torch.sqrt(scores * proposals.scores[:, None].clamp(
-                min=0.0))
-        if cfg.roi.one_class_per_proposal:
-            best = scores[:, :-1].max(dim=1, keepdim=True).values
-            scores = scores * (scores == best).to(scores.dtype)
-        detections, _ = multiclass_nms(
-            cascade.final_boxes, scores, proposals.valid,
-            cfg.roi.score_thresh_test, cfg.roi.nms_thresh_test,
-            cfg.roi.detections_per_image)
+            with span("eodt.frame.proposals"):
+                agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
+                proposals = decode_proposals(agn_hms, regs, cfg.centernet)
+            with span("eodt.frame.cascade"):
+                cascade = self.roi_heads.run_cascade(
+                    (p3, p4, p5), proposals, zs_weight, (h, w))
+            with span("eodt.frame.detect"):
+                scores = cascade.mean_scores
+                if cfg.roi.mult_proposal_score:
+                    scores = torch.sqrt(scores * proposals.scores[
+                        :, None].clamp(min=0.0))
+                if cfg.roi.one_class_per_proposal:
+                    best = scores[:, :-1].max(dim=1, keepdim=True).values
+                    scores = scores * (scores == best).to(scores.dtype)
+                detections, _ = multiclass_nms(
+                    cascade.final_boxes, scores, proposals.valid,
+                    cfg.roi.score_thresh_test, cfg.roi.nms_thresh_test,
+                    cfg.roi.detections_per_image)
 
-        # an external GT-memory table is never written
-        if cfg.memory.write_memory and not cfg.memory.external_memory():
-            write, wboxes, wvalid = self._memory_write(
-                proposals, cascade, (p3, p4, p5), proj_indices,
-                obs_visibility)
-        else:
-            k = cfg.memory.write_topk
-            write = MemoryWriteResult(
-                features_update=torch.zeros_like(mem_features),
-                obs_update=torch.zeros_like(mem_obs),
-                any_detection=torch.zeros((), dtype=torch.bool,
-                                          device=mem_obs.device))
-            wboxes = torch.zeros((k, 4), device=mem_obs.device)
-            wvalid = torch.zeros((k,), dtype=torch.bool,
-                                 device=mem_obs.device)
-        return FrameOutputs(detections=detections, proposals=proposals,
-                            write=write, write_boxes=wboxes,
-                            write_valid=wvalid)
+            with span("eodt.frame.write"):
+                # an external GT-memory table is never written
+                if cfg.memory.write_memory and \
+                        not cfg.memory.external_memory():
+                    write, wboxes, wvalid = self._memory_write(
+                        proposals, cascade, (p3, p4, p5), proj_indices,
+                        obs_visibility)
+                else:
+                    k = cfg.memory.write_topk
+                    dev = mem_obs.device
+                    write = MemoryWriteResult(
+                        features_update=torch.zeros_like(mem_features),
+                        obs_update=torch.zeros_like(mem_obs),
+                        any_detection=torch.zeros((), dtype=torch.bool,
+                                                  device=dev))
+                    wboxes = torch.zeros((k, 4), device=dev)
+                    wvalid = torch.zeros((k,), dtype=torch.bool, device=dev)
+            return FrameOutputs(detections=detections, proposals=proposals,
+                                write=write, write_boxes=wboxes,
+                                write_valid=wvalid)
 
     def frame_train(self, image: torch.Tensor, zs_weight: torch.Tensor,
                     mem_features: torch.Tensor, mem_obs: torch.Tensor,
@@ -587,32 +597,34 @@ def _stream_step(model: EmbodiedDetector, cfg: DetectorConfig,
                  backbone_feats: Optional[tuple]
                  ) -> Tuple[_Stream, FrameOutputs]:
     """One frame of one stream: reset, choose the read memory by the
-    protocol, run the frame, carry its write."""
-    live, read = carry.live, carry.read
-    external = cfg.memory.external_memory()
-    if external:
-        read = live                     # a fixed table: no reset, no write
-    else:
-        # padding frames must not reset either (producers that pad by
-        # repeating a reset-bearing frame would wipe the carry)
-        do_reset = frame.memory_reset if frame.frame_valid is None \
-            else frame.memory_reset & frame.frame_valid
-        live = _where_state(do_reset, zeros, live)
-        if cfg.memory.test_type == "longterm":
-            read = _where_state(frame.episode_start, live,
-                                _where_state(do_reset, zeros, read))
-        else:                           # default, episodic
-            read = live
-    out = model.frame_step(frame.image, zs_weight, read.features,
-                           read.obs_count, frame.proj_indices,
-                           frame.outlier_mask, frame.obs_visibility,
-                           backbone_feats=backbone_feats)
-    if not external:
-        updated = MemoryState(live.features + out.write.features_update,
-                              live.obs_count + out.write.obs_update)
-        live = updated if frame.frame_valid is None else \
-            _where_state(frame.frame_valid, updated, live)
-    return _Stream(live, read, live if t == 0 else carry.first), out
+    protocol, run the frame, carry its write. Its span's self part, the
+    part outside `eodt.frame`, is this carry."""
+    with span("eodt.stream_step"):
+        live, read = carry.live, carry.read
+        external = cfg.memory.external_memory()
+        if external:
+            read = live                 # a fixed table: no reset, no write
+        else:
+            # padding frames must not reset either (producers that pad by
+            # repeating a reset-bearing frame would wipe the carry)
+            do_reset = frame.memory_reset if frame.frame_valid is None \
+                else frame.memory_reset & frame.frame_valid
+            live = _where_state(do_reset, zeros, live)
+            if cfg.memory.test_type == "longterm":
+                read = _where_state(frame.episode_start, live,
+                                    _where_state(do_reset, zeros, read))
+            else:                       # default, episodic
+                read = live
+        out = model.frame_step(frame.image, zs_weight, read.features,
+                               read.obs_count, frame.proj_indices,
+                               frame.outlier_mask, frame.obs_visibility,
+                               backbone_feats=backbone_feats)
+        if not external:
+            updated = MemoryState(live.features + out.write.features_update,
+                                  live.obs_count + out.write.obs_update)
+            live = updated if frame.frame_valid is None else \
+                _where_state(frame.frame_valid, updated, live)
+        return _Stream(live, read, live if t == 0 else carry.first), out
 
 
 def _check_frames(cfg: DetectorConfig, frames: FrameInputs) -> None:

@@ -48,6 +48,7 @@ from ..models.detector import EmbodiedDetector, recompute
 from ..models.losses import caption_loss
 from ..ops.memory_ops import memory_read_batched
 from ..structures import GroundTruth
+from ..utils.tracing import span
 from .mesh import (Mesh, all_reduce_gradients, all_reduce_sum, gather_rows,
                    replicate)
 
@@ -228,15 +229,16 @@ def batch_to_device(batch, device: "torch.device | str",
               "gt_valid": torch.bool, "weight": torch.float32,
               "loss_norm": torch.float32}
     out = {}
-    for name, value in batch._asdict().items():
-        if value is None:
-            out[name] = None
-            continue
-        t = torch.as_tensor(np.asarray(value) if not isinstance(
-            value, torch.Tensor) else value, dtype=dtypes[name])
-        if pin and t.device.type == "cpu":
-            t = t.pin_memory()
-        out[name] = t.to(device, non_blocking=pin)
+    with span("eodt.h2d"):
+        for name, value in batch._asdict().items():
+            if value is None:
+                out[name] = None
+                continue
+            t = torch.as_tensor(np.asarray(value) if not isinstance(
+                value, torch.Tensor) else value, dtype=dtypes[name])
+            if pin and t.device.type == "cpu":
+                t = t.pin_memory()
+            out[name] = t.to(device, non_blocking=pin)
     return TrainBatch(**out)
 
 
@@ -412,10 +414,14 @@ def make_loss_step(model: EmbodiedDetector, cfg: DetectorConfig, loss_fn,
     def step_fn(state: TrainState, *inputs
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.zero_grad(set_to_none=True)
-        total, losses = loss_fn(state.step, *inputs)
-        total.backward()
-        all_reduce_gradients(list(model.parameters()), group)
-        state.optimizer.step()
+        with span("eodt.train.forward"):
+            total, losses = loss_fn(state.step, *inputs)
+        with span("eodt.train.backward"):
+            total.backward()
+        with span("eodt.train.allreduce"):
+            all_reduce_gradients(list(model.parameters()), group)
+        with span("eodt.train.optimizer"):
+            state.optimizer.step()
         losses = {k: v.detach() for k, v in losses.items()}
         losses["total_loss"] = total.detach()
         if group is not None:

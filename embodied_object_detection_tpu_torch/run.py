@@ -115,7 +115,8 @@ def argument_parser() -> argparse.ArgumentParser:
                         "when --weights is given), then print the golden "
                         "commands")
     p.add_argument("--profile-dir", default="",
-                   help="write a torch.profiler trace of the eval here")
+                   help="write a torch.profiler trace of the eval here "
+                        "(kernels and the port's eodt.* spans)")
     p.add_argument("--coco-json", default="",
                    help="vanilla single-frame train/eval over a COCO-format "
                         "json (the train_net.py path)")
@@ -555,11 +556,9 @@ def main(argv=None):
         if args.max_chunks:
             print("warning: --max-chunks is ignored with --eval-streams "
                   "(scene partitioning needs the full chunk list)")
-        if args.profile_dir:
-            print("warning: --profile-dir is ignored with --eval-streams "
-                  "(profile the single-stream path)")
-        results = evaluate_dataset_sharded(model, cfg, dataset, zs_weight,
-                                           streams=args.eval_streams)
+        results = evaluate_dataset_sharded(
+            model, cfg, dataset, zs_weight, streams=args.eval_streams,
+            profile_dir=args.profile_dir or None)
     else:
         results = evaluate_dataset(model, cfg, dataset, zs_weight,
                                    max_chunks=args.max_chunks,

@@ -1200,5 +1200,9 @@ def test_cli_warns_on_ignored_flags(launched, capsys):
              os.path.join(out, "prof")])
     text = capsys.readouterr().out
     assert "--max-chunks is ignored" in text
-    assert "--profile-dir is ignored" in text
-    assert not os.path.exists(os.path.join(out, "prof"))
+    # --profile-dir traces the sharded loop, the port's spans included
+    assert "--profile-dir is ignored" not in text
+    with open(os.path.join(out, "prof", "eval_trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"eodt.eval.compute", "eodt.stream_step", "eodt.frame",
+            "eodt.frame.cascade"} <= names
