@@ -402,25 +402,32 @@ T_FRAMES = 4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# the proposals on the canvas, wherever autograd records none of the head:
+# one pack, one GroupNorm a tower layer, one decode
+PACKED_PROPOSALS = {"centernet_pack": 1, "group_norm_relu": 4,
+                    "centernet_decode": 1}
 # launches of each kernel in one frame of the eval path: proposal, final
-# and write NMS; three cascade stages and the mask pooler
+# and write NMS; three cascade stages and the mask pooler; the proposals
 LAUNCHES_PER_FRAME = {"segment_sum": 1, "memory_read": 1, "nms": 3,
-                      "roi_align": 4, "mask_paste": 1, "write_select": 1}
+                      "roi_align": 4, "mask_paste": 1, "write_select": 1,
+                      **PACKED_PROPOSALS}
 TRAIN_FRAMES = 4        # B: ims_per_batch 2 x 2 frames a chunk
 TRAIN_STEPS = 3
 # launches of each kernel in one training step: one batched read, then per
-# frame the proposal NMS and three cascade stages' pooling and its backward
+# frame the proposals' decode (the head runs level by level: autograd
+# records it) and NMS, and three cascade stages' pooling and its backward
 LAUNCHES_PER_STEP = {"memory_read_batched": 1, "nms": TRAIN_FRAMES,
                      "roi_align": 3 * TRAIN_FRAMES,
-                     "roi_align_backward": 3 * TRAIN_FRAMES}
+                     "roi_align_backward": 3 * TRAIN_FRAMES,
+                     "centernet_decode": TRAIN_FRAMES}
 STRIDES = (8, 16, 32)
 LEVEL_SHAPES = ((60, 80), (30, 40), (15, 20))     # p3-p5 at 480x640
 COHERENT_BLOCK = 16     # pixels a side of the squares that share a cell
 # launches a frame with an external GT memory: no write, so no write NMS,
-# mask pooler, paste, selection or segment-sum
+# mask pooler, paste, selection or segment-sum; the proposals
 LAUNCHES_PER_FRAME_EXTERNAL = {"segment_sum": 0, "memory_read": 1, "nms": 2,
                                "roi_align": 3, "mask_paste": 0,
-                               "write_select": 0}
+                               "write_select": 0, **PACKED_PROPOSALS}
 
 
 def smi(query: str) -> str:
@@ -476,8 +483,8 @@ def event_ms(fn, reps: int = 20) -> float:
 def kernel_counters():
     """Kernel name -> the wrapper whose `launches` counts its launches."""
     from embodied_object_detection_tpu_torch.ops import (
-        deform_conv, mask_paste, memory_ops, ms_deform_attn, nms, roi_align,
-        segment_sum)
+        centernet, deform_conv, mask_paste, memory_ops, ms_deform_attn, nms,
+        roi_align, segment_sum)
     return {"segment_sum": segment_sum.segment_sum,
             "memory_read": memory_ops.memory_read,
             "nms": nms.nms_keep,
@@ -491,7 +498,10 @@ def kernel_counters():
                 ms_deform_attn.ms_deform_attn_backward_cuda,
             "deform_im2col": deform_conv.deform_im2col_cuda,
             "deform_im2col_backward": deform_conv.deform_im2col_backward_cuda,
-            "memory_read_backward": memory_ops.memory_read_backward_cuda}
+            "memory_read_backward": memory_ops.memory_read_backward_cuda,
+            "centernet_pack": centernet.pack_levels,
+            "group_norm_relu": centernet.group_norm_relu,
+            "centernet_decode": centernet.centernet_decode}
 
 
 def zero_counters():
@@ -2966,7 +2976,7 @@ SERVER_FRAMES, SERVER_RESET = 5, 3
 # launches a frame of the image-only demo: proposal and final NMS, three
 # cascade stages; no read, write NMS, mask pooler, paste, selection or
 # segment-sum
-LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 3}
+LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 3, **PACKED_PROPOSALS}
 
 
 def robot_config():
@@ -4781,6 +4791,121 @@ def time_read_backward(cases, launches, errs):
     return [entry]
 
 
+# kernels 10-10c's cases: (name, level shapes, channels) of a frame's p3-p7
+# at 480x640 and of the Res5 heads' one C4 level
+CANVAS_CASES = (("frame", DCN_LEVELS, 256), ("res5", ((30, 40),), 1024))
+
+
+def canvas_levels(rng, shapes, channels):
+    """bf16 levels [h, w, C] on the card whose groups sit at different
+    means and spreads, as a tower convolution's output does."""
+    out = []
+    for h, w in shapes:
+        x = rng.randn(h, w, channels) * rng.uniform(0.5, 3.0, channels) + \
+            rng.uniform(-2.0, 2.0, channels)
+        out.append(torch.from_numpy(x.astype(np.float32)).cuda().to(
+            torch.bfloat16))
+    return out
+
+
+def time_centernet(rng, launches):
+    """Phase 7b, rows 10-10c: the CenterNet head's canvas kernels at the
+    main path's shapes, each first held to its plain version on the same
+    inputs, then timed as phase 7 times the others (their plain versions
+    are graph-captured too: none syncs). The pack (a frame's five bf16
+    levels onto the 91 x 80 canvas, and Res5's one 1024-channel level)
+    and the decode (from the canvas's heads with the scales applied
+    inside) bit-equal; the GroupNorm on the canvas (bf16 out, and f32 out
+    as the last tower layer writes it) bit-equal too (its sums run in
+    PyTorch's own order), zero at the pads, and the same call twice equal.
+    Bound: bytes
+    once over 3.35 TB/s against f32 operations (the larger). They replace
+    no TPU kernel: `csrc/centernet.cu` says why they were added."""
+    from embodied_object_detection_tpu_torch.ops import centernet as cn
+    src = "embodied_object_detection_tpu_torch/csrc/centernet.cu"
+
+    def entry(name, errs, ms, plain_ms, nbytes, flops):
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"  {name}: {ms * 1e3:.2f} us kernel, {plain_ms * 1e3:.2f} us "
+              f"plain, bound {b_ms * 1e3:.2f} us ({b_by}), largest gap to "
+              f"the plain version {errs:.3e}")
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": None, "launches": launches[name.split(" ")[0]],
+                "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    entries = []
+    for case, shapes, c in CANVAS_CASES:
+        lay = cn.canvas_layout(shapes)
+        levels = canvas_levels(rng, shapes, c)
+        used = sum(h * w for h, w in shapes)
+        cells = lay.height * lay.width
+        args = (lay.flat(), lay.height, lay.width, torch.bfloat16)
+        x = cn.pack_levels(levels, lay, torch.bfloat16)
+        if not torch.equal(x, cn.pack_levels_plain(levels, *args)):
+            raise AssertionError(f"phase 7b: the {case} pack differs from "
+                                 f"its plain version")
+        entries.append(entry(
+            f"centernet_pack ({case})", 0.0,
+            graph_ms(lambda: cn.pack_levels(levels, lay, torch.bfloat16)),
+            graph_ms(lambda: cn.pack_levels_plain(levels, *args)),
+            (used + cells) * c * 2, 0))
+        pad = torch.ones((lay.height, lay.width), dtype=torch.bool,
+                         device="cuda")
+        for (y0, x0), (h, w) in zip(lay.origins, lay.shapes):
+            pad[y0:y0 + h, x0:x0 + w] = False
+        x[pad] = 7.0                   # a convolution's output at the pads
+        bands = [x[r0:r1] for r0, r1 in lay.bands]
+        weight = torch.from_numpy(rng.normal(1.0, 0.3, c).astype(
+            np.float32)).cuda()
+        bias = torch.from_numpy(rng.normal(0.0, 0.3, c).astype(
+            np.float32)).cuda()
+        for out_f32 in (False, True):
+            def kernel():
+                return cn.group_norm_relu(bands, weight, bias, lay,
+                                          out_f32=out_f32)
+
+            def plain():
+                return cn.group_norm_relu_plain(
+                    bands, weight, bias, lay.flat(), lay.band_rows(),
+                    lay.height, 32, 1e-5, out_f32)
+            got = kernel()
+            if not torch.equal(got, plain()) or \
+                    not bool((got[pad] == 0).all()) or \
+                    not torch.equal(kernel(), got):
+                raise AssertionError(
+                    f"phase 7b: the {case} GroupNorm (out_f32={out_f32}) "
+                    f"differs from its plain version, leaves a pad, or "
+                    f"repeats otherwise")
+            entries.append(entry(
+                f"group_norm_relu ({case}{', f32 out' if out_f32 else ''})",
+                0.0, graph_ms(kernel), graph_ms(plain),
+                used * c * 2 + got.numel() * got.element_size(),
+                used * c * 8))
+    lay = cn.canvas_layout(DCN_LEVELS)
+    outs = lay.levels(torch.from_numpy(
+        (rng.randn(lay.height, lay.width, 5) * 3).astype(np.float32)).cuda())
+    hms, regs = [o[..., 0] for o in outs], [o[..., 1:] for o in outs]
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, 5).astype(
+        np.float32)).cuda()
+    strides = (8, 16, 32, 64, 128)
+    dargs = (hms, regs, scales, strides, 1e-4)
+    for g, w in zip(cn.centernet_decode(*dargs),
+                    cn.centernet_decode_plain(*dargs)):
+        if not torch.equal(g, w):
+            raise AssertionError("phase 7b: the decode differs from its "
+                                 "plain version")
+    used = sum(h * w for h, w in DCN_LEVELS)
+    entries.append(entry(
+        "centernet_decode", 0.0, graph_ms(lambda: cn.centernet_decode(*dargs)),
+        graph_ms(lambda: cn.centernet_decode_plain(*dargs)),
+        used * (5 * 4 + 8 + 6 * 4), used * 30))
+    phase("7b", "the CenterNet canvas kernels at 480x640 and Res5's shape: "
+                "each bit-equal to its plain version, zero pads; device "
+                "times from CUDA graphs of 20 calls x 10 replays")
+    return entries
+
+
 # ------------------------------------------------------------ slice 15
 
 # phase 14's image sizes: letterboxed into 480x640 without a resize (their
@@ -4789,19 +4914,24 @@ COCO_SIZES = ((480, 640), (480, 500), (400, 640), (360, 640))
 COCO_IMAGES = 16
 # launches an image of the single-frame evaluation: proposal and final NMS,
 # three cascade stages (no write: no write NMS, mask pooler or paste)
-COCO_LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 3}
+COCO_LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 3, **PACKED_PROPOSALS}
 COTRAIN_B = 4
 COTRAIN_STEPS = 3
 # launches a co-training step at B = 4: box and image-label batches the
 # proposal NMS at the training top-k and three stages' pools and their
 # backward a frame (the image-label pools hold R = 129: 128 proposals and
 # the whole-image box); caption batches one R = 1 pool and its backward a
-# frame
+# frame. Box batches decode a frame after the head level by level (autograd
+# records it); image-label batches take their proposals without a gradient,
+# on the canvas
 COTRAIN_LAUNCHES = {
-    "box": {"nms": 4, "roi_align": 12, "roi_align_backward": 12},
-    "image": {"nms": 4, "roi_align": 12, "roi_align_backward": 12},
+    "box": {"nms": 4, "roi_align": 12, "roi_align_backward": 12,
+            "centernet_decode": 4},
+    "image": {"nms": 4, "roi_align": 12, "roi_align_backward": 12,
+              **{k: 4 * n for k, n in PACKED_PROPOSALS.items()}},
     "caption": {"roi_align": 4, "roi_align_backward": 4},
-    "captiontag": {"nms": 4, "roi_align": 12, "roi_align_backward": 12},
+    "captiontag": {"nms": 4, "roi_align": 12, "roi_align_backward": 12,
+                   **{k: 4 * n for k, n in PACKED_PROPOSALS.items()}},
 }
 
 
@@ -5450,12 +5580,14 @@ def check_roi_align_cotraining(rng):
 C4_SHAPE = (30, 40)         # the Res5 heads' one level: C4 of 480x640
 C4_STRIDES = (16,)
 RES5_POOL = 14
-# launches a Res5 image: the proposal NMS and the final multiclass NMS,
-# one 14 x 14 pool of the proposals on C4
-RES5_LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 1}
-# a Res5 training frame: the proposal NMS, the pool of the sampled ROIs
-# (512 of the 2000 proposals and the GT) and its backward
-RES5_LAUNCHES_PER_STEP = {"nms": 1, "roi_align": 1, "roi_align_backward": 1}
+# launches a Res5 image: the proposals on a canvas of C4 alone, the
+# proposal NMS and the final multiclass NMS, one 14 x 14 pool of the
+# proposals on C4
+RES5_LAUNCHES_PER_IMAGE = {"nms": 2, "roi_align": 1, **PACKED_PROPOSALS}
+# a Res5 training frame: the proposals' decode and NMS, the pool of the
+# sampled ROIs (512 of the 2000 proposals and the GT) and its backward
+RES5_LAUNCHES_PER_STEP = {"nms": 1, "roi_align": 1, "roi_align_backward": 1,
+                          "centernet_decode": 1}
 RES5_STEPS = 3
 TEXT_MERGES = 300
 LVIS_CATEGORIES = (REPO / "embodied_object_detection_tpu_torch" / "data" /
@@ -7648,7 +7780,8 @@ def main() -> int:
     kernels = time_kernels(rng, launches, train_launches, errs,
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \
-        time_read_backward(read_cases, read_launches, read_errs)
+        time_read_backward(read_cases, read_launches, read_errs) + \
+        time_centernet(rng, launches)
     check_roi_align_cotraining(np.random.RandomState(15))
     check_roi_align_res5(np.random.RandomState(16))
     time_segment_sum_slam(slam_last, slam_launches)

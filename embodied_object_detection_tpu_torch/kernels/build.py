@@ -100,15 +100,34 @@ ENTRY_POINTS = {
     #  grad_mask (null without a mask), the same ten ints, stream)
     "deform_im2col_backward": ("deform_im2col_backward_launch",
                                (_P,) * 7 + (_I,) * 10 + (_P,)),
+    # (host arrays: levels, y0s, x0s, heights, widths; num_levels, canvas
+    #  height, width, channels, in_bf16, out_bf16, out, stream)
+    "centernet_pack": ("centernet_pack_launch",
+                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
+    # (host arrays: level sources, y0s, x0s, heights, widths; num_levels,
+    #  height, width, channels, groups, eps, weight, bias, out, is_bf16,
+    #  out_f32, stream)
+    "group_norm_relu": ("group_norm_relu_launch",
+                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
+                         _P, _I, _I, _P)),
+    # (host arrays: heatmaps, regressions, heights, widths, heatmap strides,
+    #  regression strides, strides; num_levels, scales (or null), score
+    #  threshold, key, rows, stream)
+    "centernet_decode": ("centernet_decode_launch",
+                         (_P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P, _P,
+                          _P)),
 }
 # the ROIAlign backward shares the forward's sample table, the deformable
 # attention's backward its corner arithmetic, the read's transpose its
-# source, the deformable convolution's kernels one source
+# source, the deformable convolution's kernels one source, and so do the
+# CenterNet head's canvas kernels
 SOURCES = {"roi_align_backward": "roi_align",
            "ms_deform_attn_backward": "ms_deform_attn",
            "memory_read_backward": "memory_read",
            "deform_im2col": "deform_conv",
-           "deform_im2col_backward": "deform_conv"}
+           "deform_im2col_backward": "deform_conv",
+           "centernet_pack": "centernet", "group_norm_relu": "centernet",
+           "centernet_decode": "centernet"}
 
 
 def source(name: str) -> str:

@@ -5,19 +5,37 @@ Counterpart of the JAX package's `models/centernet.py`: a bbox tower of
 agnostic-heatmap conv and an f32 ltrb regression conv scaled per level,
 and a fixed-shape decode (per-level top-k, a candidate cap, NMS at 0.9;
 the training settings take 4000 -> 2000 proposals).
+
+Two paths through the head, chosen by what the call can observe:
+
+- packed, wherever autograd records none of the head's work (no grad
+  mode, or neither the parameters nor the features require grad): the
+  levels go onto one canvas (`ops/centernet.py:canvas_layout`, kernel
+  10), each tower layer is one convolution a band of its rows and one
+  GroupNorm a level with its ReLU (kernel 10b), and both heads are one
+  f32 convolution with 5 output channels; the eval frame, the
+  co-training's proposals, the Res5 heads and the export run it;
+- level by level otherwise (the training forward): kernel 10b has no
+  backward.
+
+Every caller decodes with one launch of kernel 10c and one stable sort
+(`decode_proposals`, or `CenterNetHead.proposals` on the canvas).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import CenterNetConfig
+from ..ops.centernet import (canvas_layout, centernet_decode,
+                             group_norm_relu, level_grid, pack_levels)
 from ..ops.nms import NEG_INF, nms_padded, sort_desc, topk_padded
 from ..structures import Detections
+from ..utils.tracing import span
 from .layers import GroupNorm, conv, nchw, nhwc
 
 
@@ -30,6 +48,22 @@ class Scale(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale.to(x.dtype)
+
+
+def joined(owner: nn.Module, name: str,
+           parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`torch.cat(parts)`, cached on `owner` under `name` until a part is
+    changed in place or moved (as `layers.as_dtype` caches a cast); made
+    anew while a compiler traces."""
+    if torch.compiler.is_compiling():
+        return torch.cat(list(parts))
+    key = tuple((p.device, p.data_ptr(), p._version) for p in parts)
+    cached = owner.__dict__.get(name)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, torch.cat([p.detach() for p in parts]))
+        owner.__dict__[name] = cached
+    return cached[1]
 
 
 class CenterNetHead(nn.Module):
@@ -49,10 +83,25 @@ class CenterNetHead(nn.Module):
         for i in range(num_levels):
             self.add_module(f"scale{i}", Scale())
 
+    def packs(self, features: Sequence[torch.Tensor]) -> bool:
+        """True where the packed tower runs: autograd records none of the
+        head's work."""
+        if not torch.is_grad_enabled():
+            return True
+        return not any(t.requires_grad for t in features) and \
+            not any(p.requires_grad for p in self.parameters())
+
     def forward(self, features: Sequence[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Per-level [H, W, C] -> (heatmap logits [H, W, 1], regressions
         [H, W, 4]) per level, both f32."""
+        if self.packs(features):
+            agn_hms, regs = [], []
+            for lvl, out in enumerate(self.packed(features)):
+                agn_hms.append(out[..., :1])
+                regs.append(F.relu(getattr(self, f"scale{lvl}")(
+                    out[..., 1:])))
+            return agn_hms, regs
         agn_hms, regs = [], []
         for lvl, feat in enumerate(features):
             x = nchw(feat)
@@ -65,17 +114,55 @@ class CenterNetHead(nn.Module):
             regs.append(nhwc(F.relu(reg), batched=False))
         return agn_hms, regs
 
+    def packed(self, features: Sequence[torch.Tensor]
+               ) -> List[torch.Tensor]:
+        """The tower and both heads on one canvas -> each level's f32
+        [h, w, 5] view of the heads' output: the heatmap logit, then the
+        four regressions before their `Scale` and ReLU. Each tower
+        convolution runs a band of the canvas at a time (`canvas_layout`
+        says why); the f32 heads run over the whole canvas in one
+        convolution, whose outputs equal the bands' (at 480 x 640 on an
+        H100)."""
+        layout = canvas_layout(tuple((f.shape[0], f.shape[1])
+                                     for f in features))
+        last = self.num_box_convs - 1
+        x = pack_levels(features, layout,
+                        self.dtype if self.num_box_convs else torch.float32)
+        for i in range(self.num_box_convs):
+            layer = getattr(self, f"bbox_tower_conv{i}")
+            gn = getattr(self, f"bbox_tower_gn{i}")
+            x = group_norm_relu(
+                [nhwc(conv(nchw(x[r0:r1]), layer, self.dtype), batched=False)
+                 for r0, r1 in layout.bands],
+                gn.weight, gn.bias, layout, gn.num_groups, gn.eps,
+                out_f32=i == last)
+        heads = (self.agn_hm, self.bbox_pred)
+        weight = joined(self, "_head_weight", [h.weight for h in heads])
+        bias = joined(self, "_head_bias", [h.bias for h in heads])
+        return layout.levels(nhwc(F.conv2d(nchw(x), weight, bias,
+                                           padding=1), batched=False))
+
+    def proposals(self, features: Sequence[torch.Tensor],
+                  cfg: CenterNetConfig, training: bool = False
+                  ) -> Detections:
+        """Per-level [H, W, C] -> the decoded proposals
+        (`decode_proposals`'s): on the canvas where the head packs, under
+        the span `eodt.frame.proposals.packed`; else level by level."""
+        if not self.packs(features):
+            agn_hms, regs = self(features)
+            return decode_proposals(agn_hms, regs, cfg, training)
+        with span("eodt.frame.proposals.packed"):
+            outs = self.packed(features)
+            scales = joined(self, "_scales", [
+                getattr(self, f"scale{i}").scale for i in range(len(outs))])
+            return _decode([o[..., 0] for o in outs],
+                           [o[..., 1:] for o in outs], scales, cfg, training)
+
 
 def level_grids(shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
                 device: "torch.device | str" = "cpu") -> List[torch.Tensor]:
     """Per-level [H*W, 2] grid centres: index * stride + stride // 2."""
-    grids = []
-    for (h, w), s in zip(shapes, strides):
-        xs = torch.arange(w, dtype=torch.float32, device=device) * s + s // 2
-        ys = torch.arange(h, dtype=torch.float32, device=device) * s + s // 2
-        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-        grids.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1))
-    return grids
+    return [level_grid(h, w, s, device) for (h, w), s in zip(shapes, strides)]
 
 
 def decode_proposals(agn_hms: Sequence[torch.Tensor],
@@ -86,31 +173,38 @@ def decode_proposals(agn_hms: Sequence[torch.Tensor],
     per-level top `pre_nms_topk`, boxes = grid -/+ reg * stride with at
     least 0.01 extent, score = sqrt(sigmoid), class-agnostic NMS (none
     with `not_nms`), top `post_nms_topk`; the train or test settings."""
+    return _decode([hm[..., 0] for hm in agn_hms], list(regs), None, cfg,
+                   training)
+
+
+def _decode(hms: Sequence[torch.Tensor], regs: Sequence[torch.Tensor],
+            scales: Optional[torch.Tensor], cfg: CenterNetConfig,
+            training: bool) -> Detections:
+    """`decode_proposals` on heatmap logits [H, W] and regressions
+    [H, W, 4] a level, scaled and rectified first with `scales`: one
+    decode launch (kernel 10c) and one stable sort of its keys, whose
+    first min(pre_nms_topk, H * W) entries of each level's run are that
+    level's top scores, as one stable descending sort a level gives
+    them."""
     if training:
         pre_topk, post_topk = cfg.pre_nms_topk_train, cfg.post_nms_topk_train
         nms_thresh = cfg.nms_thresh_train
     else:
         pre_topk, post_topk = cfg.pre_nms_topk_test, cfg.post_nms_topk_test
         nms_thresh = cfg.nms_thresh_test
-    shapes = [(hm.shape[0], hm.shape[1]) for hm in agn_hms]
-    grids = level_grids(shapes, cfg.strides, device=agn_hms[0].device)
-
-    all_boxes, all_scores, all_valid = [], [], []
-    for hm, reg, grid, stride in zip(agn_hms, regs, grids, cfg.strides):
-        scores = torch.sigmoid(hm.reshape(-1).float())
-        reg = reg.reshape(-1, 4).float() * stride
-        top_scores, top_idx = sort_desc(scores, min(pre_topk, scores.shape[0]))
-        g, r = grid[top_idx], reg[top_idx]
-        x1 = g[:, 0] - r[:, 0]
-        y1 = g[:, 1] - r[:, 1]
-        x2 = torch.maximum(g[:, 0] + r[:, 2], x1 + 0.01)
-        y2 = torch.maximum(g[:, 1] + r[:, 3], y1 + 0.01)
-        all_boxes.append(torch.stack([x1, y1, x2, y2], dim=-1))
-        all_scores.append(torch.sqrt(top_scores))
-        all_valid.append(top_scores > cfg.score_thresh)
-    boxes = torch.cat(all_boxes)
-    scores = torch.cat(all_scores)
-    valid = torch.cat(all_valid)
+    levels = min(len(hms), len(cfg.strides))
+    key, rows = centernet_decode(
+        [hm.float() for hm in hms[:levels]],
+        [reg.float() for reg in regs[:levels]],
+        scales, cfg.strides[:levels], cfg.score_thresh)
+    _, order = torch.sort(key, stable=True)
+    parts, start = [], 0
+    for hm in hms[:levels]:
+        n = hm.shape[0] * hm.shape[1]
+        parts.append(order[start:start + min(pre_topk, n)])
+        start += n
+    rows = rows[parts[0] if len(parts) == 1 else torch.cat(parts)]
+    boxes, scores, valid = rows[:, :4], rows[:, 4], rows[:, 5] > 0
 
     cap = cfg.nms_candidate_cap
     if cap:
@@ -119,7 +213,8 @@ def decode_proposals(agn_hms: Sequence[torch.Tensor],
     if cap and cap < boxes.shape[0]:
         key = torch.where(valid, scores, scores.new_full((), NEG_INF))
         _, keep = sort_desc(key, cap)
-        boxes, scores, valid = boxes[keep], scores[keep], valid[keep]
+        rows, valid = rows[keep], valid[keep]
+        boxes, scores = rows[:, :4], rows[:, 4]
     if cfg.not_nms:
         key = torch.where(valid, scores, scores.new_full((), NEG_INF))
         top_scores, out_valid, (top_boxes,) = topk_padded(key, post_topk,

@@ -206,8 +206,8 @@ class EmbodiedDetector(nn.Module):
                 p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5, ego)
 
             with span("eodt.frame.proposals"):
-                agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
-                proposals = decode_proposals(agn_hms, regs, cfg.centernet)
+                proposals = self.centernet.proposals(
+                    (p3, p4, p5, p6, p7), cfg.centernet)
             with span("eodt.frame.cascade"):
                 cascade = self.roi_heads.run_cascade(
                     (p3, p4, p5), proposals, zs_weight, (h, w))
@@ -402,9 +402,8 @@ class EmbodiedDetector(nn.Module):
         p3, p4, p5, p6, p7 = self.fpn(*backbone_feats, None)
         # the proposals take no gradient (the JAX package stops it)
         with torch.no_grad():
-            agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
-            proposals = decode_proposals(agn_hms, regs, cfg.centernet,
-                                         training=True)
+            proposals = self.centernet.proposals(
+                (p3, p4, p5, p6, p7), cfg.centernet, training=True)
         k = min(ws_num_props, proposals.boxes.shape[0])
         device = proposals.boxes.device
         boxes = torch.cat([clip_boxes(proposals.boxes[:k], h, w),
@@ -486,8 +485,8 @@ class EmbodiedDetector(nn.Module):
         ego = memory_read(mem_features, mem_obs, proj_indices) \
             if cfg.memory.reads_memory() else None
         p3, p4, p5, p6, p7 = self.fpn(*self.backbone_raw(image), ego)
-        agn_hms, regs = self.centernet((p3, p4, p5, p6, p7))
-        proposals = decode_proposals(agn_hms, regs, cfg.centernet)
+        proposals = self.centernet.proposals((p3, p4, p5, p6, p7),
+                                             cfg.centernet)
         cascade = self.roi_heads.run_cascade((p3, p4, p5), proposals,
                                              zs_weight, (h, w))
         scores = cascade.mean_scores

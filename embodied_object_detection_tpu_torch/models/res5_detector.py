@@ -99,9 +99,8 @@ class Res5Detector(nn.Module):
         h, w = cfg.input.height, cfg.input.width
         if c4 is None:
             c4 = self.backbone_c4(image)
-        agn_hms, regs = self.centernet((c4,))
-        proposals = decode_proposals(agn_hms, regs,
-                                     self._centernet_config(False))
+        proposals = self.centernet.proposals((c4,),
+                                             self._centernet_config(False))
         x = self._roi_features(c4, proposals.boxes)
         logits, deltas, clip_feats = self.box_predictor(x, zs_weight)
         boxes = clip_boxes(apply_deltas(

@@ -5,8 +5,8 @@ Importing the package registers every kernel wrapper's custom op
 `serve/export.py` needs to load and run.
 """
 
-from . import (mask_paste, memory_ops, ms_deform_attn,  # noqa: F401
-               nms, roi_align, segment_sum)
+from . import (centernet, mask_paste, memory_ops,  # noqa: F401
+               ms_deform_attn, nms, roi_align, segment_sum)
 from .mask_paste import paste_masks  # noqa: F401
 from .nms import class_aware_nms, nms_padded  # noqa: F401
 from .roi_align import multilevel_roi_align  # noqa: F401

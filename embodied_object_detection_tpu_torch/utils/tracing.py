@@ -25,6 +25,10 @@ The spans of the main path:
       eodt.frame                EmbodiedDetector.frame_step, in five parts:
         eodt.frame.fpn          memory read, FPN with the memory merge
         eodt.frame.proposals    CenterNet and its decoding
+          eodt.frame.proposals.packed
+                                the tower, heads and decode on one canvas
+                                (CenterNetHead.proposals; also outside a
+                                frame wherever the head packs)
         eodt.frame.cascade      the cascade heads
         eodt.frame.detect       score combination and multiclass NMS
         eodt.frame.write        the memory write (or its zero fill)

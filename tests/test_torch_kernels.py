@@ -12,6 +12,10 @@ import pytest
 import torch
 
 import chip_smoke
+from centernet_reference import FULL_LEVELS, decode_per_level, head_outputs
+from embodied_object_detection_tpu_torch.config import CenterNetConfig
+from embodied_object_detection_tpu_torch.models import centernet as tcn
+from embodied_object_detection_tpu_torch.ops import centernet as cn_ops
 from embodied_object_detection_tpu_torch.ops import (
     mask_paste, memory_ops, ms_deform_attn, nms, roi_align, segment_sum)
 
@@ -846,3 +850,193 @@ def test_slice16_miniatures_card_vs_cpu(check):
         chip_smoke.check_res5_against_cpu()
     else:
         chip_smoke.check_swin_against_cpu()
+
+
+CANVAS_CASES = {"frame": (FULL_LEVELS, 256), "res5": (((30, 40),), 1024)}
+
+
+def _canvas_levels(rng, shapes, channels, dtype):
+    """Levels on the card whose groups sit at different means and
+    spreads, as a tower layer's output does."""
+    out = []
+    for h, w in shapes:
+        x = rng.randn(h, w, channels) * rng.uniform(0.5, 3.0, channels) + \
+            rng.uniform(-2.0, 2.0, channels)
+        out.append(torch.from_numpy(x.astype(np.float32)).cuda().to(dtype))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CANVAS_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_centernet_pack_kernel_vs_plain(case, dtype):
+    """Kernel 10 at the frame's five levels and at Res5's one level,
+    f32 or bf16 levels onto a bf16 canvas (and f32 onto f32): equal to
+    the plain copy, zeros at every pad."""
+    _need_card()
+    shapes, c = CANVAS_CASES[case]
+    layout = cn_ops.canvas_layout(shapes)
+    levels = _canvas_levels(np.random.RandomState(30), shapes, c, dtype)
+    for out in {torch.bfloat16, dtype}:
+        before = cn_ops.pack_levels.launches
+        got = cn_ops.pack_levels(levels, layout, out)
+        want = cn_ops.pack_levels_plain(levels, layout.flat(), layout.height,
+                                        layout.width, out)
+        torch.cuda.synchronize()
+        assert cn_ops.pack_levels.launches == before + 1
+        assert got.dtype == out and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case,dtype,out_f32", [
+    ("frame", torch.bfloat16, False), ("frame", torch.bfloat16, True),
+    ("frame", torch.float32, True), ("res5", torch.bfloat16, False)])
+def test_group_norm_relu_kernel_vs_plain(case, dtype, out_f32):
+    """Kernel 10b against the plain per-level GroupNorm on the same bands:
+    bit-equal (its statistics summed in the order PyTorch's own reduction
+    sums the plain version's means, each product and sum rounded alone);
+    pads exactly 0; one launch; the same call twice equal."""
+    _need_card()
+    shapes, c = CANVAS_CASES[case]
+    layout = cn_ops.canvas_layout(shapes)
+    rng = np.random.RandomState(31)
+    x = cn_ops.pack_levels(_canvas_levels(rng, shapes, c, torch.float32),
+                           layout, dtype)
+    pad = torch.ones((layout.height, layout.width), dtype=torch.bool,
+                     device="cuda")
+    for (y0, x0), (h, w) in zip(layout.origins, layout.shapes):
+        pad[y0:y0 + h, x0:x0 + w] = False
+    x[pad] = 7.0                       # a convolution's output at the pads
+    bands = [x[r0:r1] for r0, r1 in layout.bands]
+    weight = torch.from_numpy(rng.normal(1.0, 0.3, c).astype(
+        np.float32)).cuda()
+    bias = torch.from_numpy(rng.normal(0.0, 0.3, c).astype(
+        np.float32)).cuda()
+    before = cn_ops.group_norm_relu.launches
+    got = cn_ops.group_norm_relu(bands, weight, bias, layout,
+                                 out_f32=out_f32)
+    want = cn_ops.group_norm_relu_plain(
+        bands, weight, bias, layout.flat(), layout.band_rows(),
+        layout.height, 32, 1e-5, out_f32)
+    torch.cuda.synchronize()
+    assert cn_ops.group_norm_relu.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool((got[pad] == 0).all())
+    gap = (got.float() - want.float()).abs()
+    print(f"{case} {dtype} out_f32={out_f32}: "
+          f"{int((gap > 0).sum())} of {gap.numel()} differ, "
+          f"largest {float(gap.max()):.3e}")
+    assert torch.equal(got, want)
+    assert torch.equal(cn_ops.group_norm_relu(bands, weight, bias, layout,
+                                              out_f32=out_f32), got)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_centernet_decode_kernel_vs_plain(scaled):
+    """Kernel 10c against its plain version on the card, per level and on
+    a canvas with the scales applied inside: bit-equal (PyTorch's own f32
+    expressions, no contraction)."""
+    _need_card()
+    rng = np.random.RandomState(32)
+    strides = (8, 16, 32, 64, 128)
+    if scaled:
+        layout = cn_ops.canvas_layout(FULL_LEVELS)
+        raw = torch.from_numpy((rng.randn(layout.height, layout.width, 5) *
+                                3).astype(np.float32)).cuda()
+        outs = layout.levels(raw)
+        hms, regs = [o[..., 0] for o in outs], [o[..., 1:] for o in outs]
+        scales = torch.from_numpy(rng.uniform(0.5, 1.5, 5).astype(
+            np.float32)).cuda()
+    else:
+        hms, regs = head_outputs(FULL_LEVELS, seed=33, device="cuda")
+        hms, scales = [h[..., 0] for h in hms], None
+    before = cn_ops.centernet_decode.launches
+    got = cn_ops.centernet_decode(hms, regs, scales, strides, 1e-4)
+    want = cn_ops.centernet_decode_plain(hms, regs, scales, strides, 1e-4)
+    torch.cuda.synchronize()
+    assert cn_ops.centernet_decode.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("setting", ["test", "train", "not_nms", "tied"])
+def test_decode_proposals_bit_equal_to_per_level_on_card(setting):
+    """The one-sort decode against five stable sorts a frame on the card,
+    from the same heatmaps and regressions: bit-equal."""
+    _need_card()
+    cfg = CenterNetConfig(not_nms=setting == "not_nms")
+    training = setting == "train"
+    hms, regs = head_outputs(FULL_LEVELS, seed=34, device="cuda",
+                             constant=setting == "tied")
+    want = decode_per_level(hms, regs, cfg, training)
+    got = tcn.decode_proposals(hms, regs, cfg, training)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_frame_proposals_packed_vs_per_level():
+    """The default head (256 channels, bf16 tower) on the same 480 x 640
+    FPN features, packed under no_grad against level by level under
+    autograd: the heads' outputs and every position's box and score within
+    the bf16 tower's rounding: the heads' outputs within 2^-9 of the
+    largest (the canvas's tower rounds as the per-level one does, and its
+    f32 heads' sums may run in another order: 6.9e-6 of 1.6 measured on
+    an H100), every position's box within 0.01 px (3.4e-4 px measured)
+    and score within 2^-12 (0 measured), and at least 95 % of the frame's
+    proposals within 0.5 px of a per-level one (0.996 measured; a level
+    placed or scaled wrongly moves most of them); the decode of the packed
+    head's outputs bit-equal to the frame's proposals; 1 pack, 4 GroupNorm
+    and 1 decode launches."""
+    _need_card()
+    torch.manual_seed(35)
+    head = tcn.CenterNetHead(5, 256, 4, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            if "tower_gn" in name and name.endswith("weight"):
+                p.normal_(1.0, 0.2)
+            elif "scale" in name:
+                p.uniform_(0.5, 1.5)
+            elif name.endswith("weight"):      # the detector's init
+                p.normal_(0.0, 0.01)
+        head.agn_hm.bias.fill_(-2.0)
+    cfg = CenterNetConfig()
+    feats = [torch.randn(h, w, 256, device="cuda").to(torch.bfloat16)
+             for h, w in FULL_LEVELS]
+    want_hms, want_regs = head(feats)
+    want_hms = [t.detach() for t in want_hms]
+    want_regs = [t.detach() for t in want_regs]
+    counts = (cn_ops.pack_levels.launches, cn_ops.group_norm_relu.launches,
+              cn_ops.centernet_decode.launches)
+    with torch.no_grad():
+        props = head.proposals(feats, cfg)
+        assert (cn_ops.pack_levels.launches - counts[0],
+                cn_ops.group_norm_relu.launches - counts[1],
+                cn_ops.centernet_decode.launches - counts[2]) == (1, 4, 1)
+        got_hms, got_regs = head(feats)
+        again = tcn.decode_proposals(got_hms, got_regs, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(props, again):
+        assert torch.equal(g, w)
+    gaps = []
+    for gots, wants in ((got_hms, want_hms), (got_regs, want_regs)):
+        top = max(float(w.abs().max()) for w in wants)
+        gap = max(float((g - w).abs().max()) for g, w in zip(gots, wants))
+        print(f"head output gap {gap:.3e} of {top:.3e}")
+        gaps.append((gap, top))
+    strides = cfg.strides
+    _, got_rows = cn_ops.centernet_decode(
+        [h[..., 0] for h in got_hms], got_regs, None, strides, 1e-4)
+    _, want_rows = cn_ops.centernet_decode(
+        [h[..., 0] for h in want_hms], want_regs, None, strides, 1e-4)
+    box_gap = float((got_rows[:, :4] - want_rows[:, :4]).abs().max())
+    score_gap = float((got_rows[:, 4] - want_rows[:, 4]).abs().max())
+    print(f"box gap {box_gap:.3e} px, score gap {score_gap:.3e}")
+    want = decode_per_level(want_hms, want_regs, cfg)
+    shared = float((torch.cdist(props.boxes[props.valid],
+                                want.boxes[want.valid]).min(1).values <
+                    0.5).float().mean())
+    print(f"proposals within 0.5 px of a per-level one: {shared:.4f}")
+    for gap, top in gaps:
+        assert gap <= 2.0 ** -9 * top
+    assert box_gap <= 0.01
+    assert score_gap <= 2.0 ** -12
+    assert shared >= 0.95

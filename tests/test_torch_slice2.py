@@ -467,8 +467,9 @@ def test_slice2_kernel_sources(name, replaces):
 
 def test_all_five_kernels_are_built():
     # slice 2's five sources, with slice 3's write selection and ROIAlign
-    # backward, slice 10's deformable attention (forward and backward) and
-    # slice 11's read transpose and deformable convolution beside them
+    # backward, slice 10's deformable attention (forward and backward),
+    # slice 11's read transpose and deformable convolution and the
+    # CenterNet head's canvas kernels beside them
     assert set(build.ENTRY_POINTS) == {"segment_sum", "memory_read", "nms",
                                        "roi_align", "mask_paste",
                                        "write_select", "roi_align_backward",
@@ -476,4 +477,6 @@ def test_all_five_kernels_are_built():
                                        "ms_deform_attn_backward",
                                        "memory_read_backward",
                                        "deform_im2col",
-                                       "deform_im2col_backward"}
+                                       "deform_im2col_backward",
+                                       "centernet_pack", "group_norm_relu",
+                                       "centernet_decode"}
