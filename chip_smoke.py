@@ -201,6 +201,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      step's losses within 1e-4 and gradients within 1e-3 of each tensor's
      largest (plus 1e-6 of the step's largest for gradients that are 0 in
      exact arithmetic)
+  12e. the `detr-r50-frame` benchmark cell's path at its sizes: the model
+     built by `build_detector` from the cell's configuration file
+     (two-stage, box-refined, zero-shot over 1203 classes, FFN 1024, 300
+     queries, top-300) with the cell's seeded weights, one `make_detect`
+     batch of 8 frames at 800x1067 under the sync debug mode "error":
+     12 kernel-8 launches a frame (96) and no other port kernel, 300
+     detections a frame in order; kernel 8's calls of that batch at the
+     encoder's shape (Q = 17 821 over (100, 134) ... (13, 17)) and the
+     first decoder layer's (Q = 300, box references) equal to the plain
+     version bit for bit, both timed beside it into the `kernels` line
+     with their bound (`benchmark/bounds/ms_deform_attn.py`'s count)
   13. the modulated deformable convolution (kernels 9, 9b): seeded
      `DeformConvBlock(256, 3)` blocks with bias, modulated and not, whose
      offset convs give offsets of std ~2 (samples cross every border),
@@ -3646,6 +3657,7 @@ def check_export(model, cfg, memory):
 DETR_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
 DETR_LAUNCHES = 12      # deformable attentions a forward: 6 encoder + 6 decoder
 DETR_FRAMES = 24
+DETR_BATCH = 8          # frames a batch of DeformableDetrDetector.detect
 DETR_STEPS = 3
 DETR_VARIANTS = {"single_stage": {},
                  "two_stage_refine_zeroshot": dict(
@@ -3654,6 +3666,17 @@ DETR_VARIANTS = {"single_stage": {},
 # sampling-offset and attention-weight kernels from normal(0, 0.1) (the JAX
 # init zeroes them): samples spread ~2 level pixels from their references
 DETR_ATTN_STD = 0.1
+
+
+# the `detr-r50-frame` cell: its configuration and its encoder's levels
+DETR_CELL_CONFIG = "benchmark/configs/deformable-detr-r50-2stage-lvis.json"
+DETR_CELL_LEVELS = ((100, 134), (50, 67), (25, 34), (13, 17))
+DETR_CELL_SEED = 24
+
+
+def with_detr(cfg, **variant):
+    """`cfg` with the `detr` section's fields in `variant` set."""
+    return cfg.replace(detr=dataclasses.replace(cfg.detr, **variant))
 
 
 def msda_in_frames(trace_events, per_frame=DETR_LAUNCHES):
@@ -3858,8 +3881,9 @@ def run_detr_inference(profile_dir=None):
     zs = detr_zs().cuda()
     first, summary, stats = None, [], {}
     for name, variant in DETR_VARIANTS.items():
-        model = build_deformable_detr(cfg, seed=0, device="cuda",
-                                      attn_init_std=DETR_ATTN_STD, **variant)
+        model = build_deformable_detr(with_detr(cfg, **variant), seed=0,
+                                      device="cuda",
+                                      attn_init_std=DETR_ATTN_STD)
         z = zs if variant.get("use_zeroshot") else None
 
         def frames(n):
@@ -3894,6 +3918,17 @@ def run_detr_inference(profile_dir=None):
         if launches != expected:
             raise AssertionError(f"phase 12b {name}: launches {launches}, "
                                  f"expected {expected}")
+        # the batched path evaluate_coco runs: the trunk over the batch, a
+        # top-k over the batch; no host sync either
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                batch = model.detect(images[:DETR_BATCH], z)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if batch.scores.shape != (DETR_BATCH, 100) or not bool(
+                (batch.scores[:, :-1] >= batch.scores[:, 1:]).all()):
+            raise AssertionError(f"phase 12b {name}: bad batched outputs")
         classes = cfg.roi.num_classes
         for out, dets in outs:
             enc = out.enc_logits
@@ -3948,7 +3983,7 @@ def run_detr_inference(profile_dir=None):
                  f"256, 6 + 6 layers, 100 queries, seeded weights): "
                  f"{'; '.join(summary)}; detr_inference to 100 detections, "
                  f"{DETR_LAUNCHES} deformable-attention launches a frame, "
-                 "no host sync")
+                 f"no host sync, a frame at a time or {DETR_BATCH} a batch")
     return first, stats
 
 
@@ -3966,6 +4001,110 @@ def detr_gt(rng, h, w, g=8, valid=5):
                        torch.from_numpy(live))
 
 
+def run_detr_cell():
+    """Phase 12e: the `detr-r50-frame` cell's path at its sizes (the model
+    from the cell's configuration file through `build_detector`, the
+    cell's weights from `benchmark/traffic/frame_batches.py`), one
+    `make_detect` batch with the kernels' launches counted, and kernel 8
+    at that batch's encoder and decoder calls against its plain version
+    and its bound. Returns the `kernels` line's rows for those calls."""
+    from benchmark.bounds.ms_deform_attn import ms_deform_attn as msda_count
+    from benchmark.detector import make_zs, program_config
+    from benchmark.traffic.frame_batches import make_weights
+    from embodied_object_detection_tpu_torch.engine.coco import make_detect
+    from embodied_object_detection_tpu_torch.models import (
+        deformable_detr as td)
+    from embodied_object_detection_tpu_torch.models.detector import (
+        build_detector)
+    from embodied_object_detection_tpu_torch.ops import ms_deform_attn as ma
+
+    with open(DETR_CELL_CONFIG) as f:
+        config = json.load(f)
+    cfg = program_config(config)
+    h, w = cfg.input.height, cfg.input.width
+    model = build_detector(cfg, seed=0, device="cuda")
+    zs = make_zs(cfg.roi.zs_weight_dim, cfg.roi.num_classes, DETR_CELL_SEED,
+                 "cuda")
+    model.load_state_dict(make_weights(model, DETR_CELL_SEED, config["init"],
+                                       zs))
+    detect = make_detect(model, cfg, zs)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(DETR_CELL_SEED)
+    images = torch.randint(0, 256, (DETR_BATCH, h, w, 3), generator=gen,
+                           device="cuda").float()
+    with torch.no_grad():
+        detect(images)
+    calls, attend = [], td.ms_deform_attn
+
+    def kept(value, shapes, locs, attn):
+        """Kernel 8's call, its arguments kept for the first encoder and
+        the first decoder layer of the batch's first frame."""
+        keep = len(calls) in (0, DETR_LAUNCHES // 2)
+        calls.append((value, tuple(shapes), locs, attn) if keep else None)
+        return attend(value, shapes, locs, attn)
+
+    torch.cuda.synchronize()
+    zero_counters()
+    td.ms_deform_attn = kept
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            dets = detect(images)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        td.ms_deform_attn = attend
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counters().items() if v}
+    expected = DETR_BATCH * DETR_LAUNCHES
+    if launches != {"ms_deform_attn": expected} or len(calls) != expected:
+        raise AssertionError(f"phase 12e: launches {launches} and "
+                             f"{len(calls)} calls, expected {expected} of "
+                             "ms_deform_attn alone")
+    k = cfg.detr.test_topk
+    if dets.scores.shape != (DETR_BATCH, k) or not bool(
+            (dets.scores[:, :-1] >= dets.scores[:, 1:]).all()):
+        raise AssertionError("phase 12e: bad detections")
+    rows, summary = [], []
+    s = sum(a * b for a, b in DETR_CELL_LEVELS)
+    for name, i, q in (("encoder", 0, s),
+                       ("decoder", DETR_LAUNCHES // 2, cfg.detr.num_queries)):
+        value, shapes, locs, attn = calls[i]
+        if shapes != DETR_CELL_LEVELS or locs.shape[0] != q or \
+                value.shape[0] != s:
+            raise AssertionError(f"phase 12e {name}: levels {shapes}, Q = "
+                                 f"{locs.shape[0]}, S = {value.shape[0]}")
+        out = ma.ms_deform_attn_cuda(value, shapes, locs, attn)
+        err = float((out - ma.ms_deform_attn_plain(value, shapes, locs,
+                                                   attn)).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"phase 12e {name}: the forward differs "
+                                 f"from the plain version by {err:.3e}")
+        ms = graph_ms(lambda: ma.ms_deform_attn_cuda(value, shapes, locs,
+                                                     attn))
+        plain_ms = graph_ms(lambda: ma.ms_deform_attn_plain(value, shapes,
+                                                            locs, attn))
+        b_ms, b_by = bound_ms(*msda_count(value, shapes, locs, attn))
+        print(f"  ms_deform_attn, the cell's {name} (Q = {q}, S = {s}, "
+              f"M = {value.shape[1]}, D = {value.shape[2]}): bit-equal to "
+              f"the plain version; {ms * 1e3:.1f} us kernel, "
+              f"{plain_ms * 1e3:.1f} us plain, bound {b_ms * 1e3:.2f} us "
+              f"({b_by})")
+        summary.append(f"{name} Q = {q} {ms * 1e3:.1f} us")
+        rows.append({"name": "ms_deform_attn",
+                     "at": f"detr-r50-frame {name}, Q = {q}",
+                     "route": "cuda", "launches": expected,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    phase("12e", f"the detr-r50-frame cell's path: {DETR_BATCH} frames at "
+                 f"{h}x{w} through build_detector and make_detect, "
+                 f"{expected} ms_deform_attn launches and no other, no host "
+                 f"sync, {k} detections a frame; kernel 8 on that batch's "
+                 f"calls bit-equal to the plain version ({'; '.join(summary)})")
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_detr_training():
     """Phase 12c: three full-width train steps of the two-stage, box-refine
     detector, each followed by a GroupedOptimizer step."""
@@ -3977,9 +4116,9 @@ def run_detr_training():
 
     cfg = DetectorConfig()
     h, w = cfg.input.height, cfg.input.width
-    model = build_deformable_detr(cfg, seed=1, device="cuda",
-                                  attn_init_std=DETR_ATTN_STD,
-                                  with_box_refine=True, two_stage=True)
+    model = build_deformable_detr(
+        with_detr(cfg, with_box_refine=True, two_stage=True), seed=1,
+        device="cuda", attn_init_std=DETR_ATTN_STD)
     opt = GroupedOptimizer(model.named_parameters(), cfg.solver)
     rng = np.random.RandomState(51)
     images = torch.from_numpy(rng.randint(0, 255, (DETR_STEPS + 2, h, w, 3))
@@ -4070,9 +4209,9 @@ def check_detr_against_cpu():
     zs = detr_zs()
     worst = {}
     for name, variant in DETR_VARIANTS.items():
-        models = {dev: build_deformable_detr(cfg, seed=2, device=dev,
-                                             attn_init_std=DETR_ATTN_STD,
-                                             **variant)
+        models = {dev: build_deformable_detr(with_detr(cfg, **variant),
+                                             seed=2, device=dev,
+                                             attn_init_std=DETR_ATTN_STD)
                   for dev in ("cpu", "cuda")}
         z = zs if variant.get("use_zeroshot") else None
         with torch.no_grad():
@@ -4091,8 +4230,9 @@ def check_detr_against_cpu():
     variant = dict(with_box_refine=True, two_stage=True)
     res = {}
     for dev in ("cpu", "cuda"):
-        model = build_deformable_detr(cfg, seed=3, device=dev,
-                                      attn_init_std=DETR_ATTN_STD, **variant)
+        model = build_deformable_detr(with_detr(cfg, **variant), seed=3,
+                                      device=dev,
+                                      attn_init_std=DETR_ATTN_STD)
         (total, aux), grads = detr_train_step_host_matched(
             model, image.to(dev), type(gt)(*[t.to(dev) for t in gt]),
             (64, 96))
@@ -7760,6 +7900,7 @@ def main() -> int:
     detr_launches, _ = run_detr_inference(args.profile)
     detr_train_launches = run_detr_training()
     check_detr_against_cpu()
+    detr_cell_kernels = run_detr_cell()
     blocks = dcn_blocks()
     dcn_inputs = dcn_level_inputs(np.random.RandomState(13))
     dcn_launches, dcn_errs = check_deform_conv(blocks, dcn_inputs)
@@ -7781,7 +7922,7 @@ def main() -> int:
                            detr_launches, detr_train_launches) + \
         time_deform_conv(blocks, dcn_inputs, dcn_launches, dcn_errs) + \
         time_read_backward(read_cases, read_launches, read_errs) + \
-        time_centernet(rng, launches)
+        time_centernet(rng, launches) + detr_cell_kernels
     check_roi_align_cotraining(np.random.RandomState(15))
     check_roi_align_res5(np.random.RandomState(16))
     time_segment_sum_slam(slam_last, slam_launches)

@@ -3,7 +3,9 @@ step, the evaluation engine and the CLI.
 
 The port's own copy of the JAX package's `config.py` fields that these
 paths read (backbone, CenterNet, ROI heads, memory, input, solver, the
-process mesh and the top-level `DetectorConfig` with its data paths), with `validate_config`,
+process mesh and the top-level `DetectorConfig` with its data paths), the
+port's own `detr` section (the Deformable-DETR's widths, which the JAX
+package passes as constructor arguments), with `validate_config`,
 the `--opts` overrides (`apply_opts`) and the four golden presets
 (`parity_config`). Names and defaults are the same, so a config built for
 one package can be rebuilt field by field for the other. The JAX
@@ -82,7 +84,8 @@ class CenterNetConfig:
 class ROIHeadsConfig:
     """3-stage cascade heads + zero-shot classifier + class-agnostic masks."""
     # "cascade"; "res5": the single-frame Res5 heads
-    # (`models/res5_detector.py`)
+    # (`models/res5_detector.py`); "detr": the single-frame Deformable-DETR
+    # (`models/deformable_detr.py`, sized by `DetectorConfig.detr`)
     head_type: str = "cascade"
     strides: Tuple[int, ...] = (8, 16, 32)
     num_classes: int = 20
@@ -224,6 +227,29 @@ class ParallelConfig:
 
 
 @dataclass(frozen=True)
+class DetrConfig:
+    """The Deformable-DETR family (`roi.head_type="detr"`; ref:
+    d2_deformable_detr.py and Deformable-DETR's main.py). The defaults are
+    the JAX package's `DeformableDetrDetector`: single-stage, a linear
+    classifier over `roi.num_classes`, 100 queries; the zero-shot classifier
+    takes `roi.zs_weight_dim` and `roi.norm_temperature`. The levels (C3-C5
+    and one stride-2 extra level) and the points a level (4) are the
+    model's constants."""
+    hidden_dim: int = 256
+    heads: int = 8
+    enc_layers: int = 6
+    dec_layers: int = 6
+    ffn_dim: int = 2048
+    num_queries: int = 100
+    two_stage: bool = False
+    with_box_refine: bool = False
+    use_zeroshot: bool = False
+    # detections an image: the top-k of the last layer's (query, class)
+    # scores
+    test_topk: int = 100
+
+
+@dataclass(frozen=True)
 class DetectorConfig:
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     centernet: CenterNetConfig = field(default_factory=CenterNetConfig)
@@ -232,6 +258,7 @@ class DetectorConfig:
     input: InputConfig = field(default_factory=InputConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    detr: DetrConfig = field(default_factory=DetrConfig)
     # backbone / head compute dtype; the fp32 sites stay fp32 regardless
     compute_dtype: str = "bfloat16"
     # host-side data paths

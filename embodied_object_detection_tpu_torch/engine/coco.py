@@ -15,10 +15,11 @@ no memory, and its write is skipped.
     co-training matrix, one ann_type a batch (box, image labels, caption,
     caption + tags), ragged labels padded, the captions embedded by the
     caller's text encoder (`models/text_encoder.py:CLIPTextEncoder`)
-  * `evaluate_coco`: `frame_step` over the dataset on the model's device
-    (the cascade `EmbodiedDetector` or the `Res5Detector`), the trunk
-    batched over `batch` images, one host copy of a batch's detections,
-    COCO or LVIS-federated bbox AP on the original image sizes
+  * `evaluate_coco`: `make_detect`'s batch detector over the dataset on
+    the model's device (the cascade `EmbodiedDetector`, the `Res5Detector`
+    or the `DeformableDetrDetector`), the trunk batched over `batch`
+    images, one host copy of a batch's detections, COCO or LVIS-federated
+    bbox AP on the original image sizes
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..config import DetectorConfig
 from ..data.catalog import CocoDetectionDataset, MultiDatasetSampler
 from ..data.prefetch import prefetch_iterator
 from ..evaluation.coco_eval import COCOEvaluator
+from ..models.deformable_detr import DeformableDetrDetector
 from ..models.detector import EmbodiedDetector
 from ..models.res5_detector import Res5Detector
 from ..parallel.train_step import TrainBatch
@@ -156,8 +158,43 @@ def multi_source_train_batches(sampler: MultiDatasetSampler,
             yield "image", (images, labels, lv)
 
 
-def evaluate_coco(model: "EmbodiedDetector | Res5Detector",
-                  cfg: DetectorConfig,
+def make_detect(model: "EmbodiedDetector | Res5Detector | "
+                "DeformableDetrDetector", cfg: DetectorConfig,
+                zs: torch.Tensor):
+    """The single-frame path's batch detector, `detect(images [B, H, W, 3]
+    on the model's device) -> Detections [B, N, ...]`, with no host sync:
+    the trunk over the batch, then each frame's heads in turn (the
+    cascade's `frame_step` on zero memory, the Res5 heads), or the
+    Deformable-DETR's `detect` (its transformer a frame at a time, one
+    top-k over the batch). Call it under `torch.no_grad()`."""
+    if isinstance(model, DeformableDetrDetector):
+        return lambda images: model.detect(images, zs)
+    if isinstance(model, Res5Detector):
+        def per_frame(images):
+            c4 = model.backbone_c4(images)
+            return [model.frame_step(images[k], zs, c4=c4[k]).detections
+                    for k in range(images.shape[0])]
+    else:
+        device = zs.device
+        h, w = cfg.input.height, cfg.input.width
+        memory = MemoryState.zeros(cfg.memory.max_cells,
+                                   cfg.memory.memory_dim, device)
+        proj = torch.zeros((h, w), dtype=torch.int32, device=device)
+        outlier = torch.zeros((h, w), dtype=torch.bool, device=device)
+
+        def per_frame(images):
+            feats = model.backbone_raw(images)
+            return [model.frame_step(
+                images[k], zs, memory.features, memory.obs_count, proj,
+                outlier, backbone_feats=tuple(f[k] for f in feats)
+            ).detections for k in range(images.shape[0])]
+
+    return lambda images: Detections(*(torch.stack(x)
+                                       for x in zip(*per_frame(images))))
+
+
+def evaluate_coco(model: "EmbodiedDetector | Res5Detector | "
+                  "DeformableDetrDetector", cfg: DetectorConfig,
                   dataset: CocoDetectionDataset, zs_weight: np.ndarray,
                   batch: int = 8, max_images: Optional[int] = None,
                   verbose: bool = True, federated: bool = False,
@@ -168,37 +205,20 @@ def evaluate_coco(model: "EmbodiedDetector | Res5Detector",
     (detector_postprocess). `federated=True` selects the LVIS protocol
     (federated category drop, 300 detections an image; the items'
     neg_category_ids are the verified-absent classes), else COCO's (100).
-    The trunk runs batched over `batch` images (the Res5 variant's to
-    C4), each frame's rest in turn with no host sync; one copy brings a
-    batch's detections to the host. Returns the evaluator's AP dict. No
-    memory is carried from image to image, so the embodied model is built
-    with `memory.write_memory=False`, as `run.py --coco-json` builds it."""
-    res5 = isinstance(model, Res5Detector)
-    if not res5 and model.cfg.memory.write_memory:
+    `make_detect` runs each batch of `batch` images with no host sync;
+    one copy brings a batch's detections to the host. Returns the
+    evaluator's AP dict. No memory is carried from image to image, so the
+    embodied model is built with `memory.write_memory=False`, as
+    `run.py --coco-json` builds it."""
+    if isinstance(model, EmbodiedDetector) and \
+            model.cfg.memory.write_memory:
         raise ValueError("evaluate_coco: the single-frame path writes no "
                          "memory; build the model with "
                          "memory.write_memory=False")
     device = next(model.parameters()).device
     on_card = device.type == "cuda"
     zs = torch.from_numpy(np.asarray(zs_weight, np.float32)).to(device)
-    if res5:
-        def detect(images):
-            c4 = model.backbone_c4(images)
-            return [model.frame_step(images[k], zs, c4=c4[k]).detections
-                    for k in range(images.shape[0])]
-    else:
-        h, w = cfg.input.height, cfg.input.width
-        memory = MemoryState.zeros(cfg.memory.max_cells,
-                                   cfg.memory.memory_dim, device)
-        proj = torch.zeros((h, w), dtype=torch.int32, device=device)
-        outlier = torch.zeros((h, w), dtype=torch.bool, device=device)
-
-        def detect(images):
-            feats = model.backbone_raw(images)
-            return [model.frame_step(
-                images[k], zs, memory.features, memory.obs_count, proj,
-                outlier, backbone_feats=tuple(f[k] for f in feats)
-            ).detections for k in range(images.shape[0])]
+    detect = make_detect(model, cfg, zs)
 
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     ev = COCOEvaluator(list(range(cfg.roi.num_classes)),
@@ -217,8 +237,7 @@ def evaluate_coco(model: "EmbodiedDetector | Res5Detector",
         images = host.to(device, non_blocking=on_card).float()
         with torch.no_grad():
             dets = detect(images)
-        boxes, scores, classes, valid = scored_detections(
-            Detections(*(torch.stack(x) for x in zip(*dets))), 1)
+        boxes, scores, classes, valid = scored_detections(dets, 1)
         for k, it in enumerate(items):
             img_id = it["image_id"]
             ev.add_image(img_id, it.get("neg_category_ids", ()))

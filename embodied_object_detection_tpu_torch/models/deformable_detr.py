@@ -14,6 +14,14 @@ Every deformable attention (6 encoder and 6 decoder layers a frame) calls
 `ops/ms_deform_attn.py:ms_deform_attn`, which launches the hand-written
 kernels on the card and takes the plain version on the CPU.
 
+`models/detector.py:build_detector` builds the family for
+`roi.head_type="detr"`, sized by `DetectorConfig.detr` (whose defaults are
+the JAX package's); `DeformableDetrDetector.detect` runs a batch of frames
+(the trunk over the batch, the transformer a frame at a time, one top-k over
+the batch), as `engine/coco.py:evaluate_coco` calls it. Its stages are the
+spans `eodt.detr.trunk`, `.encoder`, `.two_stage`, `.decoder` and `.post`
+(`utils/tracing.py`), which cover it whole.
+
 Where the two frameworks differ:
   * the JAX package's LayerNorm uses epsilon 1e-6 (torch's default is
     1e-5);
@@ -51,6 +59,7 @@ from torch import nn
 from ..config import DetectorConfig
 from ..ops.ms_deform_attn import ms_deform_attn
 from ..structures import Detections, GroundTruth, giou_xyxy
+from ..utils.tracing import span
 from .detector import resolve_device
 from .layers import GroupNorm, nchw, nhwc
 from .resnet import ResNet50
@@ -209,6 +218,8 @@ class DETROutputs(NamedTuple):
     # out['enc_outputs']); None in single-stage mode
     enc_logits: Optional[torch.Tensor] = None        # [S, C]
     enc_boxes_cxcywh: Optional[torch.Tensor] = None  # [S, 4]
+    # the encoder tokens that seeded the decoder's queries, [Q] (two-stage)
+    topk_idx: Optional[torch.Tensor] = None
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -253,10 +264,10 @@ def encoder_output_proposals(shapes: Sequence[Tuple[int, int]],
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`jax.lax.top_k` of a vector: the k largest, ties by the lowest
-    index (a stable descending sort and a slice)."""
+    """`jax.lax.top_k` over the last axis: the k largest, ties by the
+    lowest index (a stable descending sort and a slice)."""
     values, idx = torch.sort(x, descending=True, stable=True)
-    return values[:k], idx[:k]
+    return values[..., :k], idx[..., :k]
 
 
 class DeformableDETR(nn.Module):
@@ -343,9 +354,24 @@ class DeformableDETR(nn.Module):
                 zs_weight: Optional[torch.Tensor] = None) -> DETROutputs:
         """features: per-level [H_l, W_l, C_l]; zs_weight [D, C+1] for the
         zero-shot classifier."""
+        shapes = tuple((int(f.shape[0]), int(f.shape[1])) for f in features)
+        with span("eodt.detr.encoder"):
+            src = self._encode(features, shapes)
+        with span("eodt.detr.two_stage"):
+            query_pos, tgt, ref, enc_logits, enc_boxes, topk_idx, \
+                query_valid = self._seed_queries(src, shapes, zs_weight)
+        with span("eodt.detr.decoder"):
+            logits, boxes = self._decode(tgt, query_pos, ref, src, shapes,
+                                         query_valid, zs_weight)
+        return DETROutputs(logits=logits, boxes_cxcywh=boxes,
+                           enc_logits=enc_logits, enc_boxes_cxcywh=enc_boxes,
+                           topk_idx=topk_idx)
+
+    def _encode(self, features, shapes):
+        """Input projections, position embeddings and the encoder layers:
+        the memory [S, C]."""
         c = self.hidden_dim
         device = features[0].device
-        shapes = tuple((int(f.shape[0]), int(f.shape[1])) for f in features)
         srcs, poss, refs = [], [], []
         for i, f in enumerate(features):
             if i < self.n_proj:
@@ -370,8 +396,17 @@ class DeformableDETR(nn.Module):
 
         for i in range(self.enc_layers):
             src = getattr(self, f"encoder{i}")(src, pos, enc_ref, shapes)
+        return src
 
-        enc_logits = enc_boxes = query_valid = None
+    def _seed_queries(self, src, shapes, zs_weight):
+        """The decoder's queries: two-stage, every encoder token a proposal
+        scored by the encoder head, the top-`num_queries` seeding queries
+        and 4-d references; else the learned queries and 2-d references.
+        Returns (query_pos, tgt, ref, enc_logits, enc_boxes, topk_idx,
+        query_valid); the last four None where they do not apply."""
+        c = self.hidden_dim
+        device = src.device
+        enc_logits = enc_boxes = topk_idx = query_valid = None
         if self.two_stage:
             # encoder tokens -> proposals; the top-k seed the decoder
             # (ref: deformable_transformer.py:157-172)
@@ -400,7 +435,13 @@ class DeformableDETR(nn.Module):
             query_pos = self.query_embed[:, :c]
             tgt = self.query_embed[:, c:]
             ref = torch.sigmoid(self.reference_points(query_pos))  # [Q, 2]
+        return (query_pos, tgt, ref, enc_logits, enc_boxes, topk_idx,
+                query_valid)
 
+    def _decode(self, tgt, query_pos, ref, src, shapes, query_valid,
+                zs_weight):
+        """The decoder layers with each layer's class and box heads:
+        (logits [layers, Q, C], boxes [layers, Q, 4])."""
         all_logits, all_boxes = [], []
         for i in range(self.dec_layers):
             tgt = getattr(self, f"decoder{i}")(tgt, query_pos, ref, src,
@@ -424,42 +465,66 @@ class DeformableDETR(nn.Module):
                 # the detached 4-d box is the next layer's reference
                 # (deformable_transformer.py new_reference_points)
                 ref = boxes.detach()
-        return DETROutputs(logits=torch.stack(all_logits),
-                           boxes_cxcywh=torch.stack(all_boxes),
-                           enc_logits=enc_logits, enc_boxes_cxcywh=enc_boxes)
+        return torch.stack(all_logits), torch.stack(all_boxes)
 
 
 class DeformableDetrDetector(nn.Module):
     """End-to-end single-image DETR detector: ResNet-50 C3-C5 (f32) and an
-    extra stride-2 level, then the deformable transformer at the JAX
-    package's defaults (ref: d2_deformable_detr.py DeformableDetr)."""
+    extra stride-2 level, then the deformable transformer sized by
+    `cfg.detr` (ref: d2_deformable_detr.py DeformableDetr), 4 points a
+    level."""
 
-    def __init__(self, cfg: DetectorConfig, num_queries: int = 100,
-                 use_zeroshot: bool = False, with_box_refine: bool = False,
-                 two_stage: bool = False):
+    def __init__(self, cfg: DetectorConfig):
         super().__init__()
+        d = cfg.detr
         self.cfg = cfg
-        self.num_queries = num_queries
+        self.num_queries = d.num_queries
         self.backbone = ResNet50(cfg.backbone.depths, dtype=torch.float32)
         self.detr = DeformableDETR(
-            in_channels=(512, 1024, 2048, 256),
-            num_classes=cfg.roi.num_classes, num_queries=num_queries,
-            use_zeroshot=use_zeroshot, with_box_refine=with_box_refine,
-            two_stage=two_stage, pre_projected=1)
+            in_channels=(512, 1024, 2048, d.hidden_dim),
+            num_classes=cfg.roi.num_classes, hidden_dim=d.hidden_dim,
+            heads=d.heads, enc_layers=d.enc_layers, dec_layers=d.dec_layers,
+            ffn=d.ffn_dim, num_queries=d.num_queries,
+            use_zeroshot=d.use_zeroshot, zs_dim=cfg.roi.zs_weight_dim,
+            norm_temperature=cfg.roi.norm_temperature,
+            with_box_refine=d.with_box_refine, two_stage=d.two_stage,
+            pre_projected=1)
         # the extra level: ONE stride-2 3x3 conv + GN on C5 is that level's
         # whole input projection (ref: deformable_detr.py input_proj
         # extra-level branch), so the trunk takes it pre-projected
         self.extra_level = nn.Conv2d(2048, self.detr.hidden_dim, 3, 2, 1)
         self.extra_gn = GroupNorm(32, self.detr.hidden_dim)
 
+    def levels(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """RGB pixels [H, W, 3] or [B, H, W, 3] -> the four levels (C3, C4,
+        C5 and the projected extra level) in the same layout."""
+        batched = images.dim() == 4
+        with span("eodt.detr.trunk"):
+            mean = _const(self.cfg.input.pixel_mean, images)
+            std = _const(self.cfg.input.pixel_std, images)
+            c3, c4, c5 = self.backbone((images.float() - mean) / std)
+            c6 = nhwc(self.extra_gn(self.extra_level(nchw(c5))), batched)
+        return c3, c4, c5, c6
+
     def forward(self, image: torch.Tensor,
                 zs_weight: Optional[torch.Tensor] = None) -> DETROutputs:
         """image [H, W, 3] RGB pixels -> DETROutputs."""
-        mean = _const(self.cfg.input.pixel_mean, image)
-        std = _const(self.cfg.input.pixel_std, image)
-        c3, c4, c5 = self.backbone((image.float() - mean) / std)
-        c6 = nhwc(self.extra_gn(self.extra_level(nchw(c5))), False)
-        return self.detr((c3, c4, c5, c6), zs_weight)
+        return self.detr(self.levels(image), zs_weight)
+
+    def detect(self, images: torch.Tensor,
+               zs_weight: Optional[torch.Tensor] = None) -> Detections:
+        """RGB pixels [B, H, W, 3] -> the top `detr.test_topk` detections
+        of each frame, [B, K, ...] in pixels: the trunk over the batch,
+        the transformer a frame at a time, `detr_inference` over the
+        batch's last-layer outputs at once. No host sync."""
+        feats = self.levels(images)
+        outs = [self.detr(tuple(f[k] for f in feats), zs_weight)
+                for k in range(images.shape[0])]
+        with span("eodt.detr.post"):
+            return detr_inference(
+                torch.stack([o.logits[-1] for o in outs]),
+                torch.stack([o.boxes_cxcywh[-1] for o in outs]),
+                tuple(images.shape[1:3]), self.cfg.detr.test_topk)
 
 
 def init_detr_weights(model: nn.Module, seed: int,
@@ -495,16 +560,16 @@ def init_detr_weights(model: nn.Module, seed: int,
 
 def build_deformable_detr(cfg: Optional[DetectorConfig] = None, seed: int = 0,
                           device: "torch.device | str" = "cuda",
-                          attn_init_std: float = 0.0,
-                          **variant) -> DeformableDetrDetector:
-    """`DeformableDetrDetector(cfg, **variant)` on `device` with random
+                          attn_init_std: float = 0.0
+                          ) -> DeformableDetrDetector:
+    """`DeformableDetrDetector(cfg)` on `device` with random
     weights from `seed` (load real ones with `load_jax_params`). TF32 is
     switched off for the process: the family runs in f32."""
     cfg = cfg or DetectorConfig()
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = DeformableDetrDetector(cfg, **variant)
+    model = DeformableDetrDetector(cfg)
     init_detr_weights(model, seed, attn_init_std)
     return model.to(device).eval()
 
@@ -602,13 +667,14 @@ def detr_inference(logits: torch.Tensor, boxes_cxcywh: torch.Tensor,
                    image_hw: Tuple[int, int], topk: int = 100) -> Detections:
     """ref: d2_deformable_detr.py post-processing: the top-k of the
     flattened (query, class) sigmoid scores, ties by the lowest index;
-    boxes shared across classes, in pixels."""
+    boxes shared across classes, in pixels. logits [..., Q, C] and boxes
+    [..., Q, 4] (leading axes: frames, each on its own) -> [..., K]."""
     h, w = image_hw
-    q, c = logits.shape
-    scores, idx = stable_topk(torch.sigmoid(logits).reshape(-1),
+    q, c = logits.shape[-2:]
+    scores, idx = stable_topk(torch.sigmoid(logits).flatten(-2),
                               min(topk, q * c))
-    boxes = boxes_cxcywh_to_xyxy(boxes_cxcywh[idx // c]) * \
-        _const((w, h, w, h), boxes_cxcywh)
+    boxes = torch.take_along_dim(boxes_cxcywh, (idx // c)[..., None], -2)
+    boxes = boxes_cxcywh_to_xyxy(boxes) * _const((w, h, w, h), boxes_cxcywh)
     return Detections(boxes=boxes, scores=scores,
                       classes=(idx % c).to(torch.int32),
                       valid=torch.ones_like(scores, dtype=torch.bool))

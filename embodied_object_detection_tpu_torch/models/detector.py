@@ -864,8 +864,10 @@ def build_detector(cfg: Optional[DetectorConfig] = None, seed: int = 0,
                    ) -> EmbodiedDetector:
     """The model on `device` with random weights from `seed` (load real
     ones with `convert.from_jax.load_jax_params`): the embodied detector,
-    or the Res5 variant (`models/res5_detector.py`) for
-    `roi.head_type="res5"`, as the JAX package dispatches. TF32 is
+    the Res5 variant (`models/res5_detector.py`) for
+    `roi.head_type="res5"`, as the JAX package dispatches, or the
+    Deformable-DETR (`models/deformable_detr.py`, its JAX init families)
+    for `roi.head_type="detr"`, sized by `cfg.detr`. TF32 is
     switched off for the process: the f32 sites (memory-merge
     projections, heatmap and regression convs, zero-shot logits, mask
     deconv and predictor, mask paste, the write's feature product, the
@@ -879,6 +881,9 @@ def build_detector(cfg: Optional[DetectorConfig] = None, seed: int = 0,
         model = Res5Detector(cfg)
         init_weights(model, seed)
         return model.to(device).eval()
+    if cfg.roi.head_type == "detr":
+        from .deformable_detr import build_deformable_detr
+        return build_deformable_detr(cfg, seed, device)
     model = EmbodiedDetector(cfg)
     init_weights(model, seed)
     return model.to(device).eval()

@@ -28,7 +28,9 @@ to a contiguous 0-based space and scores under the LVIS-federated
 protocol. `roi.head_type=res5` (the single-frame Res5 variant) runs only
 with `--coco-json`, and there only to evaluate: it trains from Python
 (`models/res5_detector.py:Res5Detector.frame_train`), and either other
-use exits, as the JAX CLI does. Everything runs on the card (`--device
+use exits, as the JAX CLI does. `roi.head_type=detr` (Deformable-DETR,
+sized by the `detr.*` options) is the same: `--coco-json --eval-only`
+only (it trains from Python, `detr_train_step_host_matched`). Everything runs on the card (`--device
 cuda`, the default) unless `--device cpu` is given; without a card,
 `cuda` raises.
 
@@ -432,6 +434,12 @@ def coco_main(args, model, cfg, zs_weight):
             "(parallel/train_step.py); the Res5 variant trains per frame "
             "through Res5Detector.frame_train (its single-frame "
             "normalisation): use it from Python")
+    if cfg.roi.head_type == "detr":
+        raise SystemExit(
+            "CLI training drives the cascade trainer "
+            "(parallel/train_step.py); Deformable-DETR trains through "
+            "models/deformable_detr.py:detr_train_step_host_matched (its "
+            "host-side Hungarian matching): use it from Python")
     from .engine.train import train
     ds = coco_ds(args.coco_json)
     max_cid = max(ds.entry.id_map.values(), default=0)
@@ -515,11 +523,11 @@ def main(argv=None):
         print(f"output dir (auto): {cfg.output_dir}")
     os.makedirs(cfg.output_dir, exist_ok=True)
 
-    if cfg.roi.head_type == "res5" and not args.coco_json:
+    if cfg.roi.head_type in ("res5", "detr") and not args.coco_json:
         raise SystemExit(
-            "roi.head_type=res5 is a single-frame variant (no memory "
-            "inputs, ref res5_roi_heads.py): use it with --coco-json "
-            "single-frame evaluation, not the episode protocol")
+            f"roi.head_type={cfg.roi.head_type} is a single-frame variant "
+            "(no memory inputs): use it with --coco-json single-frame "
+            "evaluation, not the episode protocol")
     model = build_detector(cfg, seed=0, device=args.device)
     if args.weights:
         load_weights(model, cfg, args.weights)

@@ -32,6 +32,16 @@ The spans of the main path:
         eodt.frame.cascade      the cascade heads
         eodt.frame.detect       score combination and multiclass NMS
         eodt.frame.write        the memory write (or its zero fill)
+    eodt.detr.trunk             DeformableDetrDetector.levels: the trunk
+                                and the extra level, over a batch
+    eodt.detr.encoder / .two_stage / .decoder
+                                DeformableDETR.forward, a frame: input
+                                projections and encoder layers; the
+                                query seeding (two-stage: the head over
+                                every token and its top-k); the decoder
+                                layers and their heads
+    eodt.detr.post              DeformableDetrDetector.detect's top-k over
+                                the batch (detr_inference)
     eodt.to_device              engine/eval.py:frames_to_device
     eodt.eval.data / .compute / .score   the eval loops' chunk timers
     eodt.h2d                    parallel/train_step.py:batch_to_device

@@ -56,9 +56,12 @@ def _jax_config() -> JaxConfig:
 
 
 def _port_config(cfg: JaxConfig) -> port_config.DetectorConfig:
-    """The same settings, field by field, in the port's dataclasses."""
+    """The same settings, field by field, in the port's dataclasses (a
+    section the JAX config lacks, the port's `detr`, at its defaults)."""
     kw = {}
     for f in dataclasses.fields(port_config.DetectorConfig):
+        if not hasattr(cfg, f.name):
+            continue
         value = getattr(cfg, f.name)
         if dataclasses.is_dataclass(value):
             cls = type(getattr(port_config.DetectorConfig(), f.name))

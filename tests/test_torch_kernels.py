@@ -562,6 +562,47 @@ def test_ms_deform_attn_kernels_vs_plain(q, m, d, p, locality, levels):
     assert bool(((leaves[0].grad.double() - exact).abs() <= bound).all())
 
 
+# the `detr-r50-frame` cell's levels: an 800 x 1067 frame's C3-C5 and its
+# stride-64 extra level, 17 821 tokens
+DETR_CELL_LEVELS = ((100, 134), (50, 67), (25, 34), (13, 17))
+
+
+def test_ms_deform_attn_forward_at_the_detr_cells_encoder_shape():
+    """Kernel 8's forward at the `detr-r50-frame` cell's encoder call: Q =
+    S = 17 821 tokens over its four levels, 8 heads of 32 channels, 4
+    points, each sample laid out as Deformable-DETR initialises its
+    offsets (head m along (cos, sin)(2 pi m / 8) scaled to a largest
+    coordinate of 1, point p at p + 1 level pixels) around the query's own
+    pixel centre, plus normal(0, 2) level pixels: equal to the plain
+    version bit for bit and within 1e-5 of its largest output, as phase 12
+    holds the encoder's."""
+    _need_card()
+    rng = np.random.RandomState(29)
+    shapes, m, d, p = DETR_CELL_LEVELS, 8, 32, 4
+    s = sum(h * w for h, w in shapes)
+    assert s == 17821
+    refs = np.concatenate([np.stack(
+        [(np.arange(h * w) % w + 0.5) / w,
+         (np.arange(h * w) // w + 0.5) / h], -1) for h, w in shapes])
+    theta = np.arange(m) * 2 * np.pi / m
+    grid = np.stack([np.cos(theta), np.sin(theta)], -1)
+    grid /= np.abs(grid).max(-1, keepdims=True)
+    offsets = grid[:, None, None, :] * np.arange(1, p + 1)[:, None] + \
+        rng.normal(0.0, 2.0, (s, m, len(shapes), p, 2))
+    sizes = np.array([(w, h) for h, w in shapes], np.float64)
+    locs = refs[:, None, None, None, :] + \
+        offsets / sizes[None, None, :, None, :]
+    logits = rng.randn(s, m, len(shapes) * p)
+    attn = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    value, locs, attn = (torch.from_numpy(a.astype(np.float32)).cuda()
+                         for a in (rng.randn(s, m, d), locs,
+                                   attn.reshape(s, m, len(shapes), p)))
+    out = ms_deform_attn.ms_deform_attn_cuda(value, shapes, locs, attn)
+    plain = ms_deform_attn.ms_deform_attn_plain(value, shapes, locs, attn)
+    assert _rel_err(out, plain) <= 1e-5
+    assert torch.equal(out, plain)
+
+
 def test_ms_deform_attn_autograd_launches_both_kernels():
     """Under autograd a CUDA tensor goes through MSDeformAttnFunction: one
     forward and one backward launch, and the gradients of the plain

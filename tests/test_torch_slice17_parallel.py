@@ -1043,6 +1043,8 @@ def test_sharded_runner_vs_jax_on_a_2_device_mesh(runner_fx):
     fx = runner_fx
     jcfg = JaxConfig()
     for f in dataclasses.fields(fx["cfg"]):
+        if not hasattr(jcfg, f.name):       # the port's own `detr` section
+            continue
         value = getattr(fx["cfg"], f.name)
         if dataclasses.is_dataclass(value):
             value = dataclasses.replace(getattr(jcfg, f.name), **{

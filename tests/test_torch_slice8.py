@@ -414,7 +414,10 @@ def test_config_surface_vs_jax(case):
 
 def test_port_config_fields_exist_in_jax():
     """Every field of the port's config is a JAX config field of the same
-    default, so a config carries across field by field."""
+    default, so a config carries across field by field; the one section
+    the JAX config lacks, `detr` (the JAX package builds its
+    Deformable-DETR from constructor arguments), holds the JAX
+    constructors' own defaults."""
     _shared_fields_equal(tcfg.DetectorConfig(), jcfg.DetectorConfig())
 
     def names(cfg, prefix=""):
@@ -425,8 +428,27 @@ def test_port_config_fields_exist_in_jax():
             else:
                 yield prefix + f.name
 
-    assert set(names(tcfg.DetectorConfig())) <= \
-        set(names(jcfg.DetectorConfig()))
+    port = {n for n in names(tcfg.DetectorConfig())
+            if not n.startswith("detr.")}
+    assert port <= set(names(jcfg.DetectorConfig()))
+    import inspect
+    from embodied_object_detection_tpu.models import deformable_detr as jd
+    from embodied_object_detection_tpu_torch.models import (
+        deformable_detr as td)
+    detr, det = jd.DeformableDETR, jd.DeformableDetrDetector
+    d = tcfg.DetectorConfig().detr
+    assert (d.hidden_dim, d.heads, d.enc_layers, d.dec_layers,
+            d.ffn_dim) == (detr.hidden_dim, detr.heads, detr.enc_layers,
+                           detr.dec_layers, detr.ffn)
+    # the levels and the points a level: constants of both models
+    sig = inspect.signature(td.DeformableDETR.__init__).parameters
+    assert (sig["levels"].default, sig["points"].default) == (
+        detr.levels, detr.points)
+    assert (d.num_queries, d.use_zeroshot, d.with_box_refine,
+            d.two_stage) == (det.num_queries, det.use_zeroshot,
+                             det.with_box_refine, det.two_stage)
+    assert d.test_topk == \
+        inspect.signature(jd.detr_inference).parameters["topk"].default
 
 
 @pytest.mark.parametrize("key", sorted(tcfg.PINNED_OPTS))
